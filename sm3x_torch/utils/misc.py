@@ -1,0 +1,122 @@
+"""Run-directory, meter and logger helpers of the stage-1 CLI (counterpart
+of the parts of sm3x/utils/misc.py and sm3x/utils/logging.py it uses;
+that package's `sm3x.utils` imports the JAX checkpoint code)."""
+
+from __future__ import annotations
+
+import glob
+import logging
+import os
+import random
+import re
+import sys
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def increment_path(path, sep: str = "_") -> Path:
+    """runs/exp -> runs/exp, runs/exp_2, runs/exp_3, ...; makes the
+    directory."""
+    path = Path(path)
+    if path.exists():
+        suffix = path.suffix
+        stem_path = path.with_suffix("")
+        nums = []
+        for c in glob.glob(f"{stem_path}{sep}*"):
+            m = re.search(rf"{re.escape(stem_path.stem)}{sep}(\d+)", c)
+            if m:
+                nums.append(int(m.group(1)))
+        path = Path(f"{stem_path}{sep}{max(nums) + 1 if nums else 2}{suffix}")
+    directory = path if path.suffix == "" else path.parent
+    directory.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def save_args(args_dict: dict, path: str):
+    """Dump config key: value lines, sorted (configs.txt convention)."""
+    with open(path, "w") as f:
+        for k in sorted(args_dict):
+            f.write(f"{k}: {args_dict[k]}\n")
+
+
+def fix_random_seeds(seed: int = 3407):
+    """Seed the host RNGs. Device randomness comes from explicit generators
+    (sm3x_torch.core.prng)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+class AverageMeter:
+    """Running average of a scalar."""
+
+    def __init__(self, name: str, fmt: str = ":f"):
+        self.name = name
+        self.fmt = fmt
+        self.val = self.avg = self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+    def __str__(self):
+        fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
+        return fmtstr.format(**self.__dict__)
+
+
+class ProgressMeter:
+    def __init__(self, num_batches: int, meters, prefix: str = ""):
+        digits = len(str(num_batches))
+        fmt = "{:" + str(digits) + "d}"
+        self.batch_fmtstr = "[" + fmt + "/" + fmt.format(num_batches) + "]"
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int) -> str:
+        entries = [self.prefix + self.batch_fmtstr.format(batch)]
+        entries += [str(m) for m in self.meters]
+        return "\t".join(entries)
+
+
+class _ElapsedFormatter(logging.Formatter):
+    """'[0d 00:01:23] name INFO: msg'."""
+
+    def __init__(self):
+        super().__init__()
+        self.start = time.time()
+
+    def format(self, record):
+        elapsed = int(time.time() - self.start)
+        d, rem = divmod(elapsed, 86400)
+        h, rem = divmod(rem, 3600)
+        m, s = divmod(rem, 60)
+        return (f"[{d}d {h:02d}:{m:02d}:{s:02d}] {record.name} "
+                f"{record.levelname}: {record.getMessage()}")
+
+
+def setup_logger(output: Optional[str] = None,
+                 name: str = "sm3x_torch") -> logging.Logger:
+    """stdout, and a log.txt in `output`. Calling it again for a name
+    replaces that logger's handlers."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = _ElapsedFormatter()
+    handlers = [logging.StreamHandler(stream=sys.stdout)]
+    if output:
+        os.makedirs(output, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output, "log.txt")))
+    for h in handlers:
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    return logger

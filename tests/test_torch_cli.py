@@ -1,0 +1,71 @@
+"""The port's stage-1 CLI end to end on the CPU: tools/backbone_train_torch.py
+on a synthetic Derm7pt tree (resnet18, 32x32, batch 8, one epoch). It must
+log a finite epoch loss and write a `ckp_0.pth` that loads strictly into
+the port's model. Flags outside the slice are refused with a message."""
+
+import math
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from sm3x_torch.models.simclr import build_ssl_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOL = os.path.join(REPO, "tools", "backbone_train_torch.py")
+
+COMMON = ["--data-name", "SevenPCBaseDataset", "--img-sz", "32", "32",
+          "--cache-size", "48", "--mean", "0.78", "0.67", "0.60",
+          "--std", "0.21", "0.25", "0.26", "-a", "resnet18", "--epochs", "1",
+          "-b", "8", "--save-freq", "1", "--ckpt-freq", "100",
+          "--arch-version", "v32", "--proj-dim", "16", "--temperature", "0.1",
+          "-lr", "1e-4", "--world-size", "2", "--device", "cpu", "-j", "2"]
+
+
+def _run(args, cwd):
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return subprocess.run([sys.executable, TOOL] + args, cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    from sm3x.data.synthetic import make_fake_derm7pt
+
+    root = tmp_path_factory.mktemp("torch7pc")
+    make_fake_derm7pt(str(root), n_cases=32, img_size=56)
+    return str(root)
+
+
+def test_cli_trains_one_epoch_and_writes_a_strict_checkpoint(dataset,
+                                                             tmp_path):
+    log = str(tmp_path / "bk")
+    res = _run(COMMON + ["--data-path", dataset, "--log-path", log],
+               str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    m = re.search(r"Epoch 0: loss (\S+)", res.stdout)
+    assert m and math.isfinite(float(m.group(1))), res.stdout[-3000:]
+    assert float(m.group(1)) > 0  # 16 train cases at -b 8: two real steps
+    assert os.path.exists(os.path.join(log, "configs.txt"))
+    ckpt = torch.load(os.path.join(log, "ckp_0.pth"), weights_only=True)
+    assert ckpt["epoch"] == 1
+    model, _ = build_ssl_model("v32", "resnet18", 16)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+
+
+@pytest.mark.parametrize("flag", [["--arch-version", "trimodal"],
+                                  ["--data-name", "SevenPCSwavDataset"],
+                                  ["--bn-stat-freq", "4"],
+                                  ["--arch-weights", "w.pth"],
+                                  ["--resume-path", "ckp_0.pth"],
+                                  ["--use-lr-schedule"],
+                                  ["--mesh-model", "2"],
+                                  ["-a", "vit_s16"]])
+def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag):
+    res = _run(COMMON + ["--data-path", dataset, "--log-path",
+                         str(tmp_path / "bk")] + flag, str(tmp_path))
+    assert res.returncode != 0
+    assert "not in the PyTorch port yet" in res.stdout + res.stderr
