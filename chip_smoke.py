@@ -6,18 +6,27 @@
 Phases, each printing its lines:
   device   the card's name and power limit (fails without CUDA)
   build    nvcc builds sm3x_torch/csrc/*.cu (seconds, ptxas register use)
-  kernels  K1 (photometric), K2f / K2b (NT-Xent) against their plain PyTorch
+  kernels  K1 (photometric), K2f / K2b (NT-Xent), K3f / K3b-dq / K3b-dkv
+           (flash attention) and K4 (copy) against their plain PyTorch
            versions on the card, in float32 with TF32 off, at the stage-1
-           shapes; median time of each beside the plain version's
+           shapes (K3 also in bf16 at ViT-B's (64, 197, 12, 64); K4 over
+           256 MiB, exact); median time of each beside the plain version's
   step     one fp32 step of a small model on the card against the same step
            on the CPU (plain versions), from the same weights and views
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
            T 0.1, global batch 96, --world-size 2, lr 1e-6, AdamW eps 1e-5,
            bf16 autocast, 224x224) over in-memory synthetic canvases: per-step
            losses, kernel launch counts, step time, images/s, peak memory
+  vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
+           128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
+           --use-checkpoint flash): attention through K3 forward and
+           backward, 48 launches of each a step; losses, launch counts,
+           step time, images/s, peak memory
+  copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--profile DIR`, the main phase also traces three more steps with
-torch.profiler and writes the device-time table to DIR/profile_step.txt.
+With `--profile DIR`, the main and vit phases also trace three more steps
+with torch.profiler and write the device-time tables to
+DIR/profile_step.txt and DIR/profile_vit.txt.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Any
@@ -44,9 +53,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 MAIN_STEPS, MAIN_BATCH = 4, 96          # run.sh: global batch 96
+VIT_STEPS, VIT_BATCH = 4, 64            # bench.py 64 30 vit_b16
 K1_TOL = dict(rtol=1e-4, atol=1e-5)      # tests/test_augment_pallas.py:69
 K2F_TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_ntxent_pallas.py:19
 K2B_TOL = dict(rtol=1e-4, atol=1e-6)     # tests/test_ntxent_pallas.py:31
+K3F_TOL = dict(rtol=1e-5, atol=1e-5)     # tests/test_vit_trimodal.py:77
+K3B_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_vit_trimodal.py:46
+K3_BF16_FWD, K3_BF16_REL = 0.02, 0.03    # tests/flash_tpu_check.py:53,65
+VIT_SHAPE = (64, 197, 12, 64)            # ViT-B/16 at 224, batch 64
 MEAN = (0.7833, 0.6712, 0.6026)          # run.sh Derm7pt statistics
 STD = (0.2139, 0.2472, 0.2571)
 
@@ -182,10 +196,104 @@ def phase_kernels() -> dict:
                     z, lse_p, inv_p, g, 0.1)))
     results["ntxent_fwd"]["max_abs_err"] = errs["fwd"]
     results["ntxent_bwd"]["max_abs_err"] = errs["bwd"]
+    results.update(k3_kernels())
+    results["copy"] = k4_kernel()
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
             f"(median of 20, CUDA events)")
     return results
+
+
+def k3_kernels() -> dict:
+    """K3f, K3b-dq and K3b-dkv against the plain forward and analytic
+    backward: float32 at a small ragged shape and at ViT-B's, and bf16 at
+    ViT-B's against the plain float32 version on the same bf16 inputs. The
+    times are those of the bf16 launches, the slice's; the plain time of
+    both backward kernels is the whole plain backward, which computes dq,
+    dk and dv together. max_abs_err is the largest of the float32 checks
+    and, for K3f, of the bf16 forward."""
+    from sm3x_torch.ops import attention as A
+    from sm3x_torch.ops import attention_cuda as K
+
+    rng = np.random.default_rng(5)
+
+    def run(shape, dtype):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
+        scale = 1.0 / math.sqrt(shape[3])
+        out, lse = K.flash_forward_cuda(q, k, v, scale)
+        dq, delta = K.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
+        dk, dv = K.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
+        f = [t.float() for t in (q, k, v, do)]
+        out_p, lse_p = A.attention_plain(*f[:3], scale)
+        grads_p = A.attention_backward_plain(*f[:3], out_p, f[3], lse_p,
+                                             scale)
+        torch.cuda.synchronize()
+        log(f"[kernels] K3 flash attention {shape} "
+            f"{str(dtype).replace('torch.', '')}")
+        return ((q, k, v, do, scale), (out, lse, delta),
+                zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p), (out_p, lse_p))
+
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for shape in ((3, 100, 5, 64), VIT_SHAPE):
+        _, (out, lse, _), grads, (out_p, lse_p) = run(shape, torch.float32)
+        errs["flash_fwd"] = max(errs["flash_fwd"], check_close(
+            "K3f out", out, out_p, **K3F_TOL))
+        check_close("K3f lse", lse, lse_p, **K3F_TOL)
+        for name, got, want in grads:
+            key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+            errs[key] = max(errs[key], check_close(f"K3b {name}", got, want,
+                                                   **K3B_TOL))
+
+    (q, k, v, do, scale), (out, lse, delta), grads, (out_p, _) = run(
+        VIT_SHAPE, torch.bfloat16)
+    e = float((out.float() - out_p).abs().max())
+    log(f"  K3f out (bf16): max abs err {e:.3e} (bound {K3_BF16_FWD})")
+    if not e < K3_BF16_FWD:
+        raise AssertionError("K3f in bf16 disagrees with its plain version")
+    errs["flash_fwd"] = max(errs["flash_fwd"], e)
+    for name, got, want in grads:
+        rel = float((got.float() - want).norm() / want.norm())
+        log(f"  K3b {name} (bf16): relative Frobenius err {rel:.3e} "
+            f"(bound {K3_BF16_REL})")
+        if not rel < K3_BF16_REL:
+            raise AssertionError(f"K3b {name} in bf16 disagrees")
+    plain_bwd = median_ms(lambda: A.attention_backward_plain(
+        q, k, v, out, do, lse, scale))
+    return {
+        "flash_fwd": dict(
+            max_abs_err=errs["flash_fwd"],
+            ms=median_ms(lambda: K.flash_forward_cuda(q, k, v, scale)),
+            plain_ms=median_ms(lambda: A.attention_plain(q, k, v, scale))),
+        "flash_bwd_dq": dict(
+            max_abs_err=errs["flash_bwd_dq"],
+            ms=median_ms(lambda: K.flash_backward_dq_cuda(
+                q, k, v, out, do, lse, scale)),
+            plain_ms=plain_bwd),
+        "flash_bwd_dkv": dict(
+            max_abs_err=errs["flash_bwd_dkv"],
+            ms=median_ms(lambda: K.flash_backward_dkv_cuda(
+                q, k, v, do, lse, delta, scale)),
+            plain_ms=plain_bwd),
+    }
+
+
+def k4_kernel() -> dict:
+    """K4 over 256 MiB: exact, and its GB/s beside clone's (one read and
+    one write of the array per copy)."""
+    from sm3x_torch.ops import copy_cuda as K
+
+    x = torch.randn(64 * 1024, 1024, device="cuda")
+    y = K.copy_cuda(x)
+    torch.cuda.synchronize()
+    if not torch.equal(y, x):
+        raise AssertionError("K4 copy is not exact")
+    ms = median_ms(lambda: K.copy_cuda(x))
+    plain_ms = median_ms(lambda: K.copy_plain(x))
+    gbps = [2 * x.numel() * 4 / t / 1e6 for t in (ms, plain_ms)]
+    log(f"[kernels] K4 copy {tuple(x.shape)} f32 (256 MiB): exact; "
+        f"{gbps[0]:.1f} GB/s, clone {gbps[1]:.1f} GB/s")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
 
 
 def phase_step() -> None:
@@ -235,7 +343,7 @@ def phase_step() -> None:
         raise AssertionError("parameters after one step disagree")
 
 
-def profile_steps(trainer, batches, out_dir: str) -> None:
+def profile_steps(trainer, batches, out_dir: str, name: str) -> None:
     """torch.profiler over the given steps: device time by kernel, per
     step, and the device's busy share of the host-clock window."""
     from torch.autograd import DeviceType
@@ -271,25 +379,32 @@ def profile_steps(trainer, batches, out_dir: str) -> None:
         log(f"  {t / n / 1e3:8.3f} ms/step {100 * t / busy_us:5.1f}%  "
             f"x{e.count // n:<4d} {e.key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_step.txt")
+    path = os.path.join(out_dir, name)
     with open(path, "w") as f:
         f.write(events.table(sort_by=key, row_limit=80,
                              max_name_column_width=100))
     log(f"  full table: {path}")
 
 
-def phase_main(profile_dir=None) -> dict:
+def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
+              per_step: dict, profile_dir=None, profile_name=None) -> dict:
+    """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
+    steps through SSLTrainer.fit with every kernel count set to 0 just
+    before and read just after (each must equal `per_step` x steps), then
+    the step time over 8 more steps."""
     from sm3x_torch.core.config import SSLConfig
     from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.ops import attention_cuda as A
     from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops import copy_cuda as C
     from sm3x_torch.ops import ntxent_cuda as N
     from sm3x_torch.train.backbone_train import SSLTrainer
 
-    steps, batch = MAIN_STEPS, MAIN_BATCH
     cfg = SSLConfig()
     m, o, r = cfg.model, cfg.optim, cfg.run
-    m.arch, m.arch_version, m.proj_dim, m.temperature = ("resnet50", "v32",
-                                                         128, 0.1)
+    m.arch, m.arch_version, m.proj_dim, m.temperature = (arch, "v32", 128,
+                                                         0.1)
+    m.use_checkpoint = use_checkpoint
     o.batch_size, o.base_lr, o.adam_eps, o.amp, o.epochs = (batch, 1e-6, 1e-5,
                                                             True, 1)
     cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
@@ -300,7 +415,9 @@ def phase_main(profile_dir=None) -> dict:
     data = SyntheticPairedData(batch * steps, canvas=320, seed=0)
     trainer = SSLTrainer(cfg)
     counters = (K.photometric_cuda, N.ntxent_forward_cuda,
-                N.ntxent_backward_cuda)
+                N.ntxent_backward_cuda, A.flash_forward_cuda,
+                A.flash_backward_dq_cuda, A.flash_backward_dkv_cuda,
+                C.copy_cuda)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -311,15 +428,15 @@ def phase_main(profile_dir=None) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
-    log(f"[main] stage-1 step: resnet50/v32, proj 128, T 0.1, batch {batch}, "
-        f"world size 2, bf16 autocast, 224x224; {steps} steps via "
-        f"SSLTrainer.fit in {wall:.2f} s")
+    log(f"[{tag}] stage-1 step: {arch}/v32, proj 128, T 0.1, batch {batch}, "
+        f"world size 2, bf16 autocast, 224x224, --use-checkpoint "
+        f"{trainer.remat}; {steps} steps via SSLTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
     log(f"  kernel launches in fit: {launches}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
-    want = {"photometric_cuda": 4 * steps, "ntxent_forward_cuda": steps,
-            "ntxent_backward_cuda": steps}
+    want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
+            for fn in counters}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not os.path.exists(os.path.join(r.log_path, "ckp_0.pth")):
@@ -349,16 +466,54 @@ def phase_main(profile_dir=None) -> dict:
     log(f"  peak device memory in fit: {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     if profile_dir:
-        profile_steps(trainer, device_batches(3)[:3], profile_dir)
+        profile_steps(trainer, device_batches(3)[:3], profile_dir,
+                      profile_name)
     shutil.rmtree(r.log_path, ignore_errors=True)
     return launches
+
+
+def phase_main(profile_dir=None) -> dict:
+    return phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
+                     {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
+                      "ntxent_backward_cuda": 1},
+                     profile_dir, "profile_step.txt")
+
+
+def phase_vit(profile_dir=None) -> dict:
+    """vit_b16 with --use-checkpoint flash: 12 blocks x 4 encoder passes
+    give 48 launches of each K3 kernel a step."""
+    return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
+                     {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
+                      "ntxent_backward_cuda": 1, "flash_forward_cuda": 48,
+                      "flash_backward_dq_cuda": 48,
+                      "flash_backward_dkv_cuda": 48},
+                     profile_dir, "profile_vit.txt")
+
+
+def phase_copy() -> dict:
+    """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
+    import importlib.util
+
+    from sm3x_torch.ops import copy_cuda as C
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_copy_torch", os.path.join(ROOT, "tools", "bench_copy_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    C.copy_cuda.launches = 0
+    log("[copy] tools/bench_copy_torch.py 256 50")
+    tool.main(["256", "50"])
+    log(f"  kernel launches: copy_cuda {C.copy_cuda.launches}")
+    if C.copy_cuda.launches != 52:  # 2 warm-up + 50 timed
+        raise AssertionError("the copy tool did not run K4 52 times")
+    return {"copy_cuda": C.copy_cuda.launches}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="also profile three steps of the main phase and "
-                   "write the table to DIR")
+                   help="also profile three steps of the main and vit "
+                   "phases and write the tables to DIR")
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
@@ -369,21 +524,39 @@ def main(argv=None) -> int:
     kernels = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
+    vit_launches = phase_vit(args.profile)
+    copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
 
+    flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    # name: source, TPU kernel replaced, counter, the path's launch counts
     meta = {
         "photometric": ("sm3x_torch/csrc/photometric.cu",
-                        "sm3x/ops/augment_pallas.py:162", "photometric_cuda"),
+                        "sm3x/ops/augment_pallas.py:162", "photometric_cuda",
+                        launches),
         "ntxent_fwd": ("sm3x_torch/csrc/ntxent.cu",
-                       "sm3x/ops/ntxent_pallas.py:77", "ntxent_forward_cuda"),
+                       "sm3x/ops/ntxent_pallas.py:77", "ntxent_forward_cuda",
+                       launches),
         "ntxent_bwd": ("sm3x_torch/csrc/ntxent.cu",
-                       "sm3x/ops/ntxent_pallas.py:91", "ntxent_backward_cuda"),
+                       "sm3x/ops/ntxent_pallas.py:91", "ntxent_backward_cuda",
+                       launches),
+        "flash_fwd": ("sm3x_torch/csrc/flash_attention.cu",
+                      f"sm3x/models/vit.py:85 ({flash}:758)",
+                      "flash_forward_cuda", vit_launches),
+        "flash_bwd_dkv": ("sm3x_torch/csrc/flash_attention.cu",
+                          f"sm3x/models/vit.py:85 ({flash}:1121)",
+                          "flash_backward_dkv_cuda", vit_launches),
+        "flash_bwd_dq": ("sm3x_torch/csrc/flash_attention.cu",
+                         f"sm3x/models/vit.py:85 ({flash}:1456)",
+                         "flash_backward_dq_cuda", vit_launches),
+        "copy": ("sm3x_torch/csrc/copy.cu", "tools/bench_pallas_io.py:44",
+                 "copy_cuda", copy_launches),
     }
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[counter], **kernels[name])
-            for name, (src, rep, counter) in meta.items()]
+                 launches=counts[counter], **kernels[name])
+            for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ are built with nvcc at first use (`sm3x_torch.ops._native`).
 Subpackages
 -----------
 core      configs, seed discipline
-models    ResNet family, SimCLR dual-modal models, projector, batch norm
-ops       NT-Xent and augmentation: plain versions and CUDA kernels
+models    ResNet and ViT families, SimCLR dual-modal models, projector,
+          batch norm
+ops       NT-Xent, augmentation, attention, copy: plain versions and CUDA
+          kernels
 losses    stage-1 SSL loss assembly
 train     the stage-1 trainer
 data      in-memory synthetic paired canvases

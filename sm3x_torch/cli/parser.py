@@ -110,7 +110,14 @@ def add_ssl_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--num-labels", type=int, default=8)
     p.add_argument("--label-weights", nargs="*", type=float,
                    default=[1.0] * 8)
-    p.add_argument("--use-checkpoint", nargs="?", const=True, default=False)
+    p.add_argument("--use-checkpoint", nargs="?", const=True, default=False,
+                   choices=("off", "dots", "attn", "flash", "mlp", "attn_mlp"),
+                   help="activation-memory mode (ViT backbones): bare flag = "
+                   "per-block checkpoint; 'dots' = save the weight matmuls' "
+                   "outputs only; 'attn' = recompute the attention internals; "
+                   "'flash' = flash-attention kernels on the card; 'mlp' = "
+                   "recompute ln2+fc1+gelu; 'attn_mlp' = both; 'off' = save "
+                   "everything. A ViT defaults to 'attn'")
     p.add_argument("--use-pallas-ntxent", action="store_true",
                    help="accepted for parity: on CUDA the NT-Xent loss "
                    "always runs as the port's kernel")

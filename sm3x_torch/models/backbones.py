@@ -1,37 +1,44 @@
-"""Backbone registry (counterpart of sm3x/models/backbones.py).
-
-The ResNet family is ported. The ViT family of the JAX package
-(sm3x/models/vit.py) is not yet: it is a stretch model of a later slice
-(ROADMAP.md, "Slice E"), together with its attention kernel K3.
-"""
+"""Backbone registry: the ResNet family and the ViT family (counterpart of
+sm3x/models/backbones.py)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 from sm3x_torch.models import resnet as resnet_lib
+from sm3x_torch.models import vit as vit_lib
 
-VIT_ARCHS = ("vit_t16", "vit_s16", "vit_b16", "vit_l16")
-
-
-def _unported(arch: str):
-    return NotImplementedError(
-        f"{arch}: the ViT backbones are not in the PyTorch port yet "
-        f"(ROADMAP.md, slice E: sm3x/models/vit.py and kernel K3)")
+VIT_ONLY_MODES = ("attn", "flash", "dots", "mlp", "attn_mlp")
 
 
-def build_backbone(arch: str, num_classes: Optional[int] = None):
+def build_backbone(arch: str, num_classes: Optional[int] = None,
+                   remat: Union[bool, str] = False,
+                   img_size: Union[int, Sequence[int]] = 224):
+    """`remat` is the --use-checkpoint mode; `img_size` the input size a
+    ViT's pos_embed is made for (a ResNet takes any size)."""
     if arch in resnet_lib.FEAT_DIMS:
+        if remat in VIT_ONLY_MODES:
+            raise ValueError(
+                f"--use-checkpoint={remat} is an attention-memory mode for "
+                f"ViT backbones; {arch} supports bare --use-checkpoint only")
+        if remat is True:
+            raise NotImplementedError(
+                f"{arch}: per-block remat (bare --use-checkpoint) of a ResNet "
+                f"is not in the PyTorch port yet (ROADMAP.md)")
         return resnet_lib.build_resnet(arch, num_classes)
-    if arch in VIT_ARCHS:
-        raise _unported(arch)
+    if arch in vit_lib.VIT_SPECS:
+        return vit_lib.build_vit(arch, num_classes, remat, img_size)
     raise ValueError(f"unknown backbone {arch!r}; have "
-                     f"{sorted(resnet_lib.FEAT_DIMS) + list(VIT_ARCHS)}")
+                     f"{sorted(resnet_lib.FEAT_DIMS) + sorted(vit_lib.VIT_SPECS)}")
 
 
 def feat_dim(arch: str) -> int:
     if arch in resnet_lib.FEAT_DIMS:
         return resnet_lib.FEAT_DIMS[arch]
-    if arch in VIT_ARCHS:
-        raise _unported(arch)
+    if arch in vit_lib.VIT_FEAT_DIMS:
+        return vit_lib.VIT_FEAT_DIMS[arch]
     raise ValueError(f"unknown backbone {arch!r}")
+
+
+def is_vit(arch: str) -> bool:
+    return arch in vit_lib.VIT_SPECS

@@ -14,7 +14,7 @@ float32, as the JAX package builds its projectors with float32 compute.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,13 +24,17 @@ from sm3x_torch.models.projector import SSLProjector
 
 
 class SimCLRBranch(nn.Module):
-    """One modality: ResNet encoder + 3-layer MLP projector."""
+    """One modality: ResNet or ViT encoder + 3-layer MLP projector.
+    `remat` is the encoder's --use-checkpoint mode and `img_size` the input
+    size a ViT's pos_embed is made for."""
 
     def __init__(self, arch: str = "resnet50", proj_dim: int = 128,
-                 amp: bool = False):
+                 amp: bool = False, remat: Union[bool, str] = False,
+                 img_size: Union[int, Sequence[int]] = 224):
         super().__init__()
         self.amp = amp
-        self.encoder = backbones.build_backbone(arch)
+        self.encoder = backbones.build_backbone(arch, remat=remat,
+                                                img_size=img_size)
         self.encoder_out_dim = backbones.feat_dim(arch)
         self.projector = SSLProjector(self.encoder_out_dim, proj_dim)
 
@@ -59,11 +63,14 @@ class SimCLRSkinV3(nn.Module):
     """
 
     def __init__(self, arch: str = "resnet50", proj_dim: int = 128,
-                 amp: bool = False, shared_cross_proj: bool = True):
+                 amp: bool = False, shared_cross_proj: bool = True,
+                 remat: Union[bool, str] = False,
+                 img_size: Union[int, Sequence[int]] = 224):
         super().__init__()
         self.shared_cross_proj = shared_cross_proj
-        self.derm_backbone = SimCLRBranch(arch, proj_dim, amp)
-        self.clinic_backbone = SimCLRBranch(arch, proj_dim, amp)
+        self.derm_backbone = SimCLRBranch(arch, proj_dim, amp, remat, img_size)
+        self.clinic_backbone = SimCLRBranch(arch, proj_dim, amp, remat,
+                                            img_size)
         feat = backbones.feat_dim(arch)
         if shared_cross_proj:
             self.cross_proj = SSLProjector(feat, proj_dim)
@@ -103,11 +110,13 @@ _VERSIONS = {
 
 
 def build_ssl_model(arch_version: str, arch: str = "resnet50",
-                    proj_dim: int = 128,
-                    amp: bool = False) -> Tuple[SimCLRSkinV3, int]:
+                    proj_dim: int = 128, amp: bool = False,
+                    remat: Union[bool, str] = False,
+                    img_size: Union[int, Sequence[int]] = 224
+                    ) -> Tuple[SimCLRSkinV3, int]:
     """--arch-version -> (model, loss style)."""
     if arch_version not in _VERSIONS:
         raise ValueError(f"unknown arch_version {arch_version!r}; the port "
                          f"has {sorted(_VERSIONS)}")
     shared, style = _VERSIONS[arch_version]
-    return SimCLRSkinV3(arch, proj_dim, amp, shared), style
+    return SimCLRSkinV3(arch, proj_dim, amp, shared, remat, img_size), style

@@ -39,6 +39,16 @@ _SIGNATURES = {
     "sm3x_ntxent_fwd": [_c_void_p] * 5 + [_c_int] * 3 + [_c_float, _c_void_p],
     # z, lse, inv, g, dz, P, n, D, temperature, stream
     "sm3x_ntxent_bwd": [_c_void_p] * 5 + [_c_int] * 3 + [_c_float, _c_void_p],
+    # ptrs (host array), strides (host int64 array), B, S, H, D, scale,
+    # bf16, stream
+    "sm3x_flash_fwd": [_c_void_p] * 2 + [_c_int] * 4 + [_c_float, _c_int,
+                                                        _c_void_p],
+    "sm3x_flash_bwd_dq": [_c_void_p] * 2 + [_c_int] * 4 + [_c_float, _c_int,
+                                                           _c_void_p],
+    "sm3x_flash_bwd_dkv": [_c_void_p] * 2 + [_c_int] * 4 + [_c_float, _c_int,
+                                                            _c_void_p],
+    # src, dst, n, stream
+    "sm3x_copy": [_c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
 }
 
 _lock = threading.Lock()

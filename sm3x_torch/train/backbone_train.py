@@ -3,9 +3,10 @@
 
 One step, after the uint8 canvases reach the device:
   2 augmented views per modality (RRC as torch.bmm, photometric chain as
-  kernel K1) -> SimCLRSkinV3/V32 (bf16 autocast around the encoders) ->
-  ssl_loss (all NT-Xent terms and groups as one K2 call) -> backward
-  (K2b for the loss) -> AdamW.
+  kernel K1) -> SimCLRSkinV3/V32 with ResNet or ViT encoders (bf16 autocast
+  around the encoders; a ViT with --use-checkpoint flash runs its attention
+  as kernels K3f / K3b-dq / K3b-dkv) -> ssl_loss (all NT-Xent terms and
+  groups as one K2 call) -> backward (K2b for the loss) -> AdamW.
 
 Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
@@ -24,6 +25,7 @@ import torch
 
 from sm3x_torch.core import prng
 from sm3x_torch.losses.ssl import ssl_loss
+from sm3x_torch.models.backbones import is_vit
 from sm3x_torch.models.simclr import build_ssl_model
 from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
                                     ssl_augment_batch)
@@ -45,8 +47,6 @@ def unsupported(cfg) -> list:
          f"{' or '.join(DATASETS)} (multi-crop SevenPCSwavDataset {later})"),
         (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} {later}"),
         (bool(m.arch_weights), f"--arch-weights {later}"),
-        (m.use_checkpoint not in (False, "off"),
-         f"--use-checkpoint {m.use_checkpoint} {later}"),
         (o.use_lr_schedule, f"--use-lr-schedule {later}"),
         (bool(r.resume_path), f"--resume-path {later}"),
         (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
@@ -64,6 +64,18 @@ def unsupported(cfg) -> list:
          f"--negatives {m.negatives}"),
     ]
     return [msg for bad, msg in checks if bad]
+
+
+def resolve_remat(use_checkpoint, arch: str, logger=None):
+    """--use-checkpoint -> the encoder's remat mode, as the JAX trainer
+    resolves it (sm3x/train/backbone_train.py:224-232): a ViT defaults to
+    'attn' (recompute only the attention internals), 'off' is False."""
+    if use_checkpoint is False and is_vit(arch):
+        if logger is not None:
+            logger.info("ViT backbone: defaulting --use-checkpoint to 'attn' "
+                        "(pass --use-checkpoint off to save every residual)")
+        return "attn"
+    return False if use_checkpoint == "off" else use_checkpoint
 
 
 def augment_views(seed: int, canvases, valid_hw, mean, std, cfg):
@@ -123,11 +135,13 @@ class SSLTrainer:
         self.logger = logger or setup_logger(cfg.run.log_path,
                                              "sm3x_torch.ssl")
         m = cfg.model
+        self.remat = resolve_remat(m.use_checkpoint, m.arch, self.logger)
         # initialise from the seed on the CPU, whatever the device
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(prng.fold_in(cfg.run.seed, 0))
             self.model, self.style = build_ssl_model(
-                m.arch_version, m.arch, m.proj_dim, amp=cfg.optim.amp)
+                m.arch_version, m.arch, m.proj_dim, amp=cfg.optim.amp,
+                remat=self.remat, img_size=tuple(cfg.data.img_sz))
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)

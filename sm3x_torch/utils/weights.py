@@ -7,6 +7,9 @@ into `sm3x_torch.models.simclr.SimCLRSkinV3`:
   * convs HWIO -> OIHW, linears (in, out) -> (out, in);
   * BatchNorm scale/bias -> weight/bias, mean/var -> running_mean/var, and
     a zero `num_batches_tracked`.
+
+The ViTs have no counterpart in `torch_export`; their layout is the port's
+own, named after the Flax tree (`vit_state_dict`).
 """
 
 from __future__ import annotations
@@ -73,6 +76,50 @@ def resnet_state_dict(params: dict, stats: dict,
     return sd
 
 
+def _ln(sd: StateDict, key: str, params) -> None:
+    sd[f"{key}.weight"] = _np(params["scale"])
+    sd[f"{key}.bias"] = _np(params["bias"])
+
+
+def _dense(sd: StateDict, key: str, params) -> None:
+    sd[f"{key}.weight"] = _lin_w(params["kernel"])
+    sd[f"{key}.bias"] = _np(params["bias"])
+
+
+def vit_state_dict(params: dict, prefix: str = "") -> StateDict:
+    """Any ViT of the family (`sm3x_torch.models.vit.ViT`): the blocks are
+    read from the tree. Attention projections: q/k/v kernels (dim, H, Dh)
+    -> Linear (H * Dh, dim) and biases (H, Dh) -> (H * Dh,); the output
+    kernel (H, Dh, dim) -> (dim, H * Dh)."""
+    sd: StateDict = {}
+    sd[prefix + "patch_embed.weight"] = _conv_w(params["patch_embed"]["kernel"])
+    sd[prefix + "patch_embed.bias"] = _np(params["patch_embed"]["bias"])
+    sd[prefix + "cls"] = _np(params["cls"])
+    sd[prefix + "pos_embed"] = _np(params["pos_embed"])
+    blocks = sorted(int(k[len("block"):]) for k in params
+                    if k.startswith("block"))
+    for i in blocks:
+        bp, key = params[f"block{i}"], f"{prefix}block{i}"
+        _ln(sd, f"{key}.ln1", bp["ln1"])
+        for name in ("query", "key", "value"):
+            w = _np(bp["attn"][name]["kernel"])
+            sd[f"{key}.attn.{name}.weight"] = np.ascontiguousarray(
+                w.reshape(w.shape[0], -1).T)
+            sd[f"{key}.attn.{name}.bias"] = _np(
+                bp["attn"][name]["bias"]).reshape(-1)
+        w = _np(bp["attn"]["out"]["kernel"])
+        sd[f"{key}.attn.out.weight"] = np.ascontiguousarray(
+            w.reshape(-1, w.shape[-1]).T)
+        sd[f"{key}.attn.out.bias"] = _np(bp["attn"]["out"]["bias"])
+        _ln(sd, f"{key}.ln2", bp["ln2"])
+        _dense(sd, f"{key}.fc1", bp["fc1"])
+        _dense(sd, f"{key}.fc2", bp["fc2"])
+    _ln(sd, prefix + "ln_final", params["ln_final"])
+    if "fc" in params:
+        _dense(sd, prefix + "fc", params["fc"])
+    return sd
+
+
 def projector_state_dict(params: dict, stats: dict,
                          prefix: str = "") -> StateDict:
     """SSLProjector: Sequential indices 0, 1, 3, 4, 6, 7."""
@@ -85,12 +132,15 @@ def projector_state_dict(params: dict, stats: dict,
 
 
 def simclr_skin_state_dict(params: dict, stats: dict) -> StateDict:
-    """Stage-1 model (V3 or V32, told apart by the tree)."""
+    """Stage-1 model (V3 or V32, ResNet or ViT encoders, told apart by the
+    tree; a ViT has no batch statistics)."""
     sd: StateDict = {}
     for mod in ("derm_backbone", "clinic_backbone"):
-        sd.update(resnet_state_dict(params[mod]["encoder"],
-                                    stats[mod]["encoder"],
-                                    prefix=f"{mod}.encoder."))
+        enc, prefix = params[mod]["encoder"], f"{mod}.encoder."
+        if "patch_embed" in enc:
+            sd.update(vit_state_dict(enc, prefix))
+        else:
+            sd.update(resnet_state_dict(enc, stats[mod]["encoder"], prefix))
         sd.update(projector_state_dict(params[mod]["projector"],
                                        stats[mod]["projector"],
                                        prefix=f"{mod}.projector."))

@@ -1,7 +1,8 @@
 """The port's stage-1 CLI end to end on the CPU: tools/backbone_train_torch.py
 on a synthetic Derm7pt tree (resnet18, 32x32, batch 8, one epoch). It must
 log a finite epoch loss and write a `ckp_0.pth` that loads strictly into
-the port's model. Flags outside the slice are refused with a message."""
+the port's model. The same for a ViT with --use-checkpoint flash. Flags
+outside the slice are refused with a message."""
 
 import math
 import os
@@ -63,9 +64,58 @@ def test_cli_trains_one_epoch_and_writes_a_strict_checkpoint(dataset,
                                   ["--resume-path", "ckp_0.pth"],
                                   ["--use-lr-schedule"],
                                   ["--mesh-model", "2"],
-                                  ["-a", "vit_s16"]])
+                                  ["--use-checkpoint"]])
 def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag):
     res = _run(COMMON + ["--data-path", dataset, "--log-path",
                          str(tmp_path / "bk")] + flag, str(tmp_path))
     assert res.returncode != 0
     assert "not in the PyTorch port yet" in res.stdout + res.stderr
+
+
+def test_cli_trains_a_vit_with_flash_attention(dataset, tmp_path):
+    log = str(tmp_path / "vit")
+    res = _run(COMMON + ["--data-path", dataset, "--log-path", log, "-a",
+                         "vit_t16", "--use-checkpoint", "flash"],
+               str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    m = re.search(r"Epoch 0: loss (\S+)", res.stdout)
+    assert m and math.isfinite(float(m.group(1))) and float(m.group(1)) > 0
+    with open(os.path.join(log, "configs.txt")) as f:
+        assert "flash" in f.read()
+    ckpt = torch.load(os.path.join(log, "ckp_0.pth"), weights_only=True)
+    model, _ = build_ssl_model("v32", "vit_t16", 16, remat="flash",
+                               img_size=32)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+
+
+@pytest.mark.parametrize("flag,mode", [(False, "attn"), ("off", False),
+                                       ("flash", "flash"), (True, True)])
+def test_vit_trainer_resolves_use_checkpoint(tmp_path, flag, mode):
+    """A ViT defaults to 'attn' and says so; 'off' saves everything."""
+    import logging
+
+    from sm3x_torch.core.config import SSLConfig
+    from sm3x_torch.ops import attention
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    cfg = SSLConfig()
+    cfg.model.arch, cfg.model.proj_dim = "vit_t16", 16
+    cfg.model.use_checkpoint = flag
+    cfg.data.img_sz = (32, 32)
+    cfg.run.device, cfg.run.log_path = "cpu", str(tmp_path)
+    records = []
+    logger = logging.getLogger(f"vit_remat_{flag}")
+    logger.addHandler(logging.Handler())
+    logger.handlers[-1].emit = records.append
+    logger.setLevel(logging.INFO)
+    trainer = SSLTrainer(cfg, logger=logger)
+    assert trainer.remat == mode
+    enc = trainer.model.derm_backbone.encoder
+    assert enc.remat == mode
+    want_fn = {"attn": attention.attention_remat,
+               "flash": attention.flash_attention}.get(
+                   mode, attention.attention_xla)
+    assert enc.block0.attn.attn_fn is want_fn
+    said = any("defaulting --use-checkpoint to 'attn'" in r.getMessage()
+               for r in records)
+    assert said == (flag is False)

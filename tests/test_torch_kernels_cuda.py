@@ -1,7 +1,9 @@
-"""The port's CUDA kernels (K1 photometric, K2f / K2b NT-Xent) against their
-plain PyTorch versions on the card, at edge shapes the smoke run does not
-reach: tiny and odd image sizes, feature widths that are not a multiple of
-the warp, the widest D the kernel takes, many rows per problem.
+"""The port's CUDA kernels (K1 photometric, K2f / K2b NT-Xent, K3f / K3b-dq /
+K3b-dkv flash attention, K4 copy) against their plain PyTorch versions on
+the card, at edge shapes the smoke run does not reach: tiny and odd image
+sizes, feature widths that are not a multiple of the warp, the widest D the
+kernel takes, many rows per problem, sequence lengths around the 64-row
+tile, strided q/k/v, and copies whose length is not a multiple of 4.
 
 Marked `cuda`; each test skips without a card. These tests import no JAX,
 so on a machine without it run them without the JAX test harness:
@@ -11,7 +13,12 @@ so on a machine without it run them without the JAX test harness:
 
 Float32 with TF32 off. Tolerances are the JAX package's kernel tests':
 K1 rtol 1e-4 / atol 1e-5 (tests/test_augment_pallas.py), K2 loss rtol 1e-5
-and gradients rtol 1e-4 / atol 1e-6 (tests/test_ntxent_pallas.py).
+and gradients rtol 1e-4 / atol 1e-6 (tests/test_ntxent_pallas.py), K3 in
+float32 forward rtol / atol 1e-5 and gradients rtol 2e-4 / atol 2e-5
+(tests/test_vit_trimodal.py:46,77). K3 in bf16 is held against the plain
+float32 version on the same bf16 inputs: forward max abs error < 0.02 and
+relative Frobenius error of each gradient < 0.03 (tests/flash_tpu_check.py).
+K4 must be exact.
 """
 
 from itertools import permutations
@@ -22,6 +29,9 @@ import torch
 
 from sm3x_torch.ops import augment as A
 from sm3x_torch.ops import augment_cuda as K1
+from sm3x_torch.ops import attention as A3
+from sm3x_torch.ops import attention_cuda as K3
+from sm3x_torch.ops import copy_cuda as K4
 from sm3x_torch.ops import ntxent_cuda as K2
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +168,171 @@ def test_ssl_loss_on_card_matches_cpu(card, style, groups):
         _close(parts_c[k].detach(), parts_p[k].detach(), rtol=1e-5, atol=1e-6)
     for got, want in zip(grads_c, grads_p):
         _close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def _qkv(shape, dtype, card, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(card, dtype) for _ in range(4)]
+
+
+def _rel(got, want):
+    """Relative Frobenius error; the 1e-3 keeps a gradient that is zero in
+    exact arithmetic (dq and dk at S = 1) from dividing rounding by zero."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / (want.norm() + 1e-3))
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 197, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(card, s, dtype):
+    b, h, d = 8, 12, 64
+    q, k, v, do = _qkv((b, s, h, d), dtype, card, seed=s)
+    scale = 1 / 8.0
+    out, lse = K3.flash_forward_cuda(q, k, v, scale)
+    dq, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
+    dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = A3.attention_plain(*f[:3], scale)
+    grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p, scale)
+    if dtype == torch.float32:
+        _close(out, out_p, rtol=1e-5, atol=1e-5)
+        _close(lse, lse_p, rtol=1e-5, atol=1e-5)
+        _close(delta, (f[3] * out_p).sum(-1).transpose(1, 2), rtol=1e-5,
+               atol=1e-5)
+        for got, want in zip((dq, dk, dv), grads_p):
+            _close(got, want, rtol=2e-4, atol=2e-5)
+    else:
+        assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+        assert float((out.float() - out_p).abs().max()) < 0.02
+        for got, want in zip((dq, dk, dv), grads_p):
+            assert _rel(got, want) < 0.03
+
+
+def test_flash_plain_backward_is_autograd_of_plain_forward(card):
+    q, k, v, do = _qkv((4, 197, 3, 64), torch.float32, card, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = A3.attention_plain(*leaves, 0.125)
+    out.backward(do)
+    grads = A3.attention_backward_plain(q, k, v, out.detach(), do, lse, 0.125)
+    for got, leaf in zip(grads, leaves):
+        _close(got, leaf.grad, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_reads_strided_inputs(card):
+    """q, k, v as views of one packed (B, S, 3, H, D) tensor, and an output
+    gradient that is a transposed view: the kernels read the strides."""
+    b, s, h, d = 3, 100, 4, 64
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d),
+                                               dtype=np.float32)).to(card)
+    q, k, v = qkv.unbind(2)
+    do = torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)
+                          ).to(card).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
+    dq, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
+    dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
+    c = [t.contiguous() for t in (q, k, v, do)]
+    out_c, _ = K3.flash_forward_cuda(*c[:3], 0.125)
+    out_p, lse_p = A3.attention_plain(*c[:3], 0.125)
+    grads_p = A3.attention_backward_plain(*c[:3], out_p, c[3], lse_p, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_c)
+    _close(out, out_p, rtol=1e-5, atol=1e-5)
+    for got, want in zip((dq, dk, dv), grads_p):
+        _close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_function_on_card_matches_cpu_and_counts(card):
+    q, k, v, do = _qkv((2, 197, 12, 64), torch.float32, card, seed=3)
+    counters = (K3.flash_forward_cuda, K3.flash_backward_dq_cuda,
+                K3.flash_backward_dkv_cuda)
+    before = [fn.launches for fn in counters]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    A3.flash_attention(*leaves).backward(do)
+    assert [fn.launches for fn in counters] == [n + 1 for n in before]
+    cpu = [t.cpu().requires_grad_(True) for t in (q, k, v)]
+    out_c = A3.attention_xla(*cpu)
+    out_c.backward(do.cpu())
+    for leaf, want in zip(leaves, cpu):
+        _close(leaf.grad, want.grad, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernels_check_inputs(card):
+    q = torch.randn(2, 10, 3, 64, device=card)
+    before = K3.flash_forward_cuda.launches
+    for bad in (torch.randn(2, 10, 3, 32, device=card),
+                torch.randn(2, 10, 3, 128, device=card), q.double(),
+                q.half(), q.cpu(),
+                torch.randn(2, 10, 3, 128, device=card)[..., ::2]):
+        with pytest.raises(ValueError):
+            K3.flash_forward_cuda(bad, bad, bad, 0.125)
+    with pytest.raises(ValueError):  # shapes that differ
+        K3.flash_forward_cuda(q, q[:, :5], q[:, :5], 0.125)
+    with pytest.raises(ValueError):  # dtypes that differ
+        K3.flash_forward_cuda(q, q.bfloat16(), q, 0.125)
+    with pytest.raises(ValueError):  # a D != 64 input raises on the card
+        A3.flash_attention(*(torch.randn(2, 10, 3, 32, device=card),) * 3)
+    assert K3.flash_forward_cuda.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, 1_000_003, 3 * 2 ** 20 + 2])
+def test_copy_kernel_is_exact(card, n):
+    x = torch.randn(n + 1, device=card)
+    for src in (x[:n], x[1:]):  # 16-byte aligned, and 4 bytes off
+        before = K4.copy_cuda.launches
+        y = K4.copy(src)
+        torch.cuda.synchronize()
+        assert K4.copy_cuda.launches == before + 1
+        assert y.shape == src.shape and torch.equal(y, src)
+
+
+def test_copy_kernel_checks_inputs(card):
+    with pytest.raises(ValueError):
+        K4.copy_cuda(torch.zeros(4, device=card, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        K4.copy_cuda(torch.zeros(4, 4, device=card).t())
+    with pytest.raises(ValueError):
+        K4.copy_cuda(torch.zeros(4))
+
+
+def test_flash_kernels_repeat_bit_for_bit(card):
+    """No float atomics: the same inputs give the same bits."""
+    q, k, v, do = _qkv((4, 197, 12, 64), torch.bfloat16, card, seed=11)
+    runs = []
+    for _ in range(2):
+        out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
+        dq, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
+        dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
+        runs.append((out, lse, dq, dk, dv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_vit_with_flash_on_card_matches_cpu(card):
+    """A cut ViT (dim 128, depth 2, 2 heads) with --use-checkpoint flash:
+    float32 on the card through K3 against float64 on the CPU through the
+    plain versions, from the same weights, under a fixed projection of the
+    features (gradients at the JAX package's rtol 2e-4 / atol 2e-5; the
+    projection is scaled so that the largest gradients are of order 1, the
+    scale that atol is meant for)."""
+    from sm3x_torch.models.vit import ViT
+
+    torch.manual_seed(0)
+    cpu = ViT(patch=16, dim=128, depth=2, n_heads=2, remat="flash",
+              img_size=32).double()
+    gpu = ViT(patch=16, dim=128, depth=2, n_heads=2, remat="flash",
+              img_size=32)
+    gpu.load_state_dict({k: v.float() for k, v in cpu.state_dict().items()})
+    gpu.to(card)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 32, 32, 3)))
+    proj = torch.from_numpy(rng.standard_normal((3, 128))) / 100
+    before = K3.flash_backward_dkv_cuda.launches
+    (gpu(x.float().to(card)) * proj.float().to(card)).sum().backward()
+    assert K3.flash_backward_dkv_cuda.launches == before + 2
+    (cpu(x) * proj).sum().backward()
+    for p, q in zip(gpu.parameters(), cpu.parameters()):
+        _close(p.grad, q.grad, rtol=2e-4, atol=2e-5)

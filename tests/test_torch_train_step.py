@@ -19,6 +19,11 @@ is the size of the smallest gradients here, so the float32 moments of the
 reference move single entries by a few percent of lr (one entry of 36864
 in a conv by 4.7e-2 x lr after three steps). The float32 port is held to
 the first step's loss at rtol 1e-4.
+
+The same three-step check runs on a ViT v32 model with --use-checkpoint
+flash, cut to dim 128, depth 2, 2 heads (head dim 64) at 32x32: on the CPU
+the port's flash attention is its plain forward and analytic backward, and
+the JAX package's is its checkpointed XLA attention.
 """
 
 import numpy as np
@@ -42,15 +47,17 @@ LR, WD, EPS, T, GROUPS = 1e-4, 5e-2, 1e-5, 0.1, 2
 B, SIZE, STEPS = 8, 32, 3
 
 
-@pytest.fixture(scope="module")
-def reference():
+VIT_CUT = dict(patch=16, dim=128, depth=2, n_heads=2)
+
+
+def _reference(arch, remat=False):
     """Views, initial state dict, per-step losses and per-step parameter
     state dicts of the JAX reference."""
     views = np.random.default_rng(3407).standard_normal(
         (STEPS, 4, B, SIZE, SIZE, 3)).astype(np.float32)
     with jax.enable_x64(True):
-        jm, style = jax_build_ssl_model("v32", "resnet18", 16,
-                                        dtype=jnp.float64)
+        jm, style = jax_build_ssl_model("v32", arch, 16, dtype=jnp.float64,
+                                        remat=remat)
         x = jnp.zeros((2, SIZE, SIZE, 3), jnp.float64)
         v = jm.init(jax.random.key(0), (x, x), (x, x), train=False)
         state = jax_common.create_train_state(
@@ -82,8 +89,28 @@ def reference():
     return style, views, init, losses, sds
 
 
-def _port(style, init, dtype):
-    model, t_style = build_ssl_model("v32", "resnet18", 16)
+@pytest.fixture(scope="module")
+def reference():
+    return _reference("resnet18")
+
+
+@pytest.fixture(scope="module")
+def vit_reference():
+    """`vit_cut` registered in both packages' ViT tables while the module's
+    tests run."""
+    from sm3x.models import vit as jax_vit
+    from sm3x_torch.models import vit
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_vit, vit):
+            mp.setitem(mod.VIT_SPECS, "vit_cut", VIT_CUT)
+            mp.setitem(mod.VIT_FEAT_DIMS, "vit_cut", VIT_CUT["dim"])
+        yield _reference("vit_cut", remat="flash")
+
+
+def _port(style, init, dtype, arch="resnet18", remat=False):
+    model, t_style = build_ssl_model("v32", arch, 16, remat=remat,
+                                     img_size=SIZE)
     assert t_style == style
     model.load_state_dict(weights.to_tensors(init), strict=True)
     model.to(dtype).train()
@@ -96,27 +123,46 @@ def _step(model, opt, style, views, dtype):
                             style, T, GROUPS)["loss"])
 
 
-def _check_params(model, want_sd, atol, tight_atol=None):
+def _check_params(model, want_sd, atol, tight_atol=None, loose=()):
     """Every entry within `atol`; with `tight_atol`, all but a 1e-4 share
-    of the entries within it too."""
+    of the entries within it too, leaving out the parameters whose names
+    end with one of `loose`."""
     far = total = 0
     for k, p in model.named_parameters():
         got = p.detach().double().numpy()
         np.testing.assert_allclose(got, want_sd[k], atol=atol, err_msg=k)
-        if tight_atol is not None:
+        if tight_atol is not None and not k.endswith(loose):
             far += int((np.abs(got - want_sd[k]) > tight_atol).sum())
             total += got.size
     assert far <= 1e-4 * total, f"{far} of {total} entries beyond {tight_atol}"
 
 
-def test_three_steps_match_jax(reference):
+def _three_steps(reference, loose=(), **port_kw):
     style, views, init, losses, sds = reference
-    model, opt = _port(style, init, torch.float64)
+    model, opt = _port(style, init, torch.float64, **port_kw)
     for s in range(STEPS):
         got = _step(model, opt, style, views[s], torch.float64)
         np.testing.assert_allclose(got, losses[s], rtol=1e-5,
                                    err_msg=f"step {s}")
-    _check_params(model, sds[-1], atol=3 * LR, tight_atol=1e-2 * LR)
+    _check_params(model, sds[-1], atol=3 * LR, tight_atol=1e-2 * LR,
+                  loose=loose)
+
+
+def test_three_steps_match_jax(reference):
+    _three_steps(reference)
+
+
+def test_three_steps_match_jax_vit(vit_reference):
+    from sm3x_torch.ops import attention_cuda
+
+    before = attention_cuda.flash_forward_cuda.launches
+    # the projector's first BN removes any shift shared by the batch, so
+    # ln_final.bias has a zero gradient in exact arithmetic; AdamW scales
+    # what rounding leaves by lr / eps, and the reference's float32 moments
+    # move half its entries by up to 5e-2 x lr: held at 3 x lr only
+    _three_steps(vit_reference, loose=("ln_final.bias",), arch="vit_cut",
+                 remat="flash")
+    assert attention_cuda.flash_forward_cuda.launches == before
 
 
 def test_first_step_in_float32(reference):
