@@ -11,14 +11,16 @@
 //
 // softmax(Q K^T * scale) V with the per-row logsumexp saved for the
 // backward, D = 64 (the head width of every ViT of the repo), float32 or
-// bf16 in, float32 arithmetic throughout, output in the input type.
+// bf16 in, output in the input type. The kernels of this file compute in
+// float32 throughout; the backward of bf16 inputs runs on the tensor cores
+// instead, in flash_attention_bwd_mma.cu (`dispatch` below).
 //
 // What bounds them on the H100: arithmetic. At ViT-B's (64, 197, 12, 64)
 // the forward is 2 * 64 * 12 * 197^2 * 64 = 3.8e9 multiply-adds over 58 MB
-// of bf16 q/k/v/o, and the backward 2.5 times that. These first versions
-// run on the CUDA cores (FMA, float32), not on the tensor cores, so that
-// float32 inputs meet the float32 tolerances of the JAX package's tests;
-// `mma`/`wgmma` for bf16 is later work. The design:
+// of bf16 q/k/v/o, and the backward 2.5 times that. These kernels run on
+// the CUDA cores (FMA, float32), so that float32 inputs meet the float32
+// tolerances of the JAX package's tests; the forward takes bf16 the same
+// way. The design:
 //   * 64 x 64 tiles of q, k, v (and dO) are staged in shared memory as
 //     float32, rows padded to 68 floats so that the 16-byte reads below are
 //     free of bank conflicts;
@@ -29,8 +31,8 @@
 //   * the forward keeps an online max and sum per row (one block per
 //     (b, h, query tile), looping over key tiles), so the S x S scores
 //     never reach device memory;
-//   * the backward recomputes P = exp(S * scale - lse) tile by tile and uses
-//     no float atomics, so its results do not change from run to run:
+//   * the float32 backward recomputes P = exp(S * scale - lse) tile by tile
+//     and uses no float atomics, so its results do not change from run to run:
 //     K3b-dq takes one block per (b, h, query tile) and loops over key
 //     tiles; it also computes Delta = rowsum(dO o O) for its rows and
 //     stores it. K3b-dkv, launched after it, takes one block per
@@ -40,6 +42,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+namespace sm3x {
+// K3b-dq (which 1) and K3b-dkv (which 2) for bf16 on the tensor cores,
+// flash_attention_bwd_mma.cu
+int flash_bwd_mma(int which, const void* const* ptrs, const long long* strides, int B, int S,
+                  int H, float scale, cudaStream_t stream);
+}  // namespace sm3x
 
 namespace {
 
@@ -400,7 +411,9 @@ int launch(int which, const void* const* ptrs, const long long* strides,
     cudaFuncSetAttribute(flash_fwd_kernel<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
     flash_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(a);
-  } else {  // q, k, v, o, dout, lse, delta, grad (dq) or grads (dk, dv)
+  } else if constexpr (std::is_same<T, float>::value) {
+    // q, k, v, o, dout, lse, delta, grad (dq) or grads (dk, dv); the bf16
+    // backward is flash_attention_bwd_mma.cu's
     a.q = static_cast<const T*>(ptrs[0]);
     a.k = static_cast<const T*>(ptrs[1]);
     a.v = static_cast<const T*>(ptrs[2]);
@@ -433,8 +446,9 @@ int launch(int which, const void* const* ptrs, const long long* strides,
 int dispatch(int which, const void* const* ptrs, const long long* strides, int B,
              int S, int H, int D, float scale, int bf16, cudaStream_t stream) {
   if (D != kD || B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  return bf16 ? launch<__nv_bfloat16>(which, ptrs, strides, B, S, H, scale, stream)
-              : launch<float>(which, ptrs, strides, B, S, H, scale, stream);
+  if (!bf16) return launch<float>(which, ptrs, strides, B, S, H, scale, stream);
+  if (which != 0) return sm3x::flash_bwd_mma(which, ptrs, strides, B, S, H, scale, stream);
+  return launch<__nv_bfloat16>(which, ptrs, strides, B, S, H, scale, stream);
 }
 
 }  // namespace
@@ -451,7 +465,8 @@ int sm3x_flash_fwd(const void* const* ptrs, const long long* strides, int B,
 }
 
 // K3b-dq. ptrs: q, k, v, o, dout, lse, delta (out, (B, H, S) float32), dq;
-// strides: q, k, v, o, dout, dq (host array of 18).
+// strides: q, k, v, o, dout, dq (host array of 18). float32 runs the FMA
+// kernel above, bf16 the tensor-core one (16-byte-aligned rows).
 int sm3x_flash_bwd_dq(const void* const* ptrs, const long long* strides, int B,
                       int S, int H, int D, float scale, int bf16,
                       cudaStream_t stream) {
@@ -460,7 +475,7 @@ int sm3x_flash_bwd_dq(const void* const* ptrs, const long long* strides, int B,
 
 // K3b-dkv, after K3b-dq on the same stream. ptrs: q, k, v, o (unused), dout,
 // lse, delta (from K3b-dq), dk, dv; strides: q, k, v, o, dout, and dk / dv,
-// which share one layout (host array of 18).
+// which share one layout (host array of 18). float32 and bf16 as for dq.
 int sm3x_flash_bwd_dkv(const void* const* ptrs, const long long* strides, int B,
                        int S, int H, int D, float scale, int bf16,
                        cudaStream_t stream) {

@@ -14,7 +14,9 @@ Modes (`ATTENTION_FNS`):
          logsumexp, and recomputes the probabilities tile by tile. On a
          CUDA tensor it launches kernels K3f, K3b-dq and K3b-dkv
          (sm3x_torch/ops/attention_cuda.py) or raises; on a CPU tensor it
-         takes the plain versions below.
+         takes the plain versions below. The bf16 backward rounds P and dS
+         to bf16 before their products, as the TPU kernel and the
+         tensor-core K3b do.
 """
 
 from __future__ import annotations
@@ -42,21 +44,35 @@ def attention_plain(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", p, v), lse
 
 
-def attention_backward_plain(q, k, v, out, dout, lse, scale: float):
+def attention_backward_plain(q, k, v, out, dout, lse, scale: float,
+                             operand_dtype: torch.dtype | None = None):
     """The analytic gradient that K3b-dq and K3b-dkv compute, in torch (not
     autograd): P = exp(S * scale - lse), Delta = rowsum(dO o O),
     dS = P o (dP - Delta) with dP = dO V^T; dQ = scale dS K,
-    dK = scale dS^T Q, dV = P^T dO. Returns (dq, dk, dv)."""
+    dK = scale dS^T Q, dV = P^T dO. Returns (dq, dk, dv).
+
+    `operand_dtype=torch.bfloat16` is the arithmetic of the TPU kernel
+    (flash_attention.py:900, 918, 1258) and of the tensor-core K3b: P and
+    scale dS are rounded to bf16 before the products that consume them
+    (dV = P^T dO, dK = (scale dS)^T Q, dQ = (scale dS) K). S, the
+    exponent, Delta, dP and every sum stay float32. With None the result
+    is the float32 one."""
     dt = _compute_dtype(q)
     q, k, v, out, dout = (t.to(dt) for t in (q, k, v, out, dout))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     p = torch.exp(s - lse.to(dt)[..., None])
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout, v)
     delta = (dout * out).sum(-1).transpose(1, 2)  # (B, H, S)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    if operand_dtype is None:
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    else:
+        p = p.to(operand_dtype).to(dt)
+        ds = (ds * scale).to(operand_dtype).to(dt)
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout)
     return dq, dk, dv
 
 
@@ -83,9 +99,10 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v, out, dout, lse, ctx.scale)
             dk, dv = attention_cuda.flash_backward_dkv_cuda(
                 q, k, v, dout, lse, delta, ctx.scale)
-        else:
+        else:  # bf16 in the kernels' bf16 arithmetic, as on the card
+            operand = torch.bfloat16 if q.dtype == torch.bfloat16 else None
             dq, dk, dv = (g.to(q.dtype) for g in attention_backward_plain(
-                q, k, v, out, dout, lse, ctx.scale))
+                q, k, v, out, dout, lse, ctx.scale, operand_dtype=operand))
         return dq, dk, dv, None
 
 

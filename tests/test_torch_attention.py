@@ -10,6 +10,11 @@ seed.
   against `jax.grad` through `_flash_attention_fn` (off the TPU it is the
   checkpointed XLA attention) and against torch autograd of the plain
   forward: rtol 2e-4 / atol 2e-5 (tests/test_vit_trimodal.py:46).
+* `attention_backward_plain(..., operand_dtype=torch.bfloat16)`, the
+  arithmetic of the tensor-core K3b, against the TPU flash kernel itself
+  (JAX's Pallas library kernel, run in Pallas interpret mode on bf16
+  inputs, fed as `_flash_attention_fn` feeds it). Without the option the
+  function is bit for bit the float32 formula it always was.
 * `FlashAttention` and the mode table on CPU tensors: the plain versions,
   no kernel launched.
 """
@@ -85,6 +90,71 @@ def test_plain_backward_matches_jax_grad_and_torch_autograd(shape):
         torch.testing.assert_close(got, leaf.grad, rtol=2e-4, atol=2e-5)
 
 
+def _rel(got, want):
+    """Relative Frobenius error."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 2, 64), (2, 50, 2, 64)])
+def test_bf16_plain_backward_matches_the_tpu_kernel(shape):
+    """The TPU kernel's dq / dk / dv are bf16. Against them, the plain
+    backward in bf16 arithmetic, rounded to bf16, measured at most 1.0e-4
+    relative Frobenius error (bound 5e-4), and 1.7e-3 unrounded (bound
+    1e-2). The float32 plain backward, rounded, measured 2.3e-3 to 2.4e-3:
+    the bound tells the two arithmetics apart."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as fa
+
+    s, d = shape[1], shape[3]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = (jnp.asarray(a, jnp.bfloat16)
+                   for a in _inputs(shape, seed=3 + s))
+
+    def kernel(q, k, v):  # sm3x/models/vit.py:83-87, on any backend
+        qp, kp, vp, seg, _ = _pad_for_flash(q, k, v)
+        out = fa.flash_attention(qp, kp, vp,
+                                 segment_ids=fa.SegmentIds(seg, seg),
+                                 sm_scale=scale)
+        return jnp.transpose(out[:, :, :s, :], (0, 2, 1, 3)).astype(q.dtype)
+
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(kernel, q, k, v)
+        want = vjp(do)
+    assert out.dtype == jnp.bfloat16
+    assert all(w.dtype == jnp.bfloat16 for w in want)
+    t = [torch.from_numpy(np.asarray(x, np.float32))
+         for x in (q, k, v, do, out)]
+    _, lse = A.attention_plain(*t[:3], scale)
+    got = A.attention_backward_plain(*t[:3], t[4], t[3], lse, scale,
+                                     operand_dtype=torch.bfloat16)
+    f32 = A.attention_backward_plain(*t[:3], t[4], t[3], lse, scale)
+    for g, f, w in zip(got, f32, want):
+        w = torch.from_numpy(np.asarray(w, np.float32))
+        assert _rel(g.bfloat16(), w) < 5e-4
+        assert _rel(g, w) < 1e-2
+        assert _rel(f.bfloat16(), w) > 1e-3
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_without_operand_dtype_is_the_float32_formula(shape):
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, seed=11))
+    scale = 1.0 / math.sqrt(shape[3])
+    out, lse = A.attention_plain(q, k, v, scale)
+    got = A.attention_backward_plain(q, k, v, out, do, lse, scale)
+    # the function as it stood before `operand_dtype`
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+                  - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    for g, w in zip(got, (dq, dk, dv)):
+        assert torch.equal(g, w)
+
+
 def test_flash_function_on_cpu_takes_the_plain_versions():
     shape = (2, 65, 2, 64)
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, seed=3))
@@ -102,12 +172,19 @@ def test_flash_function_on_cpu_takes_the_plain_versions():
             q, k, v, want, do, lse, 1 / 8.0)):
         torch.testing.assert_close(got.grad, want_g, rtol=1e-6, atol=1e-6)
 
-    # bf16 in, bf16 out and bf16 gradients, as on the card
+    # bf16 in, bf16 out and bf16 gradients in the bf16 arithmetic of the
+    # tensor-core K3b, as on the card
     lb = [x.bfloat16().requires_grad_(True) for x in (q, k, v)]
     ob = A.flash_attention(*lb)
     ob.backward(do.bfloat16())
     assert ob.dtype == torch.bfloat16
     assert all(x.grad.dtype == torch.bfloat16 for x in lb)
+    fb = [x.detach().float() for x in lb]
+    _, lse_b = A.attention_plain(*fb, 1 / 8.0)
+    for got, want_g in zip(lb, A.attention_backward_plain(
+            *fb, ob.detach().float(), do.bfloat16().float(), lse_b, 1 / 8.0,
+            operand_dtype=torch.bfloat16)):
+        assert torch.equal(got.grad, want_g.bfloat16())
 
 
 def test_attention_modes_agree_on_cpu():

@@ -15,10 +15,15 @@ Float32 with TF32 off. Tolerances are the JAX package's kernel tests':
 K1 rtol 1e-4 / atol 1e-5 (tests/test_augment_pallas.py), K2 loss rtol 1e-5
 and gradients rtol 1e-4 / atol 1e-6 (tests/test_ntxent_pallas.py), K3 in
 float32 forward rtol / atol 1e-5 and gradients rtol 2e-4 / atol 2e-5
-(tests/test_vit_trimodal.py:46,77). K3 in bf16 is held against the plain
-float32 version on the same bf16 inputs: forward max abs error < 0.02 and
-relative Frobenius error of each gradient < 0.03 (tests/flash_tpu_check.py).
-K4 must be exact.
+(tests/test_vit_trimodal.py:46,77); the float32 backward runs the FMA
+kernels. K3 in bf16 is held against the plain float32 version on the same
+bf16 inputs: forward max abs error < 0.02 and relative Frobenius error of
+each gradient < 0.03 (tests/flash_tpu_check.py). The bf16 backward runs on
+the tensor cores in the TPU kernel's arithmetic, and is also held against
+the plain backward in that arithmetic, rounded to bf16 as the kernels'
+gradients are: relative Frobenius error < 5e-4 (measured <= 7.8e-5 on an
+H100 at S = 1 to 257; the float32 plain backward, rounded, is 2.6e-3 from
+it). K4 must be exact.
 """
 
 from itertools import permutations
@@ -183,6 +188,15 @@ def _rel(got, want):
     return float((got - want).norm() / (want.norm() + 1e-3))
 
 
+def _rel_bf16(got, want):
+    """Relative Frobenius error against `want` rounded to bf16; the floor of
+    1e-3 a element keeps a gradient that vanishes in exact arithmetic (dq
+    and dk at S = 1) from dividing rounding by zero."""
+    got, want = got.double().cpu(), want.bfloat16().double().cpu()
+    return float((got - want).norm()
+                 / (want.norm() + 1e-3 * want.numel() ** 0.5))
+
+
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 197, 257])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(card, s, dtype):
@@ -208,6 +222,12 @@ def test_flash_kernels_match_plain(card, s, dtype):
         assert float((out.float() - out_p).abs().max()) < 0.02
         for got, want in zip((dq, dk, dv), grads_p):
             assert _rel(got, want) < 0.03
+        # the same out and lse as the kernels were given
+        grads_bf16 = A3.attention_backward_plain(
+            *f[:3], out.float(), f[3], lse, scale,
+            operand_dtype=torch.bfloat16)
+        for got, want in zip((dq, dk, dv), grads_bf16):
+            assert _rel_bf16(got, want) < 5e-4
 
 
 def test_flash_plain_backward_is_autograd_of_plain_forward(card):
@@ -220,29 +240,99 @@ def test_flash_plain_backward_is_autograd_of_plain_forward(card):
         _close(got, leaf.grad, rtol=2e-4, atol=2e-5)
 
 
-def test_flash_reads_strided_inputs(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_strided_inputs(card, dtype):
     """q, k, v as views of one packed (B, S, 3, H, D) tensor, and an output
-    gradient that is a transposed view: the kernels read the strides."""
+    gradient that is a transposed view: the kernels read the strides, and
+    give the bits they give on contiguous copies."""
     b, s, h, d = 3, 100, 4, 64
     rng = np.random.default_rng(7)
     qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d),
-                                               dtype=np.float32)).to(card)
+                                               dtype=np.float32)).to(card,
+                                                                     dtype)
     q, k, v = qkv.unbind(2)
     do = torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)
-                          ).to(card).transpose(1, 2)
+                          ).to(card, dtype).transpose(1, 2)
     assert not q.is_contiguous() and not do.is_contiguous()
     out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
     dq, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
     dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
     c = [t.contiguous() for t in (q, k, v, do)]
-    out_c, _ = K3.flash_forward_cuda(*c[:3], 0.125)
-    out_p, lse_p = A3.attention_plain(*c[:3], 0.125)
-    grads_p = A3.attention_backward_plain(*c[:3], out_p, c[3], lse_p, 0.125)
+    out_c, lse_c = K3.flash_forward_cuda(*c[:3], 0.125)
+    dq_c, delta_c = K3.flash_backward_dq_cuda(*c[:3], out_c, c[3], lse_c,
+                                              0.125)
+    grads_c = (dq_c,) + K3.flash_backward_dkv_cuda(*c[:3], c[3], lse_c,
+                                                   delta_c, 0.125)
+    f = [t.float() for t in c]
+    out_p, lse_p = A3.attention_plain(*f[:3], 0.125)
     torch.cuda.synchronize()
     assert torch.equal(out, out_c)
-    _close(out, out_p, rtol=1e-5, atol=1e-5)
+    for got, want in zip((dq, dk, dv), grads_c):
+        assert torch.equal(got, want)
+    if dtype == torch.float32:
+        _close(out, out_p, rtol=1e-5, atol=1e-5)
+        grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p,
+                                              0.125)
+        for got, want in zip((dq, dk, dv), grads_p):
+            _close(got, want, rtol=2e-4, atol=2e-5)
+    else:
+        grads_p = A3.attention_backward_plain(
+            *f[:3], out.float(), f[3], lse, 0.125,
+            operand_dtype=torch.bfloat16)
+        for got, want in zip((dq, dk, dv), grads_p):
+            assert _rel_bf16(got, want) < 5e-4
+
+
+def test_flash_backward_refuses_bf16_rows_off_16_bytes(card):
+    """The tensor-core K3b copies and reads 16-byte row starts: a bf16
+    input 2 bytes off, or with rows 68 elements apart, raises ValueError
+    and launches nothing. float32 inputs laid out the same way run: the FMA
+    kernels read any stride."""
+    b, s, h, d = 2, 70, 3, 64
+    n = b * s * h * d
+
+    def layouts(dtype):  # 2 or 4 bytes off; rows 68 elements apart
+        return (torch.randn(n + 1, device=card, dtype=dtype)[1:].view(
+            b, s, h, d),
+                torch.randn(b, s, h, d + 4, device=card, dtype=dtype)[..., :d])
+
+    lse = torch.zeros(b, h, s, device=card)
+    before = [K3.flash_backward_dq_cuda.launches,
+              K3.flash_backward_dkv_cuda.launches]
+    for x in layouts(torch.bfloat16):
+        with pytest.raises(ValueError, match="16-byte"):
+            K3.flash_backward_dq_cuda(x, x, x, x, x, lse, 0.125)
+        with pytest.raises(ValueError, match="16-byte"):
+            K3.flash_backward_dkv_cuda(x, x, x, x, lse, lse, 0.125)
+    assert [K3.flash_backward_dq_cuda.launches,
+            K3.flash_backward_dkv_cuda.launches] == before
+    q, k = layouts(torch.float32)
+    out, lse = K3.flash_forward_cuda(q, k, k, 0.125)
+    dq, delta = K3.flash_backward_dq_cuda(q, k, k, out, q, lse, 0.125)
+    dk, dv = K3.flash_backward_dkv_cuda(q, k, k, q, lse, delta, 0.125)
+    out_p, lse_p = A3.attention_plain(q, k, k, 0.125)
+    grads_p = A3.attention_backward_plain(q, k, k, out_p, q, lse_p, 0.125)
+    torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), grads_p):
         _close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_backward_runs_fma_for_float32_and_mma_for_bf16(card):
+    """Counted per kernel on the wrappers, directly and through the autograd
+    Function: float32 runs the FMA kernels, bf16 the tensor-core ones."""
+    k3b = (K3.flash_backward_dq_cuda, K3.flash_backward_dkv_cuda)
+    for dtype, kind in ((torch.float32, "fma"), (torch.bfloat16, "mma")):
+        q, k, v, do = _qkv((2, 65, 3, 64), dtype, card, seed=2)
+        before = [dict(fn.variants) for fn in k3b]
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        A3.flash_attention(*leaves).backward(do)
+        out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
+        _, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
+        K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
+        for fn, was in zip(k3b, before):
+            want = dict(was)
+            want[kind] += 2
+            assert fn.variants == want
 
 
 def test_flash_function_on_card_matches_cpu_and_counts(card):
