@@ -9,12 +9,20 @@ Phases, each printing its lines:
   kernels  K1 (photometric), K2f / K2b (NT-Xent), K3f / K3b-dq / K3b-dkv
            (flash attention) and K4 (copy) against their plain PyTorch
            versions on the card, in float32 with TF32 off, at the stage-1
-           shapes (K3 also in bf16 at ViT-B's (64, 197, 12, 64), where K3b
-           runs on the tensor cores and is held against the plain backward
-           in float32 and in the TPU kernel's bf16 arithmetic; K4 over 256
-           MiB, exact); median time of each beside the plain version's, and
-           for K3 also beside the plain attention in bf16 on the tensor
-           cores (`attention_xla` and its autograd backward)
+           shapes (K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
+           runs on the tensor cores and is held against the plain versions
+           in float32 and in the TPU kernels' bf16 arithmetic; K4 over 256
+           MiB, exact). Times of each: `ms`, the median of 20 single
+           launches between two events (the wrapper's host work included);
+           `device_ms`, events around 50 launches in a row over the count;
+           `plain_ms`, the plain version as `ms`; for K3 `plain_bf16_ms`,
+           the plain attention in bf16 on the tensor cores (`attention_xla`
+           and its autograd backward); `library_ms`, timed as `device_ms`,
+           of the one PyTorch call that computes the same function
+           (`F.scaled_dot_product_attention` and its autograd backward for
+           K3, `Tensor.clone` for K4; the port calls neither), K4 and clone
+           in turns; and `bound_ms`, the least time the card could take,
+           from the shapes and the H100's published peaks
   step     one fp32 step of a small model on the card against the same step
            on the CPU (plain versions), from the same weights and views
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
@@ -24,9 +32,8 @@ Phases, each printing its lines:
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
-           backward, 48 launches of each a step, every K3b launch the
-           tensor-core kernel; losses, launch counts, step time, images/s,
-           peak memory
+           backward, 48 launches of each a step, every one the tensor-core
+           kernel; losses, launch counts, step time, images/s, peak memory
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--profile DIR`, the main and vit phases also trace three more steps
@@ -69,6 +76,13 @@ K3_BF16_FWD, K3_BF16_REL = 0.02, 0.03    # tests/flash_tpu_check.py:53,65
 # rounded to bf16: relative Frobenius error (measured <= 7.8e-5 on an H100;
 # the float32 plain backward, rounded, is 2.6e-3 from it)
 K3_BF16_ARITH = 5e-4
+# K3f in bf16 the same way, against the plain forward in bf16 arithmetic with
+# K3f's key tile (measured 8.3e-5 on an H100; the float32 plain forward,
+# rounded, is 2.1e-3 from it); its logsumexp within rtol / atol 1e-4
+K3F_LSE_TOL = dict(rtol=1e-4, atol=1e-4)
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W power limit)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 VIT_SHAPE = (64, 197, 12, 64)            # ViT-B/16 at 224, batch 64
 MEAN = (0.7833, 0.6712, 0.6026)          # run.sh Derm7pt statistics
 STD = (0.2139, 0.2472, 0.2571)
@@ -109,6 +123,38 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn(): events around `reps` launches in a row,
+    after a warm-up, over the count. The host runs ahead of the card, so
+    its work before each launch is hidden behind the launch before."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes that
+    must move (each input read once, each output written once) over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    t = max(t_bytes, t_ops)
+    return dict(bound_ms=t * 1e3, bound_us=t * 1e6,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -124,15 +170,29 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Build the kernels and print ptxas's registers and spills by kernel;
+    the tensor-core K3 kernels (namespace sm3x) must not spill."""
+    import re
+
     from sm3x_torch.ops import _native
 
     _native.library()
-    regs = [ln.strip() for ln in _native.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
     log(f"[build] nvcc {_native.nvcc_path()}: {_native.build_seconds:.1f} s "
         f"(0.0 = library already built)")
-    for ln in regs:
-        log(f"  ptxas {ln}")
+    name, spills = "?", ""
+    for ln in _native.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "registers" in ln:
+            used = ln.split(":", 1)[1].strip()
+            short = re.search(r"[a-z_]*kernel", name)
+            log(f"  ptxas {short.group(0) if short else name[:60]}"
+                f"{' (sm3x)' if '_ZN4sm3x' in name else ''}: {used}; {spills}")
+            if "_ZN4sm3x" in name and "0 bytes spill stores" not in spills:
+                raise AssertionError(f"{name} spills registers: {spills}")
 
 
 def k1_inputs(batch=96, size=224):
@@ -169,11 +229,18 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     log(f"[kernels] K1 photometric {tuple(images.shape)}")
     err = check_close("K1 out", got, want, **K1_TOL)
+    # about 130 float32 operations a pixel when every step applies (four
+    # jitter rounds with the HSV rotation, gray, 3 x 3 blur, normalise)
     results["photometric"] = dict(
         max_abs_err=err,
         ms=median_ms(lambda: K.photometric_cuda(images, params, MEAN, STD)),
+        device_ms=device_ms(
+            lambda: K.photometric_cuda(images, params, MEAN, STD)),
         plain_ms=median_ms(
-            lambda: K.photometric_plain(images, params, MEAN, STD)))
+            lambda: K.photometric_plain(images, params, MEAN, STD)),
+        library_ms=None,
+        **bound(nbytes(images, params, got), 130 * images[..., 0].numel(),
+                "f32"))
 
     errs = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(3)
@@ -195,14 +262,24 @@ def phase_kernels() -> dict:
                                                    **K2B_TOL))
         check_close("plain dz vs autograd", dz_p, zr.grad, **K2B_TOL)
         if shape == (8, 96, 128):  # the stage-1 shape: 4 terms x 2 groups
+            # S = z z^T is 2 P n^2 D operations; the backward recomputes it
+            # and multiplies the probabilities into z once more
+            s_flops = 2 * shape[0] * shape[1] ** 2 * shape[2]
             results["ntxent_fwd"] = dict(
                 ms=median_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
-                plain_ms=median_ms(lambda: N.ntxent_forward_plain(z, 0.1)))
+                device_ms=device_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
+                plain_ms=median_ms(lambda: N.ntxent_forward_plain(z, 0.1)),
+                library_ms=None,
+                **bound(nbytes(z, loss, lse, inv), s_flops, "f32"))
             results["ntxent_bwd"] = dict(
                 ms=median_ms(lambda: N.ntxent_backward_cuda(
                     z, lse, inv, g, 0.1)),
+                device_ms=device_ms(lambda: N.ntxent_backward_cuda(
+                    z, lse, inv, g, 0.1)),
                 plain_ms=median_ms(lambda: N.ntxent_backward_plain(
-                    z, lse_p, inv_p, g, 0.1)))
+                    z, lse_p, inv_p, g, 0.1)),
+                library_ms=None,
+                **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32"))
     results["ntxent_fwd"]["max_abs_err"] = errs["fwd"]
     results["ntxent_bwd"]["max_abs_err"] = errs["bwd"]
     results.update(k3_kernels())
@@ -210,41 +287,52 @@ def phase_kernels() -> dict:
     for name, r in results.items():
         bf16 = (f", plain bf16 {r['plain_bf16_ms']:.4f} ms"
                 if "plain_bf16_ms" in r else "")
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-            f"{bf16} (median of 20, CUDA events)")
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+        log(f"  {name}: kernel {r['ms']:.4f} ms a single launch (median of "
+            f"20), {r['device_ms']:.4f} ms device time (50 launches in a "
+            f"row), bound {r['bound_us']:.1f} us ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it reached), "
+            f"plain {r['plain_ms']:.4f} ms{bf16}{lib}")
     return results
 
 
 def k3_kernels() -> dict:
     """K3f, K3b-dq and K3b-dkv against the plain forward and analytic
-    backward: float32 at a small ragged shape and at ViT-B's (K3b on the
-    FMA kernels), and bf16 at ViT-B's (K3b on the tensor cores) against the
-    plain float32 version on the same bf16 inputs and against the plain
-    backward in bf16 arithmetic on the kernels' own out and lse. The times
-    are those of the bf16 launches, the slice's; the plain time of both
-    backward kernels is the whole plain backward, which computes dq, dk and
-    dv together: `plain_ms` in float32 (the analytic backward), and
-    `plain_bf16_ms` as `--use-checkpoint off` runs attention, in bf16 on
-    the tensor cores (`attention_xla`, and its autograd backward replayed
-    on one graph). max_abs_err is the largest of the float32 checks and,
-    for K3f, of the bf16 forward."""
+    backward: float32 at a small ragged shape and at ViT-B's (the FMA
+    kernels), and bf16 at ViT-B's (the tensor-core kernels) against the
+    plain float32 versions on the same bf16 inputs and against the plain
+    versions in bf16 arithmetic (the forward with K3f's key tile, the
+    backward on the kernels' own out and lse). The times are those of the
+    bf16 launches, the slice's; the plain time of both backward kernels is
+    the whole plain backward, which computes dq, dk and dv together:
+    `plain_ms` in float32 (the analytic backward), and `plain_bf16_ms` as
+    `--use-checkpoint off` runs attention, in bf16 on the tensor cores
+    (`attention_xla`, and its autograd backward replayed on one graph).
+    `library_ms` is `F.scaled_dot_product_attention` on (B, H, S, D) views
+    of the same tensors, and its autograd backward (one time for both
+    backward kernels). max_abs_err is the largest of the float32 checks
+    and, for K3f, of the bf16 forward."""
+    import torch.nn.functional as F
+
     from sm3x_torch.ops import attention as A
     from sm3x_torch.ops import attention_cuda as K
 
     rng = np.random.default_rng(5)
+    k3 = (K.flash_forward_cuda, K.flash_backward_dq_cuda,
+          K.flash_backward_dkv_cuda)
 
     def run(shape, dtype):
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
         scale = 1.0 / math.sqrt(shape[3])
-        k3b = (K.flash_backward_dq_cuda, K.flash_backward_dkv_cuda)
         kind = "mma" if dtype == torch.bfloat16 else "fma"
-        before = [fn.variants[kind] for fn in k3b]
+        before = [fn.variants[kind] for fn in k3]
         out, lse = K.flash_forward_cuda(q, k, v, scale)
         dq, delta = K.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
         dk, dv = K.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
-        if [fn.variants[kind] for fn in k3b] != [n + 1 for n in before]:
-            raise AssertionError(f"K3b in {dtype} did not run its {kind} "
+        if [fn.variants[kind] for fn in k3] != [n + 1 for n in before]:
+            raise AssertionError(f"K3 in {dtype} did not run its {kind} "
                                  f"kernels")
         f = [t.float() for t in (q, k, v, do)]
         out_p, lse_p = A.attention_plain(*f[:3], scale)
@@ -252,9 +340,13 @@ def k3_kernels() -> dict:
                                              scale)
         torch.cuda.synchronize()
         log(f"[kernels] K3 flash attention {shape} "
-            f"{str(dtype).replace('torch.', '')} (K3b: {kind} kernels)")
+            f"{str(dtype).replace('torch.', '')} ({kind} kernels)")
         return ((q, k, v, do, scale), (out, lse, delta),
                 zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p), (out_p, lse_p))
+
+    def rel_bf16(got, want):  # against `want` rounded to bf16
+        want = want.bfloat16().float()
+        return float((got.float() - want).norm() / want.norm())
 
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for shape in ((3, 100, 5, 64), VIT_SHAPE):
@@ -267,53 +359,93 @@ def k3_kernels() -> dict:
             errs[key] = max(errs[key], check_close(f"K3b {name}", got, want,
                                                    **K3B_TOL))
 
-    (q, k, v, do, scale), (out, lse, delta), grads, (out_p, _) = run(
+    (q, k, v, do, scale), (out, lse, delta), grads, (out_p, lse_p) = run(
         VIT_SHAPE, torch.bfloat16)
-    e = float((out.float() - out_p).abs().max())
-    log(f"  K3f out (bf16): max abs err {e:.3e} (bound {K3_BF16_FWD})")
-    if not e < K3_BF16_FWD:
-        raise AssertionError("K3f in bf16 disagrees with its plain version")
-    errs["flash_fwd"] = max(errs["flash_fwd"], e)
     f = [t.float() for t in (q, k, v, do)]
+    e = float((out.float() - out_p).abs().max())
+    out_bf16, lse_bf16 = A.attention_plain(
+        *f[:3], scale, operand_dtype=torch.bfloat16, block_k=K.KEY_TILE)
+    rel = rel_bf16(out, out_bf16)
+    log(f"  K3f out (bf16, tensor cores): max abs err {e:.3e} against "
+        f"float32 (bound {K3_BF16_FWD}), relative Frobenius err {rel:.3e} "
+        f"against the bf16 arithmetic (bound {K3_BF16_ARITH}; the float32 "
+        f"plain forward, rounded, is {rel_bf16(out_bf16, out_p):.3e} from it)")
+    if not (e < K3_BF16_FWD and rel < K3_BF16_ARITH):
+        raise AssertionError("K3f in bf16 disagrees with its plain version")
+    check_close("K3f lse (bf16)", lse, lse_bf16, **K3F_LSE_TOL)
+    check_close("K3f lse (bf16) against float32", lse, lse_p, **K3F_LSE_TOL)
+    errs["flash_fwd"] = max(errs["flash_fwd"], e)
     grads_bf16 = A.attention_backward_plain(
         *f[:3], out.float(), f[3], lse, scale, operand_dtype=torch.bfloat16)
     for (name, got, want), want_bf16 in zip(grads, grads_bf16):
         rel = float((got.float() - want).norm() / want.norm())
-        want_bf16 = want_bf16.bfloat16().float()
-        rel_bf16 = float((got.float() - want_bf16).norm() / want_bf16.norm())
+        rel_arith = rel_bf16(got, want_bf16)
         log(f"  K3b {name} (bf16, tensor cores): relative Frobenius err "
-            f"{rel:.3e} against float32 (bound {K3_BF16_REL}), {rel_bf16:.3e} "
-            f"against the bf16 arithmetic (bound {K3_BF16_ARITH})")
-        if not (rel < K3_BF16_REL and rel_bf16 < K3_BF16_ARITH):
+            f"{rel:.3e} against float32 (bound {K3_BF16_REL}), "
+            f"{rel_arith:.3e} against the bf16 arithmetic (bound "
+            f"{K3_BF16_ARITH})")
+        if not (rel < K3_BF16_REL and rel_arith < K3_BF16_ARITH):
             raise AssertionError(f"K3b {name} in bf16 disagrees")
+    del f, out_bf16, grads_bf16
+
     plain_bwd = median_ms(lambda: A.attention_backward_plain(
         q, k, v, out, do, lse, scale))
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out_x = A.attention_xla(*leaves)
     plain_bf16_bwd = median_ms(lambda: torch.autograd.grad(
         out_x, leaves, do, retain_graph=True))
+    del out_x
+    # the library's fused attention, which the port never calls: its own
+    # layout is (B, H, S, D), here views of the same tensors
+    lib_in = [t.transpose(1, 2) for t in leaves]
+    out_l = F.scaled_dot_product_attention(*lib_in, scale=scale)
+    e = float((out_l.transpose(1, 2).float() - out_p).abs().max())
+    log(f"  library attention (bf16): max abs err {e:.3e} against float32")
+    if not e < K3_BF16_FWD:
+        raise AssertionError("the library attention disagrees: wrong views?")
+    lib_det = [t.detach() for t in lib_in]
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        *lib_det, scale=scale))
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        out_l, leaves, do.transpose(1, 2), retain_graph=True))
+    del out_l
+
+    b, s, h, d = VIT_SHAPE
+    qk_flops = 2 * b * h * s * s * d  # one (S, S, D) product a (b, h)
+    stats = lse  # (B, H, S) float32, as delta
+    fwd = lambda: K.flash_forward_cuda(q, k, v, scale)
+    dq_fn = lambda: K.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
+    dkv_fn = lambda: K.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
     return {
-        "flash_fwd": dict(
-            max_abs_err=errs["flash_fwd"],
-            ms=median_ms(lambda: K.flash_forward_cuda(q, k, v, scale)),
+        "flash_fwd": dict(  # S and P V
+            max_abs_err=errs["flash_fwd"], ms=median_ms(fwd),
+            device_ms=device_ms(fwd),
             plain_ms=median_ms(lambda: A.attention_plain(q, k, v, scale)),
-            plain_bf16_ms=median_ms(lambda: A.attention_xla(q, k, v))),
-        "flash_bwd_dq": dict(
-            max_abs_err=errs["flash_bwd_dq"],
-            ms=median_ms(lambda: K.flash_backward_dq_cuda(
-                q, k, v, out, do, lse, scale)),
-            plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd),
-        "flash_bwd_dkv": dict(
-            max_abs_err=errs["flash_bwd_dkv"],
-            ms=median_ms(lambda: K.flash_backward_dkv_cuda(
-                q, k, v, do, lse, delta, scale)),
-            plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd),
+            plain_bf16_ms=median_ms(lambda: A.attention_xla(q, k, v)),
+            library_ms=lib_fwd,
+            **bound(nbytes(q, k, v, out, stats), 2 * qk_flops, "bf16")),
+        "flash_bwd_dq": dict(  # S, dP and dQ; writes dq and delta
+            max_abs_err=errs["flash_bwd_dq"], ms=median_ms(dq_fn),
+            device_ms=device_ms(dq_fn),
+            plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd,
+            library_ms=lib_bwd,
+            **bound(nbytes(q, k, v, out, do, stats, stats, q), 3 * qk_flops,
+                    "bf16")),
+        "flash_bwd_dkv": dict(  # S, dP, dV and dK; reads lse and delta
+            max_abs_err=errs["flash_bwd_dkv"], ms=median_ms(dkv_fn),
+            device_ms=device_ms(dkv_fn),
+            plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd,
+            library_ms=lib_bwd,
+            **bound(nbytes(q, k, v, do, stats, stats, k, v), 4 * qk_flops,
+                    "bf16")),
     }
 
 
 def k4_kernel() -> dict:
-    """K4 over 256 MiB: exact, and its GB/s beside clone's (one read and
-    one write of the array per copy)."""
+    """K4 over 256 MiB: exact, and its time beside `Tensor.clone`'s, the
+    library call of the same function (one read and one write of the array
+    per copy). Device times in turns within this one call (clone, K4, K4,
+    clone), 50 launches in a row each."""
     from sm3x_torch.ops import copy_cuda as K
 
     x = torch.randn(64 * 1024, 1024, device="cuda")
@@ -321,12 +453,20 @@ def k4_kernel() -> dict:
     torch.cuda.synchronize()
     if not torch.equal(y, x):
         raise AssertionError("K4 copy is not exact")
+    del y
     ms = median_ms(lambda: K.copy_cuda(x))
     plain_ms = median_ms(lambda: K.copy_plain(x))
-    gbps = [2 * x.numel() * 4 / t / 1e6 for t in (ms, plain_ms)]
-    log(f"[kernels] K4 copy {tuple(x.shape)} f32 (256 MiB): exact; "
-        f"{gbps[0]:.1f} GB/s, clone {gbps[1]:.1f} GB/s")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    turns = [device_ms(fn) for fn in (x.clone, lambda: K.copy_cuda(x),
+                                      lambda: K.copy_cuda(x), x.clone)]
+    dev, lib = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    gbps = [2 * nbytes(x) / t / 1e6 for t in (dev, lib)]
+    log(f"[kernels] K4 copy {tuple(x.shape)} f32 (256 MiB): exact; device "
+        f"time in turns clone {turns[0]:.4f}, K4 {turns[1]:.4f}, K4 "
+        f"{turns[2]:.4f}, clone {turns[3]:.4f} ms: K4 {gbps[0]:.1f} GB/s, "
+        f"clone {gbps[1]:.1f} GB/s, K4 / clone {dev / lib:.4f}")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=lib, turns_ms=turns, **bound(2 * nbytes(x), 0,
+                                                        "f32"))
 
 
 def phase_step() -> None:
@@ -451,10 +591,11 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
                 N.ntxent_backward_cuda, A.flash_forward_cuda,
                 A.flash_backward_dq_cuda, A.flash_backward_dkv_cuda,
                 C.copy_cuda)
-    k3b = (A.flash_backward_dq_cuda, A.flash_backward_dkv_cuda)
+    k3 = (A.flash_forward_cuda, A.flash_backward_dq_cuda,
+          A.flash_backward_dkv_cuda)
     for fn in counters:
         fn.launches = 0
-    for fn in k3b:
+    for fn in k3:
         fn.variants = dict.fromkeys(fn.variants, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -462,7 +603,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
-    variants = {fn.__name__: dict(fn.variants) for fn in k3b}
+    variants = {fn.__name__: dict(fn.variants) for fn in k3}
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
     log(f"[{tag}] stage-1 step: {arch}/v32, proj 128, T 0.1, batch {batch}, "
@@ -470,16 +611,16 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         f"{trainer.remat}; {steps} steps via SSLTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
     log(f"  kernel launches in fit: {launches}")
-    log(f"  K3b launches by kernel (fma float32, mma bf16): {variants}")
+    log(f"  K3 launches by kernel (fma float32, mma bf16): {variants}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
             for fn in counters}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
-    # bf16 autocast: every K3b launch is the tensor-core kernel
+    # bf16 autocast: every K3 launch is a tensor-core kernel
     if any(v != {"fma": 0, "mma": launches[n]} for n, v in variants.items()):
-        raise AssertionError(f"K3b kernels {variants}, expected mma only")
+        raise AssertionError(f"K3 kernels {variants}, expected mma only")
     if not os.path.exists(os.path.join(r.log_path, "ckp_0.pth")):
         raise AssertionError("fit wrote no ckp_0.pth")
 
@@ -513,22 +654,23 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     return launches
 
 
+# kernel launches a step on each path, by wrapper
+MAIN_PER_STEP = {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
+                 "ntxent_backward_cuda": 1}
+VIT_PER_STEP = dict(MAIN_PER_STEP, flash_forward_cuda=48,
+                    flash_backward_dq_cuda=48, flash_backward_dkv_cuda=48)
+
+
 def phase_main(profile_dir=None) -> dict:
     return phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
-                     {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
-                      "ntxent_backward_cuda": 1},
-                     profile_dir, "profile_step.txt")
+                     MAIN_PER_STEP, profile_dir, "profile_step.txt")
 
 
 def phase_vit(profile_dir=None) -> dict:
     """vit_b16 with --use-checkpoint flash: 12 blocks x 4 encoder passes
     give 48 launches of each K3 kernel a step."""
     return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
-                     {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
-                      "ntxent_backward_cuda": 1, "flash_forward_cuda": 48,
-                      "flash_backward_dq_cuda": 48,
-                      "flash_backward_dkv_cuda": 48},
-                     profile_dir, "profile_vit.txt")
+                     VIT_PER_STEP, profile_dir, "profile_vit.txt")
 
 
 def phase_copy() -> dict:
@@ -583,7 +725,7 @@ def main(argv=None) -> int:
         "ntxent_bwd": ("sm3x_torch/csrc/ntxent.cu",
                        "sm3x/ops/ntxent_pallas.py:91", "ntxent_backward_cuda",
                        launches),
-        "flash_fwd": ("sm3x_torch/csrc/flash_attention.cu",
+        "flash_fwd": ("sm3x_torch/csrc/flash_attention_fwd_mma.cu",
                       f"sm3x/models/vit.py:85 ({flash}:758)",
                       "flash_forward_cuda", vit_launches),
         "flash_bwd_dkv": ("sm3x_torch/csrc/flash_attention_bwd_mma.cu",
@@ -596,7 +738,10 @@ def main(argv=None) -> int:
                  "copy_cuda", copy_launches),
     }
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=counts[counter], **kernels[name])
+                 launches=counts[counter],
+                 launches_per_step={"main": MAIN_PER_STEP.get(counter, 0),
+                                    "vit": VIT_PER_STEP.get(counter, 0)},
+                 **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -14,7 +14,8 @@ ops       NT-Xent, augmentation, attention, copy: plain versions and CUDA
           kernels
 losses    stage-1 SSL loss assembly
 train     the stage-1 trainer
-data      in-memory synthetic paired canvases
+data      Derm7pt metadata, decode-once canvas cache, dataset registry,
+          in-memory synthetic paired canvases
 utils     weight bridge from Flax trees, run helpers
 cli       argparse surface and the stage-1 app
 """

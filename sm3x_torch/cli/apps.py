@@ -29,7 +29,7 @@ def backbone_train_main(argv=None):
     fix_random_seeds(cfg.run.seed)
 
     try:
-        from sm3x.data.datasets import build_dataset  # numpy, cv2, pandas
+        from sm3x_torch.data.datasets import build_dataset
         from sm3x_torch.train.backbone_train import SSLTrainer
 
         trainer = SSLTrainer(cfg, logger=logger)

@@ -11,16 +11,16 @@
 //
 // softmax(Q K^T * scale) V with the per-row logsumexp saved for the
 // backward, D = 64 (the head width of every ViT of the repo), float32 or
-// bf16 in, output in the input type. The kernels of this file compute in
-// float32 throughout; the backward of bf16 inputs runs on the tensor cores
-// instead, in flash_attention_bwd_mma.cu (`dispatch` below).
+// bf16 in, output in the input type. The kernels of this file take float32
+// and compute in float32 throughout; bf16 inputs run on the tensor cores
+// instead, the forward in flash_attention_fwd_mma.cu and the backward in
+// flash_attention_bwd_mma.cu (`dispatch` below).
 //
 // What bounds them on the H100: arithmetic. At ViT-B's (64, 197, 12, 64)
-// the forward is 2 * 64 * 12 * 197^2 * 64 = 3.8e9 multiply-adds over 58 MB
-// of bf16 q/k/v/o, and the backward 2.5 times that. These kernels run on
+// the forward is 2 * 64 * 12 * 197^2 * 64 = 3.8e9 multiply-adds over 116 MB
+// of float32 q/k/v/o, and the backward 2.5 times that. These kernels run on
 // the CUDA cores (FMA, float32), so that float32 inputs meet the float32
-// tolerances of the JAX package's tests; the forward takes bf16 the same
-// way. The design:
+// tolerances of the JAX package's tests. The design:
 //   * 64 x 64 tiles of q, k, v (and dO) are staged in shared memory as
 //     float32, rows padded to 68 floats so that the 16-byte reads below are
 //     free of bank conflicts;
@@ -39,13 +39,13 @@
 //     (b, h, key tile), loops over query tiles and reads Delta.
 //     dS = P o (dP - Delta); dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
-
 namespace sm3x {
+// K3f for bf16 on the tensor cores, flash_attention_fwd_mma.cu
+int flash_fwd_mma(const void* const* ptrs, const long long* strides, int B, int S, int H,
+                  float scale, cudaStream_t stream);
 // K3b-dq (which 1) and K3b-dkv (which 2) for bf16 on the tensor cores,
 // flash_attention_bwd_mma.cu
 int flash_bwd_mma(int which, const void* const* ptrs, const long long* strides, int B, int S,
@@ -64,21 +64,9 @@ struct Strides {  // in elements; the head dim is contiguous
   long long b, s, h;
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
 struct Attn {
-  const T *q, *k, *v, *o, *dout;
-  T *out, *dq, *dk, *dv;
+  const float *q, *k, *v, *o, *dout;
+  float *out, *dq, *dk, *dv;
   const float* lse_in;
   float *lse, *delta;
   Strides sq, sk, sv, so, sdo, sout;
@@ -100,15 +88,14 @@ __device__ __forceinline__ float group16_sum(float v) {
 
 // rows row0 .. row0 + 63 of one (b, h) slice into shared memory as float32;
 // rows >= S are zero
-template <typename T>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src, Strides st,
+                                          const float* __restrict__ src, Strides st,
                                           int b, int h, int row0, int S) {
-  const T* base = src + b * st.b + h * st.h;
+  const float* base = src + b * st.b + h * st.h;
   for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
     const int r = idx / kD, c = idx % kD;
     const int row = row0 + r;
-    dst[r * kStride + c] = row < S ? to_f(base[row * st.s + c]) : 0.f;
+    dst[r * kStride + c] = row < S ? base[row * st.s + c] : 0.f;
   }
 }
 
@@ -173,8 +160,7 @@ __device__ __forceinline__ void tile_pv(const float* __restrict__ P,
 
 // a 4 x 4 tile of rows ty + 16 i, columns 4 tx .. 4 tx + 3, scaled, to the
 // rows < S of a (B, S, H, D) tensor
-template <typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides st,
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides st,
                                            int b, int h, int row0, int S,
                                            int ty, int tx, float scale,
                                            const float (&acc)[4][4]) {
@@ -182,14 +168,13 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides st,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= S) continue;
-    T* p = dst + b * st.b + row * st.s + h * st.h + 4 * tx;
+    float* p = dst + b * st.b + row * st.s + h * st.h + 4 * tx;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) p[c] = from_f<T>(acc[i][c] * scale);
+    for (int c = 0; c < 4; ++c) p[c] = acc[i][c] * scale;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Attn<T> a) {
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Attn a) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kTileFloats;
@@ -250,15 +235,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Attn<T> a) {
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float inv = 1.f / l[i];
-    T* p = a.out + b * a.sout.b + row * a.sout.s + h * a.sout.h + 4 * tx;
+    float* p = a.out + b * a.sout.b + row * a.sout.s + h * a.sout.h + 4 * tx;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) p[c] = from_f<T>(o[i][c] * inv);
+    for (int c = 0; c < 4; ++c) p[c] = o[i][c] * inv;
     if (tx == 0) a.lse[(long long)bh * S + row] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(Attn<T> a) {
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(Attn a) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + kTileFloats;
@@ -281,10 +265,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(Attn<T> a) {
     const int row = q0 + r;
     float acc = 0.f;
     if (row < S) {
-      const T* orow = a.o + b * a.so.b + row * a.so.s + h * a.so.h + 16 * part;
+      const float* orow = a.o + b * a.so.b + row * a.so.s + h * a.so.h + 16 * part;
       const float* drow = dOs + r * kStride + 16 * part;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) acc = fmaf(drow[c], to_f(orow[c]), acc);
+      for (int c = 0; c < 16; ++c) acc = fmaf(drow[c], orow[c], acc);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -326,8 +310,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(Attn<T> a) {
   store_rows(a.dq, a.sout, b, h, q0, S, ty, tx, a.scale, dq);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(Attn<T> a) {
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(Attn a) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + kTileFloats;
@@ -390,35 +373,34 @@ constexpr size_t kDkvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
 
 Strides strides_at(const long long* s, int i) { return {s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
-template <typename T>
+// the float32 kernels: which 0 K3f, 1 K3b-dq, 2 K3b-dkv
 int launch(int which, const void* const* ptrs, const long long* strides,
            int B, int S, int H, float scale, cudaStream_t stream) {
-  Attn<T> a{};
+  Attn a{};
   a.H = H;
   a.S = S;
   a.scale = scale;
   dim3 grid(B * H, (S + kTile - 1) / kTile);
   if (which == 0) {  // q, k, v, out, lse
-    a.q = static_cast<const T*>(ptrs[0]);
-    a.k = static_cast<const T*>(ptrs[1]);
-    a.v = static_cast<const T*>(ptrs[2]);
-    a.out = static_cast<T*>(const_cast<void*>(ptrs[3]));
+    a.q = static_cast<const float*>(ptrs[0]);
+    a.k = static_cast<const float*>(ptrs[1]);
+    a.v = static_cast<const float*>(ptrs[2]);
+    a.out = static_cast<float*>(const_cast<void*>(ptrs[3]));
     a.lse = static_cast<float*>(const_cast<void*>(ptrs[4]));
     a.sq = strides_at(strides, 0);
     a.sk = strides_at(strides, 1);
     a.sv = strides_at(strides, 2);
     a.sout = strides_at(strides, 3);
-    cudaFuncSetAttribute(flash_fwd_kernel<T>,
+    cudaFuncSetAttribute(flash_fwd_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
-    flash_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(a);
-  } else if constexpr (std::is_same<T, float>::value) {
-    // q, k, v, o, dout, lse, delta, grad (dq) or grads (dk, dv); the bf16
-    // backward is flash_attention_bwd_mma.cu's
-    a.q = static_cast<const T*>(ptrs[0]);
-    a.k = static_cast<const T*>(ptrs[1]);
-    a.v = static_cast<const T*>(ptrs[2]);
-    a.o = static_cast<const T*>(ptrs[3]);
-    a.dout = static_cast<const T*>(ptrs[4]);
+    flash_fwd_kernel<<<grid, kThreads, kFwdSmem, stream>>>(a);
+  } else {
+    // q, k, v, o, dout, lse, delta, grad (dq) or grads (dk, dv)
+    a.q = static_cast<const float*>(ptrs[0]);
+    a.k = static_cast<const float*>(ptrs[1]);
+    a.v = static_cast<const float*>(ptrs[2]);
+    a.o = static_cast<const float*>(ptrs[3]);
+    a.dout = static_cast<const float*>(ptrs[4]);
     a.lse_in = static_cast<const float*>(ptrs[5]);
     a.delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
     a.sq = strides_at(strides, 0);
@@ -428,16 +410,16 @@ int launch(int which, const void* const* ptrs, const long long* strides,
     a.sdo = strides_at(strides, 4);
     a.sout = strides_at(strides, 5);
     if (which == 1) {
-      a.dq = static_cast<T*>(const_cast<void*>(ptrs[7]));
-      cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+      a.dq = static_cast<float*>(const_cast<void*>(ptrs[7]));
+      cudaFuncSetAttribute(flash_bwd_dq_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-      flash_bwd_dq_kernel<T><<<grid, kThreads, kDqSmem, stream>>>(a);
+      flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem, stream>>>(a);
     } else {
-      a.dk = static_cast<T*>(const_cast<void*>(ptrs[7]));
-      a.dv = static_cast<T*>(const_cast<void*>(ptrs[8]));
-      cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
+      a.dk = static_cast<float*>(const_cast<void*>(ptrs[7]));
+      a.dv = static_cast<float*>(const_cast<void*>(ptrs[8]));
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-      flash_bwd_dkv_kernel<T><<<grid, kThreads, kDkvSmem, stream>>>(a);
+      flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem, stream>>>(a);
     }
   }
   return (int)cudaGetLastError();
@@ -446,9 +428,9 @@ int launch(int which, const void* const* ptrs, const long long* strides,
 int dispatch(int which, const void* const* ptrs, const long long* strides, int B,
              int S, int H, int D, float scale, int bf16, cudaStream_t stream) {
   if (D != kD || B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (!bf16) return launch<float>(which, ptrs, strides, B, S, H, scale, stream);
-  if (which != 0) return sm3x::flash_bwd_mma(which, ptrs, strides, B, S, H, scale, stream);
-  return launch<__nv_bfloat16>(which, ptrs, strides, B, S, H, scale, stream);
+  if (!bf16) return launch(which, ptrs, strides, B, S, H, scale, stream);
+  if (which == 0) return sm3x::flash_fwd_mma(ptrs, strides, B, S, H, scale, stream);
+  return sm3x::flash_bwd_mma(which, ptrs, strides, B, S, H, scale, stream);
 }
 
 }  // namespace
@@ -457,7 +439,8 @@ extern "C" {
 
 // K3f. ptrs: q, k, v, out (B, S, H, D) and lse (B, H, S) float32; strides:
 // (b, s, h) in elements for q, k, v, out (host array of 12). bf16: 0 for
-// float32 tensors, 1 for bfloat16. Returns cudaGetLastError().
+// float32 tensors (the FMA kernel above), 1 for bfloat16 (the tensor-core
+// kernel, 16-byte-aligned rows). Returns cudaGetLastError().
 int sm3x_flash_fwd(const void* const* ptrs, const long long* strides, int B,
                    int S, int H, int D, float scale, int bf16,
                    cudaStream_t stream) {

@@ -14,9 +14,9 @@ Modes (`ATTENTION_FNS`):
          logsumexp, and recomputes the probabilities tile by tile. On a
          CUDA tensor it launches kernels K3f, K3b-dq and K3b-dkv
          (sm3x_torch/ops/attention_cuda.py) or raises; on a CPU tensor it
-         takes the plain versions below. The bf16 backward rounds P and dS
-         to bf16 before their products, as the TPU kernel and the
-         tensor-core K3b do.
+         takes the plain versions below. In bf16 the forward rounds P, and
+         the backward P and dS, to bf16 before their products, as the TPU
+         kernels and the tensor-core K3f and K3b do.
 """
 
 from __future__ import annotations
@@ -33,15 +33,44 @@ def _compute_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def attention_plain(q, k, v, scale: float):
+def attention_plain(q, k, v, scale: float,
+                    operand_dtype: torch.dtype | None = None,
+                    block_k: int | None = None):
     """softmax(q k^T * scale) v in float32 (float64 for float64 inputs):
-    (out (B, S, H, D), lse (B, H, S)), the values K3f computes."""
+    (out (B, S, H, D), lse (B, H, S)), the values K3f computes.
+
+    `operand_dtype=torch.bfloat16` is the arithmetic of the TPU kernel
+    (flash_attention.py:396-471) and of the tensor-core K3f: an online
+    softmax over key blocks of `block_k` (None: one block, the whole row),
+    in which P = exp(S * scale - m), relative to the running max m, is
+    rounded to bf16 before P V; S, m, the exponent, the row sum l (of the
+    unrounded P) and lse = m + log(l) stay float32, and the output is
+    divided by l at the end. With None the result is the float32 one and
+    `block_k` must be None."""
     dt = _compute_dtype(q)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    return torch.einsum("bhqk,bkhd->bqhd", p, v), lse
+    if operand_dtype is None:
+        if block_k is not None:
+            raise ValueError("block_k applies to the bf16 arithmetic only")
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        return torch.einsum("bhqk,bkhd->bqhd", p, v), lse
+    n = s.shape[-1]
+    m = s.new_full(s.shape[:-1], -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q).transpose(1, 2)  # (B, H, S, D)
+    for k0 in range(0, n, block_k or n):
+        sb = s[..., k0:k0 + (block_k or n)]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sb - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(operand_dtype).to(dt),
+            v[:, k0:k0 + (block_k or n)])
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2), m + torch.log(l)
 
 
 def attention_backward_plain(q, k, v, out, dout, lse, scale: float,
@@ -83,8 +112,11 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         if q.is_cuda:
             out, lse = attention_cuda.flash_forward_cuda(q, k, v, scale)
-        else:
-            out, lse = attention_plain(q, k, v, scale)
+        else:  # bf16 in K3f's bf16 arithmetic and key tiles, as on the card
+            bf16 = q.dtype == torch.bfloat16
+            out, lse = attention_plain(
+                q, k, v, scale, operand_dtype=torch.bfloat16 if bf16 else None,
+                block_k=attention_cuda.KEY_TILE if bf16 else None)
             out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale

@@ -1,22 +1,22 @@
 """Flash-attention kernels K3f, K3b-dq and K3b-dkv
-(sm3x_torch/csrc/flash_attention.cu): the wrappers that check their inputs,
-allocate the outputs and launch them on PyTorch's current stream.
+(sm3x_torch/csrc/flash_attention*.cu): the wrappers that check their
+inputs, allocate the outputs and launch them on PyTorch's current stream.
 
 Counterpart of the TPU flash attention that sm3x/models/vit.py:61-87 calls
 (JAX's Pallas library kernel: forward and the dkv / dq backward kernels).
 Tensors are in the Flax layout (B, S, H, D), read through their strides
 with the head dim contiguous; D must be 64, the head width of every ViT of
-the repo. float32 and bfloat16 inputs. The forward computes in float32.
-The backward picks its kernels by dtype: float32 inputs run the FMA kernels
-of flash_attention.cu (float32 arithmetic on the CUDA cores), bf16 inputs
-the tensor-core kernels of flash_attention_bwd_mma.cu (bf16 operands,
-float32 sums, as the TPU kernel), which read 16-byte row starts: a bf16
+the repo. float32 and bfloat16 inputs. Each wrapper picks its kernel by
+dtype: float32 inputs run the FMA kernels of flash_attention.cu (float32
+arithmetic on the CUDA cores), bf16 inputs the tensor-core kernels of
+flash_attention_fwd_mma.cu and flash_attention_bwd_mma.cu (bf16 operands,
+float32 sums, as the TPU kernels), which read 16-byte row starts: a bf16
 tensor whose data pointer or (b, s, h) strides are not 16-byte multiples
 raises ValueError.
 
 Each wrapper takes CUDA tensors only and counts its launches in
-`<wrapper>.launches`; the backward wrappers also count them by kernel in
-`<wrapper>.variants` ("fma" float32, "mma" bf16). The plain versions and
+`<wrapper>.launches`, and by kernel in `<wrapper>.variants` ("fma"
+float32, "mma" bf16). The plain versions and
 the autograd Function that picks between kernels and plain versions by
 device are in sm3x_torch/ops/attention.py.
 """
@@ -30,6 +30,7 @@ import torch
 from sm3x_torch.ops import _native
 
 HEAD_DIM = 64
+KEY_TILE = 64   # keys a step of K3f's online softmax (kTile in csrc/flash_mma.cuh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,8 +56,8 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_rows_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 backward kernels copy rows with cp.async and read them with
-    ldmatrix, 16 bytes at a time."""
+    """The bf16 kernels copy rows with cp.async and read them with ldmatrix,
+    16 bytes at a time."""
     if tensors[0].dtype != torch.bfloat16:
         return
     for t in tensors:
@@ -98,17 +99,19 @@ def _call(fn, name: str, tensors, strided, q: torch.Tensor,
 def flash_forward_cuda(q, k, v, scale: float):
     """K3f: (out (B, S, H, D) in the inputs' dtype, lse (B, H, S) float32)."""
     _check("flash_forward_cuda", q, k, v)
+    _check_rows_aligned("flash_forward_cuda", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     lib = _native.library()
-    flash_forward_cuda.launches += 1
+    _count(flash_forward_cuda, q)
     _call(lib.sm3x_flash_fwd, "sm3x_flash_fwd", (q, k, v, out, lse),
           (q, k, v, out), q, scale)
     return out, lse
 
 
 flash_forward_cuda.launches = 0
+flash_forward_cuda.variants = {"fma": 0, "mma": 0}
 
 
 def flash_backward_dq_cuda(q, k, v, out, dout, lse, scale: float):

@@ -15,6 +15,11 @@ seed.
   (JAX's Pallas library kernel, run in Pallas interpret mode on bf16
   inputs, fed as `_flash_attention_fn` feeds it). Without the option the
   function is bit for bit the float32 formula it always was.
+* `attention_plain(..., operand_dtype=torch.bfloat16, block_k=...)`, the
+  arithmetic of the tensor-core K3f (an online softmax over key blocks, P
+  rounded to bf16 before P V), against the same TPU kernel's forward and
+  its saved l and m. Without the option the function is bit for bit the
+  float32 formula it always was.
 * `FlashAttention` and the mode table on CPU tensors: the plain versions,
   no kernel launched.
 """
@@ -136,6 +141,76 @@ def test_bf16_plain_backward_matches_the_tpu_kernel(shape):
         assert _rel(f.bfloat16(), w) > 1e-3
 
 
+@pytest.mark.parametrize("shape", [(2, 197, 2, 64), (2, 50, 2, 64)])
+def test_bf16_plain_forward_matches_the_tpu_kernel(shape):
+    """The TPU kernel's output is bf16. At S = 197 it pads to 256 and runs
+    its online softmax over two key blocks of 128, rounding P = exp(S - m)
+    to bf16 before P V: against it the plain forward in bf16 arithmetic
+    with `block_k=128`, rounded to bf16, measured 1.3e-4 relative Frobenius
+    error (bound 5e-4), the float32 plain forward, rounded, 2.3e-3, and
+    the bf16 arithmetic with other key blocks (one block, or K3f's 64)
+    1.4e-3: the bound tells the arithmetics apart, and P's rounding point
+    moves with the running max. At S = 50 the TPU wrapper pads to one
+    block of 128 and takes its single-step kernel, which rounds P after
+    dividing by l, a third rounding point: every version measured 2.7e-3
+    to 3.0e-3 there (bound 1e-2) and none is told apart. The logsumexp
+    m + log(l) agrees to 4.8e-7 everywhere (rtol / atol 1e-5)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as fa
+
+    s, d = shape[1], shape[3]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in _inputs(shape, seed=3 + s, n=3))
+    qp, kp, vp, seg, _ = _pad_for_flash(q, k, v)
+    with pltpu.force_tpu_interpret_mode():
+        out, l, m = fa._flash_attention(  # flash_attention with residuals
+            qp, kp, vp, None, fa.SegmentIds(seg, seg), True, False, scale,
+            fa.BlockSizes.get_default(*qp.shape[:3], kp.shape[2], d), False)
+    assert out.dtype == jnp.bfloat16
+    want = torch.from_numpy(np.asarray(
+        jnp.transpose(out[:, :, :s, :], (0, 2, 1, 3)), np.float32))
+    want_lse = np.asarray(m + jnp.log(l), np.float32)[:, :, :s]
+    t = [torch.from_numpy(np.asarray(x, np.float32)) for x in (q, k, v)]
+    got, lse = A.attention_plain(*t, scale, operand_dtype=torch.bfloat16,
+                                 block_k=128)
+    assert got.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    f32, _ = A.attention_plain(*t, scale)
+    k3f, lse64 = A.attention_plain(*t, scale, operand_dtype=torch.bfloat16,
+                                   block_k=K.KEY_TILE)
+    np.testing.assert_allclose(lse64.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    assert _rel(got, want) < 1e-2 and _rel(k3f.bfloat16(), want) < 1e-2
+    if s == 197:
+        assert _rel(got.bfloat16(), want) < 5e-4
+        assert _rel(f32.bfloat16(), want) > 1e-3
+        assert _rel(k3f.bfloat16(), want) > 5e-4
+    else:
+        assert _rel(got.bfloat16(), want) < 1e-2
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_forward_without_operand_dtype_is_the_float32_formula(shape):
+    q, k, v = (torch.from_numpy(a) for a in _inputs(shape, seed=13, n=3))
+    scale = 1.0 / math.sqrt(shape[3])
+    out, lse = A.attention_plain(q, k, v, scale)
+    # the function as it stood before `operand_dtype`
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    want_lse = torch.logsumexp(s, dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - want_lse[..., None]),
+                        v)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    with pytest.raises(ValueError, match="block_k"):
+        A.attention_plain(q, k, v, scale, block_k=64)
+    # the bf16 arithmetic is the same function to bf16 precision, whatever
+    # the key block: 4e-3 is one bf16 step of P (2^-8)
+    for block_k in (None, 64, 16):
+        o, l = A.attention_plain(q, k, v, scale, operand_dtype=torch.bfloat16,
+                                 block_k=block_k)
+        torch.testing.assert_close(l, want_lse, rtol=1e-5, atol=1e-5)
+        assert 0 < _rel(o, want) < 4e-3
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_backward_without_operand_dtype_is_the_float32_formula(shape):
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, seed=11))
@@ -173,14 +248,19 @@ def test_flash_function_on_cpu_takes_the_plain_versions():
         torch.testing.assert_close(got.grad, want_g, rtol=1e-6, atol=1e-6)
 
     # bf16 in, bf16 out and bf16 gradients in the bf16 arithmetic of the
-    # tensor-core K3b, as on the card
+    # tensor-core K3f (key tiles of 64) and K3b, as on the card
     lb = [x.bfloat16().requires_grad_(True) for x in (q, k, v)]
     ob = A.flash_attention(*lb)
     ob.backward(do.bfloat16())
     assert ob.dtype == torch.bfloat16
     assert all(x.grad.dtype == torch.bfloat16 for x in lb)
     fb = [x.detach().float() for x in lb]
-    _, lse_b = A.attention_plain(*fb, 1 / 8.0)
+    assert K.KEY_TILE == 64
+    want_b, lse_b = A.attention_plain(*fb, 1 / 8.0,
+                                      operand_dtype=torch.bfloat16, block_k=64)
+    assert torch.equal(ob.detach(), want_b.bfloat16())
+    assert not torch.equal(ob.detach(),
+                           A.attention_plain(*fb, 1 / 8.0)[0].bfloat16())
     for got, want_g in zip(lb, A.attention_backward_plain(
             *fb, ob.detach().float(), do.bfloat16().float(), lse_b, 1 / 8.0,
             operand_dtype=torch.bfloat16)):

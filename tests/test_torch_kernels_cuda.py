@@ -15,15 +15,17 @@ Float32 with TF32 off. Tolerances are the JAX package's kernel tests':
 K1 rtol 1e-4 / atol 1e-5 (tests/test_augment_pallas.py), K2 loss rtol 1e-5
 and gradients rtol 1e-4 / atol 1e-6 (tests/test_ntxent_pallas.py), K3 in
 float32 forward rtol / atol 1e-5 and gradients rtol 2e-4 / atol 2e-5
-(tests/test_vit_trimodal.py:46,77); the float32 backward runs the FMA
-kernels. K3 in bf16 is held against the plain float32 version on the same
-bf16 inputs: forward max abs error < 0.02 and relative Frobenius error of
-each gradient < 0.03 (tests/flash_tpu_check.py). The bf16 backward runs on
-the tensor cores in the TPU kernel's arithmetic, and is also held against
-the plain backward in that arithmetic, rounded to bf16 as the kernels'
-gradients are: relative Frobenius error < 5e-4 (measured <= 7.8e-5 on an
-H100 at S = 1 to 257; the float32 plain backward, rounded, is 2.6e-3 from
-it). K4 must be exact.
+(tests/test_vit_trimodal.py:46,77); float32 runs the FMA kernels. K3 in
+bf16 is held against the plain float32 version on the same bf16 inputs:
+forward max abs error < 0.02 and relative Frobenius error of each gradient
+< 0.03 (tests/flash_tpu_check.py). The bf16 kernels run on the tensor cores
+in the TPU kernels' arithmetic, and are also held against the plain
+versions in that arithmetic, rounded to bf16 as the kernels' results are:
+relative Frobenius error < 5e-4 (the forward, against the plain forward
+with K3f's key tile of 64, measured 8.3e-5 on an H100 at (64, 197, 12, 64),
+and its lse within rtol / atol 1e-4; the backward <= 7.8e-5 at S = 1 to
+257; the float32 plain versions, rounded, are 2.1e-3 to 2.6e-3 from them). K4 must
+be exact.
 """
 
 from itertools import permutations
@@ -220,6 +222,11 @@ def test_flash_kernels_match_plain(card, s, dtype):
     else:
         assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
         assert float((out.float() - out_p).abs().max()) < 0.02
+        out_bf16, lse_bf16 = A3.attention_plain(
+            *f[:3], scale, operand_dtype=torch.bfloat16, block_k=K3.KEY_TILE)
+        assert _rel_bf16(out, out_bf16) < 5e-4
+        _close(lse, lse_bf16, rtol=1e-4, atol=1e-4)
+        _close(lse, lse_p, rtol=1e-4, atol=1e-4)
         for got, want in zip((dq, dk, dv), grads_p):
             assert _rel(got, want) < 0.03
         # the same out and lse as the kernels were given
@@ -266,7 +273,7 @@ def test_flash_reads_strided_inputs(card, dtype):
     f = [t.float() for t in c]
     out_p, lse_p = A3.attention_plain(*f[:3], 0.125)
     torch.cuda.synchronize()
-    assert torch.equal(out, out_c)
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
     for got, want in zip((dq, dk, dv), grads_c):
         assert torch.equal(got, want)
     if dtype == torch.float32:
@@ -276,6 +283,10 @@ def test_flash_reads_strided_inputs(card, dtype):
         for got, want in zip((dq, dk, dv), grads_p):
             _close(got, want, rtol=2e-4, atol=2e-5)
     else:
+        out_b, _ = A3.attention_plain(*f[:3], 0.125,
+                                      operand_dtype=torch.bfloat16,
+                                      block_k=K3.KEY_TILE)
+        assert _rel_bf16(out, out_b) < 5e-4
         grads_p = A3.attention_backward_plain(
             *f[:3], out.float(), f[3], lse, 0.125,
             operand_dtype=torch.bfloat16)
@@ -317,10 +328,35 @@ def test_flash_backward_refuses_bf16_rows_off_16_bytes(card):
         _close(got, want, rtol=2e-4, atol=2e-5)
 
 
+def test_flash_forward_refuses_bf16_rows_off_16_bytes(card):
+    """The tensor-core K3f copies and reads 16-byte row starts, as K3b: a
+    bf16 input 2 bytes off, or with rows 68 elements apart, raises
+    ValueError and launches nothing, also through the autograd Function
+    (no plain version takes over on the card)."""
+    b, s, h, d = 2, 70, 3, 64
+    off = torch.randn(b * s * h * d + 1, device=card,
+                      dtype=torch.bfloat16)[1:].view(b, s, h, d)
+    wide = torch.randn(b, s, h, d + 4, device=card,
+                       dtype=torch.bfloat16)[..., :d]
+    good = torch.randn(b, s, h, d, device=card, dtype=torch.bfloat16)
+    before = K3.flash_forward_cuda.launches
+    for bad in (off, wide):
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match="16-byte"):
+                K3.flash_forward_cuda(*args, 0.125)
+        with pytest.raises(ValueError, match="16-byte"):
+            A3.flash_attention(bad, good, good)
+    assert K3.flash_forward_cuda.launches == before
+    K3.flash_forward_cuda(good, good, good, 0.125)
+    assert K3.flash_forward_cuda.launches == before + 1
+
+
 def test_flash_backward_runs_fma_for_float32_and_mma_for_bf16(card):
     """Counted per kernel on the wrappers, directly and through the autograd
-    Function: float32 runs the FMA kernels, bf16 the tensor-core ones."""
-    k3b = (K3.flash_backward_dq_cuda, K3.flash_backward_dkv_cuda)
+    Function: float32 runs the FMA kernels, bf16 the tensor-core ones, the
+    forward as the backward."""
+    k3b = (K3.flash_forward_cuda, K3.flash_backward_dq_cuda,
+           K3.flash_backward_dkv_cuda)
     for dtype, kind in ((torch.float32, "fma"), (torch.bfloat16, "mma")):
         q, k, v, do = _qkv((2, 65, 3, 64), dtype, card, seed=2)
         before = [dict(fn.variants) for fn in k3b]
