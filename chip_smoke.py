@@ -9,7 +9,9 @@ Phases, each printing its lines:
   kernels  K1 (photometric), K2f / K2b (NT-Xent), K3f / K3b-dq / K3b-dkv
            (flash attention) and K4 (copy) against their plain PyTorch
            versions on the card, in float32 with TF32 off, at the stage-1
-           shapes (K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
+           shapes (K1 also at a shape that takes its general-shape kernel,
+           with the kernel each shape took; K1 and K2f twice for identical
+           bits; K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
            runs on the tensor cores and is held against the plain versions
            in float32 and in the TPU kernels' bf16 arithmetic; K4 over 256
            MiB, exact). Times of each: `ms`, the median of 20 single
@@ -22,13 +24,19 @@ Phases, each printing its lines:
            (`F.scaled_dot_product_attention` and its autograd backward for
            K3, `Tensor.clone` for K4; the port calls neither), K4 and clone
            in turns; and `bound_ms`, the least time the card could take,
-           from the shapes and the H100's published peaks
+           from the shapes and the H100's published peaks. For K1, K2f and
+           K2b also `kernel_ms`, the kernels' own time a call under
+           torch.profiler, and `launch_floor_ms`: K4 over one element,
+           timed as `device_ms` (the bounds of K2f and K2b lie below what
+           any launch costs, so their rows are read against it)
   step     one fp32 step of a small model on the card against the same step
            on the CPU (plain versions), from the same weights and views
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
            T 0.1, global batch 96, --world-size 2, lr 1e-6, AdamW eps 1e-5,
            bf16 autocast, 224x224) over in-memory synthetic canvases: per-step
-           losses, kernel launch counts, step time, images/s, peak memory
+           losses, kernel launch counts (K1's by kernel: every launch at
+           224x224 must take the band kernel), step time, images/s, peak
+           memory
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
@@ -140,6 +148,38 @@ def device_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int = 20):
+    """The kernels' own time of one fn(): every kernel the call launches,
+    summed from torch.profiler's device events over `reps` calls. Unlike
+    `device_ms` it holds none of the host's work between launches. The
+    profiler now and then returns no device event for a short window: the
+    window is then made longer, twice, and after that the result is None
+    (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for n in (reps, 5 * reps, 25 * reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        key = ("self_device_time_total" if events and hasattr(
+            events[0], "self_device_time_total") else "self_cuda_time_total")
+        total_us = sum(getattr(e, key) for e in events)
+        if total_us > 0:
+            return total_us / n / 1e3
+    return None
+
+
+def ms_or_not(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
 def bound(nbytes: float, flops: float, kind: str) -> dict:
     """The least time the card could take: the larger of the bytes that
     must move (each input read once, each output written once) over the
@@ -188,8 +228,12 @@ def phase_build() -> None:
             spills = ln.strip()
         elif "registers" in ln:
             used = ln.split(":", 1)[1].strip()
-            short = re.search(r"[a-z_]*kernel", name)
-            log(f"  ptxas {short.group(0) if short else name[:60]}"
+            short = re.search(r"[a-z_]*kernel(ILi(\d+)E)?", name)
+            label = name[:60]
+            if short:
+                label = short.group(0).split("ILi")[0] + (
+                    f"<{short.group(2)}>" if short.group(2) else "")
+            log(f"  ptxas {label}"
                 f"{' (sm3x)' if '_ZN4sm3x' in name else ''}: {used}; {spills}")
             if "_ZN4sm3x" in name and "0 bytes spill stores" not in spills:
                 raise AssertionError(f"{name} spills registers: {spills}")
@@ -218,24 +262,52 @@ def k1_inputs(batch=96, size=224):
     return images, params.contiguous()
 
 
-def phase_kernels() -> dict:
+def phase_kernels():
+    """Every kernel against its plain version, with its times: (the rows of
+    the kernels line by name, the launch floor's two times)."""
     from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops import copy_cuda as C
     from sm3x_torch.ops import ntxent_cuda as N
 
+    # what any launch through a wrapper costs: K4 over one element
+    one = torch.zeros(1, device="cuda")
+    floor = dict(launch_floor_ms=device_ms(lambda: C.copy_cuda(one)),
+                 launch_floor_kernel_ms=kernel_ms(lambda: C.copy_cuda(one)))
+    log(f"[kernels] launch floor: K4 over one element "
+        f"{floor['launch_floor_ms']:.4f} ms device time (50 launches in a "
+        f"row, the wrapper's host work between them), the kernel alone "
+        f"{ms_or_not(floor['launch_floor_kernel_ms'])}")
+
     results = {}
-    images, params = k1_inputs()
-    got = K.photometric_cuda(images, params, MEAN, STD)
-    want = K.photometric_plain(images, params, MEAN, STD)
-    torch.cuda.synchronize()
-    log(f"[kernels] K1 photometric {tuple(images.shape)}")
-    err = check_close("K1 out", got, want, **K1_TOL)
+    # the general-shape kernel, then the stage-1 shape
+    for batch, size, kernel in ((16, 640, "scratch"), (96, 224, "band")):
+        images, params = k1_inputs(batch, size)
+        plan = K.photometric_plan(size, size)
+        before = dict(K.photometric_cuda.variants)
+        got = K.photometric_cuda(images, params, MEAN, STD)
+        again = K.photometric_cuda(images, params, MEAN, STD)
+        want = K.photometric_plain(images, params, MEAN, STD)
+        torch.cuda.synchronize()
+        log(f"[kernels] K1 photometric {tuple(images.shape)}: {plan['kernel']}"
+            f" kernel, {plan['blocks']} blocks an image of "
+            f"{plan['band_rows']} rows, {plan['px']} pixels a thread, "
+            f"{plan['smem_bytes']} bytes of shared memory a block")
+        took = {k: v - before[k]
+                for k, v in K.photometric_cuda.variants.items()}
+        if plan["kernel"] != kernel or took != {
+                **dict.fromkeys(took, 0), kernel: 2}:
+            raise AssertionError(f"K1 at {size} x {size} took {took}, "
+                                 f"expected the {kernel} kernel")
+        err = check_close("K1 out", got, want, **K1_TOL)
+        if not torch.equal(got, again):
+            raise AssertionError("K1 does not repeat bit for bit")
+        del want, again
     # about 130 float32 operations a pixel when every step applies (four
     # jitter rounds with the HSV rotation, gray, 3 x 3 blur, normalise)
+    k1 = lambda: K.photometric_cuda(images, params, MEAN, STD)
     results["photometric"] = dict(
-        max_abs_err=err,
-        ms=median_ms(lambda: K.photometric_cuda(images, params, MEAN, STD)),
-        device_ms=device_ms(
-            lambda: K.photometric_cuda(images, params, MEAN, STD)),
+        max_abs_err=err, ms=median_ms(k1), device_ms=device_ms(k1),
+        kernel_ms=kernel_ms(k1),
         plain_ms=median_ms(
             lambda: K.photometric_plain(images, params, MEAN, STD)),
         library_ms=None,
@@ -248,6 +320,9 @@ def phase_kernels() -> dict:
         z = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
         g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).cuda()
         loss, lse, inv = N.ntxent_forward_cuda(z, 0.1)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (loss, lse, inv), N.ntxent_forward_cuda(z, 0.1))):
+            raise AssertionError("K2f does not repeat bit for bit")
         loss_p, lse_p, inv_p = N.ntxent_forward_plain(z, 0.1)
         dz = N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
         dz_p = N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)
@@ -260,6 +335,7 @@ def phase_kernels() -> dict:
                                                    **K2F_TOL))
         errs["bwd"] = max(errs["bwd"], check_close("K2b dz", dz, dz_p,
                                                    **K2B_TOL))
+        check_close("K2f lse", lse, lse_p, **K2F_TOL)
         check_close("plain dz vs autograd", dz_p, zr.grad, **K2B_TOL)
         if shape == (8, 96, 128):  # the stage-1 shape: 4 terms x 2 groups
             # S = z z^T is 2 P n^2 D operations; the backward recomputes it
@@ -268,6 +344,7 @@ def phase_kernels() -> dict:
             results["ntxent_fwd"] = dict(
                 ms=median_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
                 device_ms=device_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
+                kernel_ms=kernel_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
                 plain_ms=median_ms(lambda: N.ntxent_forward_plain(z, 0.1)),
                 library_ms=None,
                 **bound(nbytes(z, loss, lse, inv), s_flops, "f32"))
@@ -275,6 +352,8 @@ def phase_kernels() -> dict:
                 ms=median_ms(lambda: N.ntxent_backward_cuda(
                     z, lse, inv, g, 0.1)),
                 device_ms=device_ms(lambda: N.ntxent_backward_cuda(
+                    z, lse, inv, g, 0.1)),
+                kernel_ms=kernel_ms(lambda: N.ntxent_backward_cuda(
                     z, lse, inv, g, 0.1)),
                 plain_ms=median_ms(lambda: N.ntxent_backward_plain(
                     z, lse_p, inv_p, g, 0.1)),
@@ -289,12 +368,16 @@ def phase_kernels() -> dict:
                 if "plain_bf16_ms" in r else "")
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
+        own = (f", the kernel alone {ms_or_not(r['kernel_ms'])} (profiler)"
+               if "kernel_ms" in r else "")
         log(f"  {name}: kernel {r['ms']:.4f} ms a single launch (median of "
             f"20), {r['device_ms']:.4f} ms device time (50 launches in a "
-            f"row), bound {r['bound_us']:.1f} us ({r['bound_by']}, "
+            f"row, {r['device_ms'] / floor['launch_floor_ms']:.1f} x the "
+            f"launch floor){own}, bound {r['bound_us']:.1f} us "
+            f"({r['bound_by']}, "
             f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it reached), "
             f"plain {r['plain_ms']:.4f} ms{bf16}{lib}")
-    return results
+    return results, floor
 
 
 def k3_kernels() -> dict:
@@ -595,7 +678,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
           A.flash_backward_dkv_cuda)
     for fn in counters:
         fn.launches = 0
-    for fn in k3:
+    for fn in k3 + (K.photometric_cuda,):
         fn.variants = dict.fromkeys(fn.variants, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -604,6 +687,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     variants = {fn.__name__: dict(fn.variants) for fn in k3}
+    k1_variants = dict(K.photometric_cuda.variants)
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
     log(f"[{tag}] stage-1 step: {arch}/v32, proj 128, T 0.1, batch {batch}, "
@@ -611,6 +695,8 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         f"{trainer.remat}; {steps} steps via SSLTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
     log(f"  kernel launches in fit: {launches}")
+    log(f"  K1 launches by kernel (band: one read and one write of each "
+        f"image; scratch: the general-shape path): {k1_variants}")
     log(f"  K3 launches by kernel (fma float32, mma bf16): {variants}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
@@ -618,6 +704,9 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
             for fn in counters}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    # 224 x 224: every K1 launch is the band kernel
+    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
+        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
     # bf16 autocast: every K3 launch is a tensor-core kernel
     if any(v != {"fma": 0, "mma": launches[n]} for n, v in variants.items()):
         raise AssertionError(f"K3 kernels {variants}, expected mma only")
@@ -704,7 +793,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kernels = phase_kernels()
+    kernels, floor = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
     vit_launches = phase_vit(args.profile)
@@ -743,7 +832,7 @@ def main(argv=None) -> int:
                                     "vit": VIT_PER_STEP.get(counter, 0)},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": rows, **floor}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,32 +6,55 @@
 // (2b, 2b) similarity matrix in VMEM per call; the SSL loss called it once
 // per term and group from a Python loop.
 //
-// Here every problem of one `ssl_loss` call is one launch: z is (P, n, D)
-// with n = 2b rows per problem. What bounds it on the H100: nothing large.
-// At the stage-1 shapes (P = 8, n = 96, D = 128) the work is 8 * 96 * 96 *
-// 128 multiply-adds and 400 KB of input, so launch latency and the serial
-// column loop dominate. The design keeps it simple and exact:
-//   * one warp per row i; the row's normalised vector lives in registers
-//     (D / 32 values a lane), and the warp walks the n columns with a
-//     shuffle-reduced dot product each, so S is never written to memory;
-//   * the forward keeps an online max and sum of the row's logits, and saves
-//     the row's logsumexp and inverse norm for the backward;
-//   * rows are reduced to the per-problem mean by a second kernel with a
-//     fixed summation order (no float atomics), so the loss is repeatable;
-//   * the backward uses the symmetry of S: with p_ij = exp(S_ij - lse_i),
+// Here every problem of one `ssl_loss` call is one launch each way: z is
+// (P, n, D) with n = 2b rows per problem. What bounds it on the H100:
+// nothing large. At the stage-1 shapes (P = 8, n = 96, D = 128) the work is
+// 8 * 96 * 96 * 128 multiply-adds and 400 KB of input, far below what a
+// launch costs, so the forward is built to be one short launch:
+//   * one kernel computes the row norms, the logits, the row logsumexp and
+//     the per-problem mean; a cluster of 8 blocks owns a problem, a block
+//     n / 8 of its rows, 12 at a time (4 warps of 3);
+//   * the rows of z come into shared memory once, by cp.async, in tiles of
+//     a multiple of 96 rows with a padded stride (ntxent_tile.cuh); at the
+//     stage-1 shape the whole problem is one tile of 57 KB, larger problems
+//     stream tiles under an online max and sum;
+//   * lanes own columns: a lane accumulates the dot products of its warp's
+//     3 rows with 3 columns over D from shared memory in float32 FMAs and
+//     keeps its own running max and sum of each row; one shuffle reduction
+//     a row, at its end, replaces one a column. The positive and the masked
+//     diagonal are picked by index. S is never written to memory;
+//   * the mean keeps a fixed order: a block adds its rows' losses in row
+//     order, and block 0 of the cluster adds the blocks' sums in rank order,
+//     read through distributed shared memory. No float atomics: the loss
+//     repeats bit for bit;
+//   * the row's logsumexp and inverse norm are saved for the backward.
+// The backward is one warp per row i with the row in registers, walking the
+// n columns with a shuffle-reduced dot product each; it uses the symmetry
+// of S: with p_ij = exp(S_ij - lse_i),
 //     dzh_i = g / (n T) * (sum_j (p_ij + p_ji) zh_j - 2 zh_pos(i)),
 //     then dz_i = (dzh_i - zh_i (dzh_i . zh_i)) * inv_i.
 // The row normalisation is rsqrt(max(|z|^2, 1e-24)), the definition shared
 // with the plain version (sm3x_torch/ops/ntxent.py::inv_norm).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ntxent_tile.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;          // rows per block
-constexpr int kMaxPerLane = 16;    // D <= 32 * kMaxPerLane = 512
-constexpr int kReduceThreads = 256;
+constexpr int kWarps = 8;          // backward: rows per block
+constexpr int kMaxPerLane = 16;    // backward: D <= 32 * kMaxPerLane = 512
+
+// forward: the wrapper's shape plan (ops/ntxent_cuda.py) mirrors these
+constexpr int kFwdCluster = 8;     // blocks a problem
+constexpr int kFwdWarps = 4;
+constexpr int kRW = 3;             // rows a warp
+constexpr int kCW = 3;             // columns a lane: blocks of 96 columns
+constexpr int kChunk = kFwdWarps * kRW;  // rows a block handles at a time
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: every lane ends with the same bits
@@ -39,17 +62,130 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// inv[r] = rsqrt(max(|z_r|^2, 1e-24)) for every row of every problem
-__global__ void inv_norm_kernel(const float* __restrict__ z,
-                                float* __restrict__ inv, int rows, int d) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* zr = z + (size_t)row * d;
-  float s = 0.f;
-  for (int k = lane; k < d; k += 32) s += zr[k] * zr[k];
-  s = warp_sum(s);
-  if (lane == 0) inv[row] = rsqrtf(fmaxf(s, 1e-24f));
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Dynamic shared memory: kChunk own rows and tile_rows rows of the problem,
+// `stride` floats apart, then their inverse norms.
+__global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdWarps * 32)
+ntxent_fwd_kernel(const float* __restrict__ z, float* __restrict__ loss,
+                  float* __restrict__ lse, float* __restrict__ inv, int n, int d,
+                  int tile_rows, int vec, float temperature) {
+  using namespace ntxent_tile;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float row_loss[kChunk];
+  __shared__ float part;  // this block's sum of row losses
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int p = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = tile_stride(d), d4 = (d + 3) & ~3;
+  float* own = smem;
+  float* tile = own + kChunk * stride;
+  float* own_inv = tile + tile_rows * stride;
+  float* tile_inv = own_inv + kChunk;
+  const float* zp = z + (size_t)p * n * d;
+  const int per_block = (n + kFwdCluster - 1) / kFwdCluster;
+  const int r_begin = min(rank * per_block, n);
+  const int r_end = min(r_begin + per_block, n);
+  const bool one_tile = tile_rows >= n;
+  float block_sum = 0.f;  // thread 0's
+
+  for (int c0 = r_begin; c0 < r_end; c0 += kChunk) {
+    const int c_rows = min(kChunk, r_end - c0);
+    const bool fill = !one_tile || c0 == r_begin;  // a single tile is loaded once
+    float m[kRW], l[kRW], s_pos[kRW];
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+      s_pos[r] = 0.f;
+    }
+    __syncthreads();  // the chunk before is done with its rows and the tile
+    tile_load(own, zp + (size_t)c0 * d, c_rows, d, stride, vec);
+    for (int t0 = 0; t0 < n; t0 += tile_rows) {
+      const int t_rows = min(tile_rows, n - t0);
+      if (fill) {
+        if (t0 > 0) __syncthreads();  // every warp is done with the tile before
+        tile_load(tile, zp + (size_t)t0 * d, t_rows, d, stride, vec);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (t0 == 0) tile_row_norms(own, own_inv, c_rows, d, stride);
+      if (fill) tile_row_norms(tile, tile_inv, t_rows, d, stride);
+      __syncthreads();
+
+      if (warp * kRW < c_rows) {
+        for (int g0 = 0; g0 < t_rows; g0 += 32 * kCW) {
+          float acc[kRW][kCW];
+          tile_dots<kRW, kCW>(own + warp * kRW * stride, tile + g0 * stride, d4, stride, lane,
+                              acc);
+#pragma unroll
+          for (int r = 0; r < kRW; ++r) {
+            const int i = c0 + warp * kRW + r;  // rows >= r_end are dropped below
+            const int pos = (i + n / 2) % n;
+            const float inv_i = own_inv[warp * kRW + r];
+            float s[kCW], top = -INFINITY;
+#pragma unroll
+            for (int c = 0; c < kCW; ++c) {
+              const int jt = g0 + lane + 32 * c, j = t0 + jt;
+              const float v = acc[r][c] * (inv_i * tile_inv[jt]) / temperature;
+              if (j == pos) s_pos[r] = v;
+              // the diagonal is masked out of the softmax
+              s[c] = (j < n && j != i) ? v : -INFINITY;
+              top = fmaxf(top, s[c]);
+            }
+            if (top > -INFINITY) {
+              const float m_new = fmaxf(m[r], top);
+              float add = 0.f;
+#pragma unroll
+              for (int c = 0; c < kCW; ++c) add += expf(s[c] - m_new);
+              l[r] = l[r] * expf(m[r] - m_new) + add;
+              m[r] = m_new;
+            }
+          }
+        }
+      }
+    }
+
+    // one reduction of (max, sum) and of the positive a row; the rows of a
+    // warp past the chunk's end hold nothing and are not written
+    float top[kRW], sum[kRW], positive[kRW];
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) top[r] = warp_max(m[r]);
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) sum[r] = warp_sum(l[r] * expf(m[r] - top[r]));
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) positive[r] = warp_sum(s_pos[r]);  // one lane holds it
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kRW; ++r) {
+        const int k = warp * kRW + r;
+        if (k < c_rows) {
+          const float row_lse = top[r] + logf(sum[r]);
+          const size_t at = (size_t)p * n + c0 + k;
+          lse[at] = row_lse;
+          inv[at] = own_inv[k];
+          row_loss[k] = row_lse - positive[r];
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int k = 0; k < c_rows; ++k) block_sum += row_loss[k];
+  }
+
+  if (threadIdx.x == 0) part = block_sum;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float total = 0.f;
+    for (int b = 0; b < kFwdCluster; ++b) total += *cluster.map_shared_rank(&part, b);
+    loss[p] = total / n;
+  }
+  cluster.sync();  // no block leaves while block 0 reads its sum
 }
 
 __device__ __forceinline__ void load_row(const float* __restrict__ zr, float inv,
@@ -59,65 +195,6 @@ __device__ __forceinline__ void load_row(const float* __restrict__ zr, float inv
     const int k = lane + 32 * c;
     v[c] = k < d ? zr[k] * inv : 0.f;
   }
-}
-
-__global__ void ntxent_fwd_kernel(const float* __restrict__ z,
-                                  const float* __restrict__ inv,
-                                  float* __restrict__ lse,
-                                  float* __restrict__ row_loss,
-                                  int n, int d, float temperature) {
-  const int p = blockIdx.x;
-  const int i = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const float* zp = z + (size_t)p * n * d;
-  const float* invp = inv + (size_t)p * n;
-  const int pos = (i + n / 2) % n;
-
-  float zi[kMaxPerLane];
-  load_row(zp + (size_t)i * d, invp[i], d, lane, zi);
-
-  float m = -INFINITY, l = 0.f, s_pos = 0.f;
-  for (int j = 0; j < n; ++j) {
-    const float* zj = zp + (size_t)j * d;
-    const float inv_j = invp[j];
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) {
-      const int k = lane + 32 * c;
-      if (k < d) dot += zi[c] * (zj[k] * inv_j);
-    }
-    const float s = warp_sum(dot) / temperature;
-    if (j == pos) s_pos = s;
-    if (j == i) continue;  // the diagonal is masked out of the softmax
-    if (s > m) {
-      l = l * expf(m - s) + 1.f;
-      m = s;
-    } else {
-      l += expf(s - m);
-    }
-  }
-  if (lane == 0) {
-    const float row_lse = m + logf(l);
-    lse[(size_t)p * n + i] = row_lse;
-    row_loss[(size_t)p * n + i] = row_lse - s_pos;
-  }
-}
-
-// loss[p] = mean of row_loss[p, :], summed in a fixed order
-__global__ void row_mean_kernel(const float* __restrict__ row_loss,
-                                float* __restrict__ loss, int n) {
-  __shared__ float part[kReduceThreads];
-  const float* r = row_loss + (size_t)blockIdx.x * n;
-  float s = 0.f;
-  for (int k = threadIdx.x; k < n; k += kReduceThreads) s += r[k];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) loss[blockIdx.x] = part[0] / n;
 }
 
 __global__ void ntxent_bwd_kernel(const float* __restrict__ z,
@@ -176,18 +253,21 @@ __global__ void ntxent_bwd_kernel(const float* __restrict__ z,
 
 extern "C" {
 
-// z (P, n, D) f32 -> loss (P,), lse (P, n), inv (P, n); row_loss (P, n) is
-// scratch. Returns cudaGetLastError() after the launches.
+// z (P, n, D) f32 -> loss (P,), lse (P, n), inv (P, n), one launch.
+// tile_rows (a multiple of 96) and vec (16-byte copies) come from the
+// wrapper's shape plan. Returns the first CUDA error, or 0.
 int sm3x_ntxent_fwd(const float* z, float* loss, float* lse, float* inv,
-                    float* row_loss, int problems, int n, int d,
+                    int problems, int n, int d, int tile_rows, int vec,
                     float temperature, cudaStream_t stream) {
-  const int rows = problems * n;
-  inv_norm_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      z, inv, rows, d);
-  dim3 grid(problems, (n + kWarps - 1) / kWarps);
-  ntxent_fwd_kernel<<<grid, kWarps * 32, 0, stream>>>(z, inv, lse, row_loss, n,
-                                                      d, temperature);
-  row_mean_kernel<<<problems, kReduceThreads, 0, stream>>>(row_loss, loss, n);
+  if (tile_rows <= 0 || tile_rows % (32 * kCW) != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kChunk + tile_rows) *
+                      (ntxent_tile::tile_stride(d) + 1) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ntxent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(kFwdCluster, problems);
+  ntxent_fwd_kernel<<<grid, kFwdWarps * 32, smem, stream>>>(
+      z, loss, lse, inv, n, d, tile_rows, vec, temperature);
   return (int)cudaGetLastError();
 }
 

@@ -30,13 +30,21 @@ LIB_NAME = "libsm3x_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Shared memory one block can use on an H100 (227 KB), static and dynamic
+# together; the wrappers' shape plans size their tiles under it.
+SHARED_MEMORY_BYTES = 232448
+
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # images, params, scratch, out, B, H, W, mean x3, std x3, stream
-    "sm3x_photometric": [_c_void_p] * 4 + [_c_int] * 3 + [_c_float] * 6
+    # images, params, out, B, H, W, cluster, band, px, threads, mean x3,
+    # std x3, stream
+    "sm3x_photometric_band": [_c_void_p] * 3 + [_c_int] * 7 + [_c_float] * 6
     + [_c_void_p],
-    # z, loss, lse, inv, row_loss, P, n, D, temperature, stream
-    "sm3x_ntxent_fwd": [_c_void_p] * 5 + [_c_int] * 3 + [_c_float, _c_void_p],
+    # images, params, scratch, out, B, H, W, mean x3, std x3, stream
+    "sm3x_photometric_scratch": [_c_void_p] * 4 + [_c_int] * 3
+    + [_c_float] * 6 + [_c_void_p],
+    # z, loss, lse, inv, P, n, D, tile_rows, vec, temperature, stream
+    "sm3x_ntxent_fwd": [_c_void_p] * 4 + [_c_int] * 5 + [_c_float, _c_void_p],
     # z, lse, inv, g, dz, P, n, D, temperature, stream
     "sm3x_ntxent_bwd": [_c_void_p] * 5 + [_c_int] * 3 + [_c_float, _c_void_p],
     # ptrs (host array), strides (host int64 array), B, S, H, D, scale,
@@ -136,6 +144,12 @@ def check(code: int, name: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The current CUDA stream of `device` as an integer handle. The raw
+    getter, where this torch has it, skips building a Stream object (8 us
+    a call on the host of an H100 machine, every launch pays it)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -1,6 +1,6 @@
 """Photometric augmentation kernel K1 (sm3x_torch/csrc/photometric.cu), its
-plain PyTorch twin, the per-image parameter matrix, and the SSL view
-pipeline built on them.
+plain PyTorch twin, the per-image parameter matrix, the shape plan that
+picks one of K1's two kernels, and the SSL view pipeline built on them.
 
 Counterpart of sm3x/ops/augment_pallas.py (`photometric_pallas` :162,
 `ssl_augment_batch_fused` :192, `build_params` :223). The (B, 16) parameter
@@ -9,6 +9,9 @@ tests, the Pallas kernel.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
+Which of the two kernels a CUDA tensor takes follows from its shape (and
+its alignment) alone, by `photometric_plan`; `photometric_cuda.variants`
+counts the launches of each.
 """
 
 from __future__ import annotations
@@ -24,6 +27,38 @@ P_ORD0 = 4                                   # op order in columns 4..7
 P_DO_JIT, P_DO_GRAY, P_DO_FLIP, P_DO_BLUR = 8, 9, 10, 11
 P_SIGMA = 12
 P_SIZE = 16
+
+# The band kernel's shape (csrc/photometric.cu). 16 rows and two halo rows of
+# 224 pixels are 48 KB, four blocks an SM: tools/k1_variants_torch.py is the
+# sweep over blocks an image and threads a block that these came from.
+MAX_CLUSTER = 16     # blocks an image, at most
+BAND_ROWS = 16       # rows a block aims at
+BAND_THREADS = 256   # threads of one block
+_BAND_STATIC = 128   # bytes of static shared memory the kernel declares
+
+
+def photometric_plan(h: int, w: int, aligned: bool = True) -> dict:
+    """How K1 runs an (H, W, 3) image, from the shape alone. The band
+    kernel gives each block of a cluster a band of rows and keeps it, with
+    two halo rows, in shared memory: ceil(H / BAND_ROWS) blocks an image, at
+    most MAX_CLUSTER, of ceil(H / blocks) rows each. A band that does not
+    fit, or a row of more items than a block has threads, takes the scratch
+    kernel, one block an image over a scratch copy in device memory. `px`
+    is the pixels a thread moves at a time: 4 (16-byte accesses) where W is
+    a multiple of 4 and the tensors are 16-byte aligned, else 1."""
+    if h < 2 or w < 2:
+        raise ValueError(f"need H >= 2 and W >= 2, got {h} x {w}")
+    px = 4 if w % 4 == 0 and aligned else 1
+    blocks = min(MAX_CLUSTER, -(-h // BAND_ROWS))
+    band = -(-h // blocks)
+    smem = (band + 2) * 3 * w * 4
+    # the last pass takes a row's items (W / px) from one thread each
+    if (smem + _BAND_STATIC > _native.SHARED_MEMORY_BYTES
+            or w // px > BAND_THREADS):
+        return dict(kernel="scratch", blocks=1, band_rows=h, px=1,
+                    threads=1024, smem_bytes=0)
+    return dict(kernel="band", blocks=blocks, band_rows=band, px=px,
+                threads=BAND_THREADS, smem_bytes=smem)
 
 
 def build_params(gen: torch.Generator, batch: int, cfg: A.AugConfig,
@@ -93,18 +128,30 @@ def photometric_cuda(images: torch.Tensor, params: torch.Tensor, mean,
                          f"(B, {P_SIZE}); got {tuple(images.shape)}, "
                          f"{tuple(params.shape)}")
     out = torch.empty_like(images)
-    scratch = torch.empty_like(images)
+    plan = photometric_plan(h, w, aligned=(images.data_ptr() % 16 == 0
+                                           and out.data_ptr() % 16 == 0))
     lib = _native.library()
+    norm = [float(m) for m in mean] + [float(s) for s in std]
+    stream = _native.stream_handle(images.device)
     photometric_cuda.launches += 1
-    _native.check(lib.sm3x_photometric(
-        images.data_ptr(), params.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), b, h, w, *(float(m) for m in mean),
-        *(float(s) for s in std), _native.stream_handle(images.device)),
-        "sm3x_photometric")
+    photometric_cuda.variants[plan["kernel"]] += 1
+    if plan["kernel"] == "band":
+        _native.check(lib.sm3x_photometric_band(
+            images.data_ptr(), params.data_ptr(), out.data_ptr(), b, h, w,
+            plan["blocks"], plan["band_rows"], plan["px"], plan["threads"],
+            *norm, stream),
+            "sm3x_photometric_band")
+    else:
+        scratch = torch.empty_like(images)
+        _native.check(lib.sm3x_photometric_scratch(
+            images.data_ptr(), params.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), b, h, w, *norm, stream),
+            "sm3x_photometric_scratch")
     return out
 
 
 photometric_cuda.launches = 0
+photometric_cuda.variants = {"band": 0, "scratch": 0}  # launches by kernel
 
 
 def photometric(images: torch.Tensor, params: torch.Tensor, mean,

@@ -19,32 +19,62 @@ from sm3x_torch.ops.ntxent import ntxent_problems as ntxent_forward_plain
 
 MAX_DIM = 512  # 32 lanes x 16 registers a row (csrc/ntxent.cu kMaxPerLane)
 
+# K2f's shape (csrc/ntxent.cu): a cluster of CLUSTER blocks a problem, a
+# block CHUNK_ROWS of its rows at a time against tiles of the problem's rows
+# that are a multiple of COLUMN_BLOCK long (32 lanes x 3 columns)
+CLUSTER, CHUNK_ROWS, COLUMN_BLOCK = 8, 12, 96
+_FWD_STATIC = 128  # bytes of static shared memory the kernel declares
+
+
+def ntxent_forward_plan(n: int, d: int, aligned: bool = True) -> dict:
+    """How K2f runs an (n, D) problem, from the shape alone: rows a block,
+    the padded row stride in floats (the least odd number of 16-byte steps
+    with a step of padding: reads down a column hit distinct banks), the
+    rows of a tile (the whole problem rounded up to COLUMN_BLOCK where that
+    fits in shared memory beside the block's own CHUNK_ROWS rows and every
+    row's inverse norm, else the largest multiple of COLUMN_BLOCK that
+    does), the number of tiles, the dynamic shared memory, and whether
+    copies are 16 bytes wide."""
+    stride = 4 * (((d + 3) // 4 + 1) | 1)
+    room = ((_native.SHARED_MEMORY_BYTES - _FWD_STATIC) // (4 * (stride + 1))
+            - CHUNK_ROWS)
+    tile_rows = min(-(-n // COLUMN_BLOCK), room // COLUMN_BLOCK) * COLUMN_BLOCK
+    if tile_rows < COLUMN_BLOCK:
+        raise ValueError(f"D = {d}: one column block of K2f does not fit "
+                         f"in shared memory")
+    return dict(rows_per_block=-(-n // CLUSTER), chunk_rows=CHUNK_ROWS,
+                stride=stride, tile_rows=tile_rows,
+                tiles=-(-n // tile_rows),
+                smem_bytes=(CHUNK_ROWS + tile_rows) * (stride + 1) * 4,
+                vec=d % 4 == 0 and aligned)
+
 
 def _check(z: torch.Tensor) -> None:
     if z.dtype != torch.float32 or z.dim() != 3 or not z.is_contiguous():
         raise ValueError(f"z must be a contiguous (P, n, D) float32 tensor, "
                          f"got {tuple(z.shape)} {z.dtype}")
     p, n, d = z.shape
-    if p < 1 or n < 2 or n % 2 or not 1 <= d <= MAX_DIM:
-        raise ValueError(f"z shape {tuple(z.shape)}: need P >= 1, even n >= 2 "
-                         f"and 1 <= D <= {MAX_DIM}")
+    if not 1 <= p <= 65535 or n < 2 or n % 2 or not 1 <= d <= MAX_DIM:
+        raise ValueError(f"z shape {tuple(z.shape)}: need 1 <= P <= 65535, "
+                         f"even n >= 2 and 1 <= D <= {MAX_DIM}")
 
 
 def ntxent_forward_cuda(z: torch.Tensor, temperature: float):
-    """K2f: z (P, n, D) f32 on CUDA -> (loss (P,), lse (P, n), inv (P, n))."""
+    """K2f: z (P, n, D) f32 on CUDA -> (loss (P,), lse (P, n), inv (P, n)),
+    in one kernel launch."""
     if not z.is_cuda:
         raise ValueError("ntxent_forward_cuda takes a CUDA tensor")
     _check(z)
     p, n, d = z.shape
+    plan = ntxent_forward_plan(n, d, aligned=z.data_ptr() % 16 == 0)
     loss = torch.empty(p, device=z.device, dtype=torch.float32)
     lse = torch.empty(p, n, device=z.device, dtype=torch.float32)
     inv = torch.empty_like(lse)
-    row_loss = torch.empty_like(lse)
     lib = _native.library()
     ntxent_forward_cuda.launches += 1
     _native.check(lib.sm3x_ntxent_fwd(
         z.data_ptr(), loss.data_ptr(), lse.data_ptr(), inv.data_ptr(),
-        row_loss.data_ptr(), p, n, d, float(temperature),
+        p, n, d, plan["tile_rows"], int(plan["vec"]), float(temperature),
         _native.stream_handle(z.device)), "sm3x_ntxent_fwd")
     return loss, lse, inv
 

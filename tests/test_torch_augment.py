@@ -56,6 +56,18 @@ def test_photometric_plain_matches_pallas_kernel(rng_np):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("h,w", [(7, 9), (13, 5)])
+def test_photometric_plain_matches_pallas_kernel_at_odd_shapes(rng_np, h, w):
+    b = 16
+    images = rng_np.random((b, h, w, 3)).astype(np.float32)
+    params = _mixed_params(b, seed=h)
+    got = K.photometric_plain(torch.from_numpy(images), params, MEAN, STD)
+    want = photometric_pallas(jnp.asarray(images), jnp.asarray(params.numpy()),
+                              MEAN, STD, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
 def test_photometric_dispatch_on_cpu_is_plain(rng_np):
     images = torch.from_numpy(rng_np.random((4, 8, 8, 3)).astype(np.float32))
     params = _mixed_params(4)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels (K1 photometric, K2f / K2b NT-Xent, K3f / K3b-dq /
 K3b-dkv flash attention, K4 copy) against their plain PyTorch versions on
 the card, at edge shapes the smoke run does not reach: tiny and odd image
-sizes, feature widths that are not a multiple of the warp, the widest D the
-kernel takes, many rows per problem, sequence lengths around the 64-row
+sizes (K1 with the kernel each shape takes: fewer rows than a band, a
+width that is no multiple of 4, bands of unequal height, more blocks than
+rows, tensors off 16 bytes, a shape on the general path), feature widths
+that are not a multiple of the warp, the widest D the kernel takes, many rows per problem, sequence lengths around the 64-row
 tile, strided q/k/v, and copies whose length is not a multiple of 4.
 
 Marked `cuda`; each test skips without a card. These tests import no JAX,
@@ -91,6 +93,96 @@ def test_photometric_matches_plain(card, batch, h, w):
     _close(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("batch,h,w,kernel", [
+    (96, 224, 224, "band"),   # the stage-1 shape
+    (16, 5, 36, "band"),      # fewer rows than a band: one block an image
+    (16, 40, 30, "band"),     # W no multiple of 4: scalar accesses
+    (16, 35, 36, "band"),     # three bands of 12, 12 and 11 rows
+    (16, 448, 448, "band"),   # 16 blocks of 28 + 2 rows, 161 KB each
+    (16, 640, 640, "scratch"),  # a band of 40 + 2 rows does not fit
+    (16, 30, 1028, "scratch"),  # a row of 257 items, a block of 256 threads
+])
+def test_photometric_kernel_by_shape(card, batch, h, w, kernel):
+    """Which kernel a shape takes follows the plan, and both agree with the
+    plain version and repeat bit for bit."""
+    rng = np.random.default_rng(h + w)
+    images = torch.from_numpy(rng.random((batch, h, w, 3),
+                                         dtype=np.float32)).to(card)
+    params = _k1_params(batch, card, seed=w)
+    assert K1.photometric_plan(h, w)["kernel"] == kernel
+    before = dict(K1.photometric_cuda.variants)
+    got = K1.photometric_cuda(images, params, MEAN, STD)
+    again = K1.photometric_cuda(images, params, MEAN, STD)
+    want = K1.photometric_plain(images, params, MEAN, STD)
+    torch.cuda.synchronize()
+    other = "scratch" if kernel == "band" else "band"
+    assert K1.photometric_cuda.variants == {kernel: before[kernel] + 2,
+                                            other: before[other]}
+    _close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+def test_photometric_band_kernel_with_idle_blocks(card):
+    """Called past the plan with more blocks than rows (8 blocks of one row
+    for 5 rows): the blocks past the last row hold nothing and still meet
+    the cluster's barriers."""
+    from sm3x_torch.ops import _native
+
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.random((16, 5, 36, 3),
+                                         dtype=np.float32)).to(card)
+    params = _k1_params(16, card, seed=3)
+    out = torch.empty_like(images)
+    for px in (4, 1):
+        _native.check(_native.library().sm3x_photometric_band(
+            images.data_ptr(), params.data_ptr(), out.data_ptr(), 16, 5, 36,
+            8, 1, px, 64, *MEAN, *STD, _native.stream_handle(images.device)),
+            "sm3x_photometric_band")
+        torch.cuda.synchronize()
+        _close(out, K1.photometric_plain(images, params, MEAN, STD),
+               rtol=1e-4, atol=1e-5)
+
+
+def test_photometric_reads_tensors_off_16_bytes(card):
+    """Contiguous images 4 bytes off a 16-byte address take the band kernel
+    with scalar accesses (another order of summation for the mean gray than
+    the 16-byte path, so other last bits), and repeat bit for bit."""
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.random(16 * 24 * 32 * 3 + 1,
+                                       dtype=np.float32)).to(card)
+    off = flat[1:].view(16, 24, 32, 3)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    params = _k1_params(16, card, seed=4)
+    want = K1.photometric_plain(off, params, MEAN, STD)
+    got = K1.photometric_cuda(off, params, MEAN, STD)
+    again = K1.photometric_cuda(off, params, MEAN, STD)
+    aligned = K1.photometric_cuda(off.clone(), params, MEAN, STD)
+    torch.cuda.synchronize()
+    _close(got, want, rtol=1e-4, atol=1e-5)
+    _close(aligned, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+def test_photometric_order_with_two_contrast_rounds(card):
+    """An op order is a permutation when `build_params` draws it; an order
+    that names contrast more than once still gives the plain version's
+    result, with one whole-image mean for each contrast round."""
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.random((8, 40, 36, 3),
+                                         dtype=np.float32)).to(card)
+    params = _k1_params(8, card, seed=5)
+    params[:, K1.P_DO_JIT] = 1.0
+    for i, order in enumerate(((1, 1, 1, 1), (1, 3, 1, 0), (0, 1, 2, 1),
+                               (3, 3, 3, 3), (1, 0, 2, 3), (2, 1, 1, 0),
+                               (0, 0, 0, 0), (2, 2, 1, 2))):
+        params[i, K1.P_ORD0:K1.P_ORD0 + 4] = torch.tensor(
+            order, dtype=torch.float32)
+    got = K1.photometric_cuda(images, params, MEAN, STD)
+    torch.cuda.synchronize()
+    _close(got, K1.photometric_plain(images, params, MEAN, STD), rtol=1e-4,
+           atol=1e-5)
+
+
 def test_photometric_counts_launches_and_checks_inputs(card):
     images = torch.rand(2, 8, 8, 3, device=card)
     params = _k1_params(2, card, seed=0)
@@ -121,6 +213,35 @@ def test_ntxent_kernels_match_plain(card, shape, temperature):
     _close(lse, lse_p, rtol=1e-5, atol=1e-6)
     _close(inv, inv_p, rtol=1e-5, atol=1e-6)
     _close(dz, dz_p, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(8, 96, 128), (3, 10, 33), (2, 300, 64),
+                                   (2, 700, 512)])
+def test_ntxent_forward_repeats_bit_for_bit(card, shape):
+    """One launch, no float atomics: the same input gives the same bits,
+    also where the rows' tiles are streamed ((700, 512): 8 tiles of 96)."""
+    rng = np.random.default_rng(sum(shape))
+    z = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card)
+    first = K2.ntxent_forward_cuda(z, 0.1)
+    second = K2.ntxent_forward_cuda(z, 0.1)
+    want = K2.ntxent_forward_plain(z, 0.1)
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        _close(a, w, rtol=1e-5, atol=1e-6)
+
+
+def test_ntxent_forward_reads_tensors_off_16_bytes(card):
+    rng = np.random.default_rng(6)
+    flat = torch.from_numpy(rng.standard_normal(2 * 48 * 64 + 1,
+                                                dtype=np.float32)).to(card)
+    off = flat[1:].view(2, 48, 64)
+    assert off.data_ptr() % 16 == 4
+    got = K2.ntxent_forward_cuda(off, 0.1)
+    aligned = K2.ntxent_forward_cuda(off.clone(), 0.1)
+    torch.cuda.synchronize()
+    for a, b in zip(got, aligned):
+        assert torch.equal(a, b)
 
 
 def test_ntxent_function_on_card_matches_cpu_autograd(card):
