@@ -10,8 +10,9 @@ Phases, each printing its lines:
            (flash attention) and K4 (copy) against their plain PyTorch
            versions on the card, in float32 with TF32 off, at the stage-1
            shapes (K1 also at a shape that takes its general-shape kernel,
-           with the kernel each shape took; K1 and K2f twice for identical
-           bits; K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
+           with the kernel each shape took; K2 also at --proj-dim 640, at
+           rows that stream several tiles and at an odd D off the 16-byte
+           copies; K1, K2f and K2b twice for identical bits; K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
            runs on the tensor cores and is held against the plain versions
            in float32 and in the TPU kernels' bf16 arithmetic; K4 over 256
            MiB, exact). Times of each: `ms`, the median of 20 single
@@ -24,11 +25,11 @@ Phases, each printing its lines:
            (`F.scaled_dot_product_attention` and its autograd backward for
            K3, `Tensor.clone` for K4; the port calls neither), K4 and clone
            in turns; and `bound_ms`, the least time the card could take,
-           from the shapes and the H100's published peaks. For K1, K2f and
-           K2b also `kernel_ms`, the kernels' own time a call under
-           torch.profiler, and `launch_floor_ms`: K4 over one element,
-           timed as `device_ms` (the bounds of K2f and K2b lie below what
-           any launch costs, so their rows are read against it)
+           from the shapes and the H100's published peaks; `kernel_ms`,
+           the kernels' own time a call under torch.profiler, from which
+           the share of the bound is taken; and `launch_floor_ms`: K4 over
+           one element, timed as `device_ms` (the bounds of K2f and K2b lie
+           below what any launch costs, so their rows are read against it)
   step     one fp32 step of a small model on the card against the same step
            on the CPU (plain versions), from the same weights and views
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
@@ -37,6 +38,17 @@ Phases, each printing its lines:
            losses, kernel launch counts (K1's by kernel: every launch at
            224x224 must take the band kernel), step time, images/s, peak
            memory
+  stage2   the stage-2 trainer at the run.sh recipe (two frozen resnet50
+           from the ckp_0.pth that `main` wrote, 224x224, batch 256, v4
+           projectors of 512, 1 head, ff 128, dropout 0.1, T 1, lr 1e-4,
+           float32) over 1024 synthetic cases: the init pass and 2 epochs
+           through MLCTrainer.fit; finite losses, K1 launched twice a step
+           (band kernel only) and no other kernel, assignments within each
+           label's classes, prototype weights equal to unit-norm centroids
+           after a clustering, the extractor's weights bit-identical to
+           the checkpoint and its running statistics moved by the init
+           pass alone, ckp_1.pth; the times of the init pass, of an epoch's
+           k-means and of a step, peak memory
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
@@ -44,9 +56,9 @@ Phases, each printing its lines:
            kernel; losses, launch counts, step time, images/s, peak memory
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--profile DIR`, the main and vit phases also trace three more steps
-with torch.profiler and write the device-time tables to
-DIR/profile_step.txt and DIR/profile_vit.txt.
+With `--profile DIR`, the main, stage2 and vit phases also trace three more
+steps with torch.profiler and write the device-time tables to
+DIR/profile_step.txt, DIR/profile_stage2.txt and DIR/profile_vit.txt.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Any
@@ -62,7 +74,6 @@ import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -71,6 +82,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+# the clocks (also bench_torch.py's); importing them fails outside a checkout
+from sm3x_torch.utils.timing import (device_ms, kernel_ms, median_ms,  # noqa: E402
+                                     nvidia_smi_name_and_limit,
+                                     profile_device)
 
 MAIN_STEPS, MAIN_BATCH = 4, 96          # run.sh: global batch 96
 VIT_STEPS, VIT_BATCH = 4, 64            # bench.py 64 30 vit_b16
@@ -92,6 +108,7 @@ K3F_LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 VIT_SHAPE = (64, 197, 12, 64)            # ViT-B/16 at 224, batch 64
+LOGS = os.path.join(ROOT, "build", "chip_smoke_logs")  # a folder a phase
 MEAN = (0.7833, 0.6712, 0.6026)          # run.sh Derm7pt statistics
 STD = (0.2139, 0.2472, 0.2571)
 
@@ -113,67 +130,6 @@ def check_close(name, got, want, rtol, atol) -> float:
     if not bool(torch.isfinite(got).all()) or worst > 1.0:
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_abs
-
-
-def median_ms(fn, reps: int = 20) -> float:
-    """Median device time of fn() over reps calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 50) -> float:
-    """Device time of one fn(): events around `reps` launches in a row,
-    after a warm-up, over the count. The host runs ahead of the card, so
-    its work before each launch is hidden behind the launch before."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_ms(fn, reps: int = 20):
-    """The kernels' own time of one fn(): every kernel the call launches,
-    summed from torch.profiler's device events over `reps` calls. Unlike
-    `device_ms` it holds none of the host's work between launches. The
-    profiler now and then returns no device event for a short window: the
-    window is then made longer, twice, and after that the result is None
-    (not measured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    for n in (reps, 5 * reps, 25 * reps):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        key = ("self_device_time_total" if events and hasattr(
-            events[0], "self_device_time_total") else "self_cuda_time_total")
-        total_us = sum(getattr(e, key) for e in events)
-        if total_us > 0:
-            return total_us / n / 1e3
-    return None
 
 
 def ms_or_not(t) -> str:
@@ -200,10 +156,7 @@ def phase_device() -> str:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs on an NVIDIA GPU only")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi_name_and_limit()
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     return smi
@@ -316,7 +269,11 @@ def phase_kernels():
 
     errs = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(3)
-    for shape in ((8, 96, 128), (4, 256, 128)):
+    # the stage-1 shape (4 terms x 2 groups); more rows; --proj-dim 640 (two
+    # tiles of 32-column blocks); rows that stream five tiles; an odd D off
+    # the 16-byte copies
+    for shape in ((8, 96, 128), (4, 256, 128), (8, 96, 640), (2, 300, 520),
+                  (3, 14, 131)):
         z = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
         g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).cuda()
         loss, lse, inv = N.ntxent_forward_cuda(z, 0.1)
@@ -325,40 +282,48 @@ def phase_kernels():
             raise AssertionError("K2f does not repeat bit for bit")
         loss_p, lse_p, inv_p = N.ntxent_forward_plain(z, 0.1)
         dz = N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+        if not torch.equal(dz, N.ntxent_backward_cuda(z, lse, inv, g, 0.1)):
+            raise AssertionError("K2b does not repeat bit for bit")
         dz_p = N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)
         # the plain backward through autograd of the plain forward
         zr = z.clone().requires_grad_(True)
         (N.ntxent_forward_plain(zr, 0.1)[0] * g).sum().backward()
         torch.cuda.synchronize()
-        log(f"[kernels] K2 ntxent z {shape}")
+        fp, bp = (plan(*shape[1:]) for plan in (N.ntxent_forward_plan,
+                                                N.ntxent_backward_plan))
+        log(f"[kernels] K2 ntxent z {shape}: K2f {fp['tiles']} tile(s) of "
+            f"{fp['tile_rows']} rows, {fp['smem_bytes']} bytes; K2b "
+            f"{bp['blocks']} blocks a problem of {bp['warps']} warps, "
+            f"{bp['tiles']} tile(s) of {bp['tile_rows']} rows, "
+            f"{bp['smem_bytes']} bytes")
         errs["fwd"] = max(errs["fwd"], check_close("K2f loss", loss, loss_p,
                                                    **K2F_TOL))
         errs["bwd"] = max(errs["bwd"], check_close("K2b dz", dz, dz_p,
                                                    **K2B_TOL))
         check_close("K2f lse", lse, lse_p, **K2F_TOL)
         check_close("plain dz vs autograd", dz_p, zr.grad, **K2B_TOL)
-        if shape == (8, 96, 128):  # the stage-1 shape: 4 terms x 2 groups
+        k2f = lambda: N.ntxent_forward_cuda(z, 0.1)
+        k2b = lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+        if shape == (8, 96, 128):  # the stage-1 shape: its times are the rows'
             # S = z z^T is 2 P n^2 D operations; the backward recomputes it
             # and multiplies the probabilities into z once more
             s_flops = 2 * shape[0] * shape[1] ** 2 * shape[2]
             results["ntxent_fwd"] = dict(
-                ms=median_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
-                device_ms=device_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
-                kernel_ms=kernel_ms(lambda: N.ntxent_forward_cuda(z, 0.1)),
+                ms=median_ms(k2f), device_ms=device_ms(k2f),
+                kernel_ms=kernel_ms(k2f),
                 plain_ms=median_ms(lambda: N.ntxent_forward_plain(z, 0.1)),
                 library_ms=None,
                 **bound(nbytes(z, loss, lse, inv), s_flops, "f32"))
             results["ntxent_bwd"] = dict(
-                ms=median_ms(lambda: N.ntxent_backward_cuda(
-                    z, lse, inv, g, 0.1)),
-                device_ms=device_ms(lambda: N.ntxent_backward_cuda(
-                    z, lse, inv, g, 0.1)),
-                kernel_ms=kernel_ms(lambda: N.ntxent_backward_cuda(
-                    z, lse, inv, g, 0.1)),
+                ms=median_ms(k2b), device_ms=device_ms(k2b),
+                kernel_ms=kernel_ms(k2b),
                 plain_ms=median_ms(lambda: N.ntxent_backward_plain(
                     z, lse_p, inv_p, g, 0.1)),
                 library_ms=None,
                 **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32"))
+        else:
+            log(f"  the kernels alone (profiler): K2f "
+                f"{ms_or_not(kernel_ms(k2f))}, K2b {ms_or_not(kernel_ms(k2b))}")
     results["ntxent_fwd"]["max_abs_err"] = errs["fwd"]
     results["ntxent_bwd"]["max_abs_err"] = errs["bwd"]
     results.update(k3_kernels())
@@ -368,15 +333,18 @@ def phase_kernels():
                 if "plain_bf16_ms" in r else "")
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
-        own = (f", the kernel alone {ms_or_not(r['kernel_ms'])} (profiler)"
-               if "kernel_ms" in r else "")
+        # the share of the bound from the kernel alone; `device_ms` reads
+        # the host for a short kernel and stands in only where the profiler
+        # gave no device time
+        alone = r["kernel_ms"] if r["kernel_ms"] is not None else r["device_ms"]
+        r["share_of_bound"] = r["bound_ms"] / alone
         log(f"  {name}: kernel {r['ms']:.4f} ms a single launch (median of "
             f"20), {r['device_ms']:.4f} ms device time (50 launches in a "
             f"row, {r['device_ms'] / floor['launch_floor_ms']:.1f} x the "
-            f"launch floor){own}, bound {r['bound_us']:.1f} us "
-            f"({r['bound_by']}, "
-            f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it reached), "
-            f"plain {r['plain_ms']:.4f} ms{bf16}{lib}")
+            f"launch floor), the kernel alone {ms_or_not(r['kernel_ms'])} "
+            f"(profiler), bound {r['bound_us']:.1f} us ({r['bound_by']}, "
+            f"{100 * r['share_of_bound']:.1f}% of it reached by the kernel "
+            f"alone), plain {r['plain_ms']:.4f} ms{bf16}{lib}")
     return results, floor
 
 
@@ -502,21 +470,21 @@ def k3_kernels() -> dict:
     return {
         "flash_fwd": dict(  # S and P V
             max_abs_err=errs["flash_fwd"], ms=median_ms(fwd),
-            device_ms=device_ms(fwd),
+            device_ms=device_ms(fwd), kernel_ms=kernel_ms(fwd),
             plain_ms=median_ms(lambda: A.attention_plain(q, k, v, scale)),
             plain_bf16_ms=median_ms(lambda: A.attention_xla(q, k, v)),
             library_ms=lib_fwd,
             **bound(nbytes(q, k, v, out, stats), 2 * qk_flops, "bf16")),
         "flash_bwd_dq": dict(  # S, dP and dQ; writes dq and delta
             max_abs_err=errs["flash_bwd_dq"], ms=median_ms(dq_fn),
-            device_ms=device_ms(dq_fn),
+            device_ms=device_ms(dq_fn), kernel_ms=kernel_ms(dq_fn),
             plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd,
             library_ms=lib_bwd,
             **bound(nbytes(q, k, v, out, do, stats, stats, q), 3 * qk_flops,
                     "bf16")),
         "flash_bwd_dkv": dict(  # S, dP, dV and dK; reads lse and delta
             max_abs_err=errs["flash_bwd_dkv"], ms=median_ms(dkv_fn),
-            device_ms=device_ms(dkv_fn),
+            device_ms=device_ms(dkv_fn), kernel_ms=kernel_ms(dkv_fn),
             plain_ms=plain_bwd, plain_bf16_ms=plain_bf16_bwd,
             library_ms=lib_bwd,
             **bound(nbytes(q, k, v, do, stats, stats, k, v), 4 * qk_flops,
@@ -547,7 +515,9 @@ def k4_kernel() -> dict:
         f"time in turns clone {turns[0]:.4f}, K4 {turns[1]:.4f}, K4 "
         f"{turns[2]:.4f}, clone {turns[3]:.4f} ms: K4 {gbps[0]:.1f} GB/s, "
         f"clone {gbps[1]:.1f} GB/s, K4 / clone {dev / lib:.4f}")
-    return dict(max_abs_err=0.0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev,
+                kernel_ms=kernel_ms(lambda: K.copy_cuda(x)),
+                library_kernel_ms=kernel_ms(x.clone), plain_ms=plain_ms,
                 library_ms=lib, turns_ms=turns, **bound(2 * nbytes(x), 0,
                                                         "f32"))
 
@@ -599,47 +569,64 @@ def phase_step() -> None:
         raise AssertionError("parameters after one step disagree")
 
 
-def profile_steps(trainer, batches, out_dir: str, name: str) -> None:
-    """torch.profiler over the given steps: device time by kernel, per
-    step, and the device's busy share of the host-clock window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for it, args in enumerate(batches):
-            trainer.train_step(*args, it)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    key = ("self_device_time_total" if hasattr(events[0],
-           "self_device_time_total") else "self_cuda_time_total")
-    # kernels only: an op's row, and a range such as the optimizer step's
-    # user annotation, repeat the time of the kernels inside them
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: -getattr(e, key))
-    busy_us = sum(getattr(e, key) for e in kernels)
-    n = len(batches)
-    if busy_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    launches = sum(e.count for e in kernels) / n
-    log(f"[profile] {n} steps: device busy {busy_us / n / 1e3:.1f} ms per "
-        f"step of {wall_us / n / 1e3:.1f} ms on the host clock "
-        f"({100 * busy_us / wall_us:.1f}% busy), {launches:.0f} kernels and "
-        f"copies a step; top kernels by device time:")
-    for e in kernels[:12]:
+def profile_steps(step, n: int, out_dir: str, name: str) -> None:
+    """torch.profiler over step(0) .. step(n - 1): device time by kernel,
+    per step, and the device's busy share of the host-clock window."""
+    res = profile_device(step, n)
+    rows, key = res["rows"], res["field"]
+    busy_us = res["busy_ms"] * 1e3 * n
+    log(f"[profile] {n} steps: device busy {res['busy_ms']:.1f} ms per "
+        f"step of {res['wall_ms']:.1f} ms on the host clock "
+        f"({100 * res['busy_ms'] / res['wall_ms']:.1f}% busy), "
+        f"{res['launches']:.0f} kernels and copies a step; top kernels by "
+        f"device time:")
+    for e in rows[:12]:
         t = getattr(e, key)
         log(f"  {t / n / 1e3:8.3f} ms/step {100 * t / busy_us:5.1f}%  "
             f"x{e.count // n:<4d} {e.key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
     with open(path, "w") as f:
-        f.write(events.table(sort_by=key, row_limit=80,
-                             max_name_column_width=100))
+        f.write(res["prof"].key_averages().table(
+            sort_by=key, row_limit=80, max_name_column_width=100))
     log(f"  full table: {path}")
+
+
+def kernel_counters():
+    """(every kernel wrapper, the three K3 wrappers), each with its
+    `launches` count; K1 and K3 also count by kernel in `variants`."""
+    from sm3x_torch.ops import attention_cuda as A
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops import copy_cuda as C
+    from sm3x_torch.ops import ntxent_cuda as N
+
+    k3 = (A.flash_forward_cuda, A.flash_backward_dq_cuda,
+          A.flash_backward_dkv_cuda)
+    return (K.photometric_cuda, N.ntxent_forward_cuda,
+            N.ntxent_backward_cuda) + k3 + (C.copy_cuda,), k3
+
+
+def reset_counters() -> None:
+    counters, k3 = kernel_counters()
+    for fn in counters:
+        fn.launches = 0
+    for fn in k3 + counters[:1]:
+        fn.variants = dict.fromkeys(fn.variants, 0)
+
+
+def timed_steps(steps) -> list:
+    """Host-clock seconds of each step() of `steps`, each ended by a
+    synchronise; a step returns its loss, which must be finite."""
+    times = []
+    for step in steps:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if not math.isfinite(float(loss)):
+            raise AssertionError("non-finite loss in a timed step")
+    return times
 
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
@@ -647,13 +634,10 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
     steps through SSLTrainer.fit with every kernel count set to 0 just
     before and read just after (each must equal `per_step` x steps), then
-    the step time over 8 more steps."""
+    the step time over two more epochs."""
     from sm3x_torch.core.config import SSLConfig
     from sm3x_torch.data.synthetic import SyntheticPairedData
-    from sm3x_torch.ops import attention_cuda as A
     from sm3x_torch.ops import augment_cuda as K
-    from sm3x_torch.ops import copy_cuda as C
-    from sm3x_torch.ops import ntxent_cuda as N
     from sm3x_torch.train.backbone_train import SSLTrainer
 
     cfg = SSLConfig()
@@ -665,21 +649,13 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
                                                             True, 1)
     cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
     r.world_size, r.device, r.print_freq = 2, "cuda", 10 ** 6
-    r.log_path = os.path.join(ROOT, "build", "chip_smoke_logs")
+    r.log_path = os.path.join(LOGS, tag)
     shutil.rmtree(r.log_path, ignore_errors=True)
 
     data = SyntheticPairedData(batch * steps, canvas=320, seed=0)
     trainer = SSLTrainer(cfg)
-    counters = (K.photometric_cuda, N.ntxent_forward_cuda,
-                N.ntxent_backward_cuda, A.flash_forward_cuda,
-                A.flash_backward_dq_cuda, A.flash_backward_dkv_cuda,
-                C.copy_cuda)
-    k3 = (A.flash_forward_cuda, A.flash_backward_dq_cuda,
-          A.flash_backward_dkv_cuda)
-    for fn in counters:
-        fn.launches = 0
-    for fn in k3 + (K.photometric_cuda,):
-        fn.variants = dict.fromkeys(fn.variants, 0)
+    counters, k3 = kernel_counters()
+    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = trainer.fit(data)
@@ -720,15 +696,9 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
 
     # step time: two more epochs of the same trainer, each step ended by a
     # sync
-    times = []
-    for it, args in enumerate(device_batches(1) + device_batches(2)):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        metrics = trainer.train_step(*args, it)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        if not math.isfinite(float(metrics["loss"])):
-            raise AssertionError("non-finite loss in a timed step")
+    times = timed_steps([
+        lambda it=it, args=args: trainer.train_step(*args, it)["loss"]
+        for it, args in enumerate(device_batches(1) + device_batches(2))])
     step_s = statistics.median(times)
     log(f"  step time: median {step_s * 1e3:.1f} ms over {len(times)} steps, "
         f"min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f} (host "
@@ -737,9 +707,9 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     log(f"  peak device memory in fit: {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     if profile_dir:
-        profile_steps(trainer, device_batches(3)[:3], profile_dir,
-                      profile_name)
-    shutil.rmtree(r.log_path, ignore_errors=True)
+        batches = device_batches(3)[:3]
+        profile_steps(lambda it: trainer.train_step(*batches[it], it),
+                      len(batches), profile_dir, profile_name)
     return launches
 
 
@@ -760,6 +730,170 @@ def phase_vit(profile_dir=None) -> dict:
     give 48 launches of each K3 kernel a step."""
     return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
                      VIT_PER_STEP, profile_dir, "profile_vit.txt")
+
+
+# stage 2 at run.sh's recipe: 1024 synthetic cases, 4 steps an epoch
+STAGE2_BATCH, STAGE2_CASES, STAGE2_EPOCHS = 256, 1024, 2
+STAGE2_PER_STEP = {"photometric_cuda": 2}
+
+
+def phase_stage2(profile_dir=None) -> dict:
+    """The stage-2 trainer at the run.sh recipe (resnet50, 224x224, batch
+    256, v4 projectors of 512, 1 head, ff 128, dropout 0.1, T 1, lr 1e-4,
+    float32 with TF32 off) from the ckp_0.pth that [main] wrote: the init
+    pass and `MLCTrainer.fit` over 2 epochs with every kernel count set to
+    0 just before and read just after, the checks on what they leave, then
+    the times of the init pass, of an epoch's k-means and of 8 more steps."""
+    from sm3x_torch import NUM_CLASSES
+    from sm3x_torch.core import prng
+    from sm3x_torch.core.config import MLCTrainConfig
+    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops.kmeans import spherical_kmeans
+    from sm3x_torch.train import mlc_train
+
+    cfg = MLCTrainConfig()
+    m, o, r = cfg.model, cfg.optim, cfg.run
+    m.arch, m.mlc_proj, m.mlc_proj_dim, m.num_heads = "resnet50", "v4", 512, 1
+    m.sa_dim_ff, m.sa_dropout, m.temperature = 128, 0.1, 1.0
+    o.batch_size, o.base_lr, o.amp, o.epochs = (STAGE2_BATCH, 1e-4, False,
+                                                STAGE2_EPOCHS)
+    cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
+    r.device, r.print_freq = "cuda", 10 ** 6
+    r.log_path = os.path.join(LOGS, "stage2")
+    shutil.rmtree(r.log_path, ignore_errors=True)
+    cfg.extractor_weights = os.path.join(LOGS, "main", "ckp_0.pth")
+
+    data = SyntheticPairedData(STAGE2_CASES, canvas=320, seed=1)
+    steps = data.steps_per_epoch(STAGE2_BATCH)
+    trainer = mlc_train.MLCTrainer(
+        cfg, extractor_state=mlc_train.load_extractor_state(
+            cfg.extractor_weights))
+    extractor = trainer.model.extractor
+
+    def snapshot():
+        return {k: v.clone() for k, v in extractor.state_dict().items()}
+
+    def statistic(k):
+        return "running" in k or "num_batches" in k
+
+    loaded = snapshot()
+    counters, _ = kernel_counters()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_memory(data)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = K.photometric_cuda.launches
+    after_init = snapshot()
+    t0 = time.perf_counter()
+    hist = trainer.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    k1_variants = dict(K.photometric_cuda.variants)
+    peak = torch.cuda.max_memory_allocated()
+    after_fit = snapshot()
+
+    losses = [h["step_losses"] for h in hist]
+    log(f"[stage2] DeepCluster step: resnet50 frozen, v4 / 512, 1 head, ff "
+        f"128, dropout 0.1, T 1, batch {STAGE2_BATCH}, float32 (TF32 off), "
+        f"224x224, {STAGE2_CASES} cases; init pass of {steps} batches in "
+        f"{init_s:.2f} s, {STAGE2_EPOCHS} epochs of {steps} steps via "
+        f"MLCTrainer.fit in {wall:.2f} s")
+    log(f"  losses per step: {losses}")
+    log(f"  kernel launches in the init pass and fit: {launches}; K1 in the "
+        f"init pass {init_launches}; K1 by kernel {k1_variants}")
+    if [len(x) for x in losses] != [steps] * STAGE2_EPOCHS or not all(
+            math.isfinite(x) for ep in losses for x in ep):
+        raise AssertionError(f"expected {STAGE2_EPOCHS} x {steps} finite "
+                             f"losses, got {losses}")
+    passes = steps * (1 + STAGE2_EPOCHS)  # init batches and train steps
+    want = {fn.__name__: STAGE2_PER_STEP.get(fn.__name__, 0) * passes
+            for fn in counters}
+    if launches != want or init_launches != 2 * steps:
+        raise AssertionError(f"launch counts {launches} (init pass "
+                             f"{init_launches}), expected {want}")
+    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
+        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
+    for i, k in enumerate(NUM_CLASSES):
+        a = trainer.assignments[i]
+        if a.shape != (STAGE2_CASES,) or int(a.min()) < 0 or int(a.max()) >= k:
+            raise AssertionError(f"label {i}: assignments outside [0, {k})")
+    # the frozen extractor: weights as loaded, bit for bit; running
+    # statistics moved by the init pass and by nothing after
+    weights_same = all(torch.equal(after_fit[k], v) for k, v in loaded.items()
+                       if not statistic(k))
+    moved = sum(not torch.equal(after_init[k], v) for k, v in loaded.items()
+                if statistic(k))
+    stats_kept = all(torch.equal(after_fit[k], v)
+                     for k, v in after_init.items())
+    n_stats = sum(statistic(k) for k in loaded)
+    log(f"  extractor after fit: weights bit-identical to the checkpoint "
+        f"{weights_same}; running statistics moved by the init pass "
+        f"{moved} of {n_stats}, unchanged since {stats_kept}")
+    if not (weights_same and moved == n_stats and stats_kept):
+        raise AssertionError("the frozen extractor changed")
+    if not os.path.exists(os.path.join(r.log_path, "ckp_1.pth")):
+        raise AssertionError("fit wrote no ckp_1.pth")
+
+    # an epoch's clustering alone: its time, and what it leaves in the
+    # prototypes (the unit-norm centroids of the same seeded k-means, whose
+    # E-step the assignments are)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.cluster(STAGE2_EPOCHS)
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    seed = prng.fold_in(prng.fold_in(r.seed, STAGE2_EPOCHS),
+                        mlc_train.KMEANS_STREAM)
+    worst_norm = 0.0
+    for i, k in enumerate(NUM_CLASSES):
+        w = trainer.model.prototypes[i].weight.detach()
+        cent, a = spherical_kmeans(
+            trainer.bank[i], k, cfg.kmeans_iters,
+            generator=prng.generator(prng.fold_in(seed, i), "cuda"))
+        if not (torch.equal(w, cent) and torch.equal(
+                trainer.assignments[i], a)):
+            raise AssertionError(f"label {i}: the prototype weights are not "
+                                 f"the centroids of its clustering")
+        worst_norm = max(worst_norm,
+                         float((w.norm(dim=1) - 1).abs().max()))
+    log(f"  k-means of an epoch (8 labels, {cfg.kmeans_iters} iterations, "
+        f"{STAGE2_CASES} x 512 bank rows): {kmeans_s * 1e3:.1f} ms; each "
+        f"prototype weight equals its centroid, | norm - 1 | <= "
+        f"{worst_norm:.2e}")
+    if worst_norm > 1e-5:
+        raise AssertionError("centroids are not of unit norm")
+
+    def device_batches(epoch):
+        return [[torch.from_numpy(x).cuda() for x in
+                 (b.derm, b.derm_hw, b.clinic, b.clinic_hw)]
+                + [torch.from_numpy(b.index).cuda().long()]
+                for b in data.batches(STAGE2_BATCH, epoch, r.seed)]
+
+    def step(args, it):
+        return trainer.train_step(trainer.bank, *args, trainer.assignments, it)
+
+    times = timed_steps([lambda it=it, args=args: step(args, it)
+                         for it, args in enumerate(device_batches(2)
+                                                   + device_batches(3))])
+    step_s = statistics.median(times)
+    log(f"  step time: median {step_s * 1e3:.1f} ms over {len(times)} steps, "
+        f"min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f} (host "
+        f"clock, synchronised; canvases uploaded before the clock); "
+        f"{2 * STAGE2_BATCH / step_s:.1f} images/s (2 x batch per step); "
+        f"the init pass {init_s / steps * 1e3:.1f} ms a batch, uploads "
+        f"included")
+    log(f"  peak device memory in the init pass and fit: "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    if profile_dir:
+        batches = device_batches(4)[:3]
+        profile_steps(lambda it: step(batches[it], it), len(batches),
+                      profile_dir, "profile_stage2.txt")
+    return launches
 
 
 def phase_copy() -> dict:
@@ -784,8 +918,8 @@ def phase_copy() -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="also profile three steps of the main and vit "
-                   "phases and write the tables to DIR")
+                   help="also profile three steps of the main, stage2 and "
+                   "vit phases and write the tables to DIR")
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
@@ -796,6 +930,7 @@ def main(argv=None) -> int:
     kernels, floor = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
+    stage2_launches = phase_stage2(args.profile)
     vit_launches = phase_vit(args.profile)
     copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
@@ -826,10 +961,13 @@ def main(argv=None) -> int:
         "copy": ("sm3x_torch/csrc/copy.cu", "tools/bench_pallas_io.py:44",
                  "copy_cuda", copy_launches),
     }
+    shutil.rmtree(LOGS, ignore_errors=True)
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=counts[counter],
+                 launches_stage2=stage2_launches[counter],
                  launches_per_step={"main": MAIN_PER_STEP.get(counter, 0),
-                                    "vit": VIT_PER_STEP.get(counter, 0)},
+                                    "vit": VIT_PER_STEP.get(counter, 0),
+                                    "stage2": STAGE2_PER_STEP.get(counter, 0)},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))

@@ -8,16 +8,25 @@ are built with nvcc at first use (`sm3x_torch.ops._native`).
 Subpackages
 -----------
 core      configs, seed discipline
-models    ResNet and ViT families, SimCLR dual-modal models, projector,
-          batch norm
+models    ResNet and ViT families, SimCLR dual-modal models, projectors,
+          batch norm, the transformer layer and the MLC model of stage 2
 ops       NT-Xent, augmentation, attention, copy: plain versions and CUDA
-          kernels
-losses    stage-1 SSL loss assembly
-train     the stage-1 trainer
+          kernels; spherical k-means
+losses    stage-1 SSL loss assembly, the cluster cross-entropy of stage 2
+train     the stage-1 and stage-2 trainers
 data      Derm7pt metadata, decode-once canvas cache, dataset registry,
           in-memory synthetic paired canvases
-utils     weight bridge from Flax trees, run helpers
-cli       argparse surface and the stage-1 app
+utils     weight bridge from Flax trees, run helpers, device clocks
+cli       argparse surface and the stage-1 and stage-2 apps
 """
 
 __version__ = "0.1.0"
+
+# The task's constants, shared by every stage: the port's own copy of those
+# in sm3x/__init__.py (the eight labels of the 7-point checklist with the
+# diagnosis first, their class counts, and the weights of the averaged
+# metrics).
+METRICS_NAME = ["AUC", "Recall", "Spec", "Prec"]
+CLASSES_NAME = ["DIAG", "PN", "BWV", "VS", "PIG", "STR", "DaG", "RS"]
+NUM_CLASSES = [5, 3, 2, 3, 3, 3, 3, 2]
+CLS_WEIGHTS = [2, 2, 1, 2, 2, 2, 2, 1]

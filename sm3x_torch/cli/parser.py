@@ -1,19 +1,20 @@
-"""Argparse surface of the port's stage 1 (counterpart of
-sm3x/cli/parser.py `get_parser` and `ssl_config`, with the stage-1 flags of
-sm3x/cli/apps.py `backbone_train_main`).
+"""Argparse surface of the port's stages 1 and 2 (counterpart of
+sm3x/cli/parser.py `get_parser`, `ssl_config` and `mlc_train_config`, with
+the flags that sm3x/cli/apps.py `backbone_train_main` and `mlc_train_main`
+add).
 
 The flags and defaults are the JAX package's, plus `--device` (default
 `cuda`). Values the port does not support yet are refused by the trainer
-(`sm3x_torch.train.backbone_train.unsupported`) and by the app, never
-silently ignored.
+(`unsupported` in `sm3x_torch.train.backbone_train` and `mlc_train`) and by
+the app, never silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from sm3x_torch.core.config import (DataConfig, ModelConfig, OptimConfig,
-                                    RunConfig, SSLConfig)
+from sm3x_torch.core.config import (DataConfig, MLCTrainConfig, ModelConfig,
+                                    OptimConfig, RunConfig, SSLConfig)
 
 
 def get_parser(desc: str = "sm3x_torch SimCLR skin SSL training"):
@@ -128,7 +129,29 @@ def add_ssl_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
-def ssl_config(args) -> SSLConfig:
+def add_mlc_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The stage-2 flags of the JAX package's mlc_train app, with its
+    defaults (run.sh sets --mlc-proj-dim 512, --sa-dim-ff 128 and
+    --temperature 1)."""
+    p.add_argument("--num-labels", type=int, default=8)
+    p.add_argument("--extractor-proj-dim", type=int, default=128)
+    p.add_argument("--extractor-weights", type=str, default=None,
+                   help="a stage-1 ckp_*.pth of the port: its two encoders "
+                   "are loaded, its projectors dropped")
+    p.add_argument("--mlc-proj", type=str, default="v4")
+    p.add_argument("--mlc-proj-dim", type=int, default=256)
+    p.add_argument("--num-heads", type=int, default=1)
+    p.add_argument("--sa-dim-ff", type=int, default=256)
+    p.add_argument("--sa-dropout", type=float, default=0.1)
+    p.add_argument("--temperature", type=float, default=0.1)
+    p.add_argument("--l2-norm", action="store_true")
+    p.add_argument("--finetune-backbone", action="store_true")
+    return p
+
+
+def base_configs(args) -> tuple:
+    """The (data, optim, run) configs every stage builds from the shared
+    flags; flags a stage's parser lacks keep their defaults."""
     data = DataConfig(
         data_name=args.data_name, data_path=args.data_path,
         img_sz=tuple(args.img_sz), n_classes=args.n_classes,
@@ -140,21 +163,13 @@ def ssl_config(args) -> SSLConfig:
         size_crops=tuple(args.size_crops), nmb_crops=tuple(args.nmb_crops),
         min_scale_crops=tuple(args.min_scale_crops),
         max_scale_crops=tuple(args.max_scale_crops))
-    model = ModelConfig(
-        arch=args.arch, arch_version=args.arch_version,
-        arch_weights=args.arch_weights, proj_dim=args.proj_dim,
-        temperature=args.temperature, use_checkpoint=args.use_checkpoint,
-        num_labels=args.num_labels,
-        use_pallas_ntxent=args.use_pallas_ntxent,
-        use_pallas_augment=args.use_pallas_augment,
-        negatives=args.negatives, local_loss_weight=args.local_loss_weight,
-        bn_stat_freq=args.bn_stat_freq)
     optim = OptimConfig(
         epochs=args.epochs, batch_size=args.batch_size, base_lr=args.base_lr,
         final_lr=args.final_lr, momentum=args.momentum, wd=args.wd,
         warmup_epochs=args.warmup_epochs, start_warmup=args.start_warmup,
-        use_lr_schedule=args.use_lr_schedule, ft_lr=args.ft_lr, amp=args.amp,
-        label_weights=tuple(args.label_weights))
+        use_lr_schedule=args.use_lr_schedule, amp=args.amp,
+        ft_lr=getattr(args, "ft_lr", 1e-3),
+        label_weights=tuple(getattr(args, "label_weights", (1.0,) * 8)))
     run = RunConfig(
         seed=args.seed, workers=args.workers, save_freq=args.save_freq,
         ckpt_freq=args.ckpt_freq, ckpt_backend=args.ckpt_backend,
@@ -168,5 +183,33 @@ def ssl_config(args) -> SSLConfig:
         comments=args.comments, mesh_data=args.mesh_data,
         mesh_model=args.mesh_model, world_size=args.world_size,
         device=args.device)
+    return data, optim, run
+
+
+def ssl_config(args) -> SSLConfig:
+    data, optim, run = base_configs(args)
+    model = ModelConfig(
+        arch=args.arch, arch_version=args.arch_version,
+        arch_weights=args.arch_weights, proj_dim=args.proj_dim,
+        temperature=args.temperature, use_checkpoint=args.use_checkpoint,
+        num_labels=args.num_labels,
+        use_pallas_ntxent=args.use_pallas_ntxent,
+        use_pallas_augment=args.use_pallas_augment,
+        negatives=args.negatives, local_loss_weight=args.local_loss_weight,
+        bn_stat_freq=args.bn_stat_freq)
     return SSLConfig(data=data, model=model, optim=optim, run=run,
                      modality_weights=tuple(args.modality_weights))
+
+
+def mlc_train_config(args) -> MLCTrainConfig:
+    data, optim, run = base_configs(args)
+    model = ModelConfig(
+        arch=args.arch, num_labels=args.num_labels,
+        extractor_proj_dim=args.extractor_proj_dim, mlc_proj=args.mlc_proj,
+        mlc_proj_dim=args.mlc_proj_dim, num_heads=args.num_heads,
+        sa_dim_ff=args.sa_dim_ff, sa_dropout=args.sa_dropout,
+        temperature=args.temperature, l2_norm=args.l2_norm,
+        finetune_backbone=args.finetune_backbone,
+        use_pallas_augment=args.use_pallas_augment)
+    return MLCTrainConfig(data=data, model=model, optim=optim, run=run,
+                          extractor_weights=args.extractor_weights)

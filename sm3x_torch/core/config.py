@@ -1,14 +1,16 @@
-"""Stage-1 configuration dataclasses (the SSL subset of
-sm3x/core/config.py, with the same class and field names).
+"""Configuration dataclasses of stages 1 and 2 (the SSL and MLC-train
+subset of sm3x/core/config.py, with the same class and field names).
 
-Fields of the JAX package that only later stages read (the MLC heads, the
-eval policies) come with the slices that port those stages.
+Fields of the JAX package that only later stages read (the eval policies)
+come with the slices that port those stages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple, Union
+
+from sm3x_torch import NUM_CLASSES
 
 
 @dataclasses.dataclass
@@ -40,7 +42,17 @@ class ModelConfig:
     proj_dim: int = 128
     temperature: float = 0.1
     use_checkpoint: Union[bool, str] = False
+    # the MLC head of stage 2
     num_labels: int = 8
+    extractor_proj_dim: int = 128
+    mlc_proj: str = "v4"
+    mlc_proj_dim: int = 512
+    num_heads: int = 1
+    sa_dim_ff: int = 128
+    sa_dropout: float = 0.1
+    l2_norm: bool = False
+    finetune_backbone: bool = False
+    num_classes: Tuple[int, ...] = tuple(NUM_CLASSES)
     use_pallas_ntxent: bool = False
     use_pallas_augment: bool = False
     negatives: str = "local"
@@ -106,6 +118,20 @@ class SSLConfig:
     run: RunConfig = dataclasses.field(default_factory=RunConfig)
     n_views: int = 2
     modality_weights: Tuple[float, float] = (1.0, 1.0)
+
+
+@dataclasses.dataclass
+class MLCTrainConfig:
+    """Stage-2 DeepCluster MLC training (run.sh stage2_mlc)."""
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(
+        default_factory=lambda: ModelConfig(temperature=1.0))
+    optim: OptimConfig = dataclasses.field(
+        default_factory=lambda: OptimConfig(epochs=150, batch_size=256,
+                                            base_lr=1e-4))
+    run: RunConfig = dataclasses.field(default_factory=RunConfig)
+    extractor_weights: Optional[str] = None
+    kmeans_iters: int = 10
 
 
 def asdict_flat(cfg) -> dict:

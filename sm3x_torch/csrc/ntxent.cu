@@ -17,7 +17,8 @@
 //   * the rows of z come into shared memory once, by cp.async, in tiles of
 //     a multiple of 96 rows with a padded stride (ntxent_tile.cuh); at the
 //     stage-1 shape the whole problem is one tile of 57 KB, larger problems
-//     stream tiles under an online max and sum;
+//     stream tiles under an online max and sum; where D is too wide for 96
+//     rows a tile, a lane takes 1 column and tiles are multiples of 32 rows;
 //   * lanes own columns: a lane accumulates the dot products of its warp's
 //     3 rows with 3 columns over D from shared memory in float32 FMAs and
 //     keeps its own running max and sum of each row; one shuffle reduction
@@ -28,11 +29,26 @@
 //     read through distributed shared memory. No float atomics: the loss
 //     repeats bit for bit;
 //   * the row's logsumexp and inverse norm are saved for the backward.
-// The backward is one warp per row i with the row in registers, walking the
-// n columns with a shuffle-reduced dot product each; it uses the symmetry
-// of S: with p_ij = exp(S_ij - lse_i),
+// The backward (K2b) stands on the same tiles. With p_ij = exp(S_ij - lse_i)
+// off the diagonal it uses the symmetry of S:
 //     dzh_i = g / (n T) * (sum_j (p_ij + p_ji) zh_j - 2 zh_pos(i)),
 //     then dz_i = (dzh_i - zh_i (dzh_i . zh_i)) * inv_i.
+// Rows of dz are independent, so it needs no cluster: a block takes a share
+// of a problem's rows, `chunk` (3 a warp) at a time, and
+//   * brings the problem's rows into shared memory once by cp.async, with
+//     the saved lse and inverse norms beside them (no norm is recomputed);
+//   * first product, lanes own columns (`tile_dots`): from S_ij each lane
+//     forms coef_ij = (p_ij + p_ji - 2 [j = pos(i)]) inv_j, 0 on the diagonal
+//     and past n, into a coefficient buffer in shared memory;
+//   * second product, lanes own dimensions: acc_i[k] = sum_j coef_ij z_j[k],
+//     a lane on 4 consecutive k (16-byte loads down the tile, free of bank
+//     conflicts), coef_ij a broadcast read, j in index order, D in blocks of
+//     128 with the partial row in shared memory: no array in registers grows
+//     with D, so D is bounded by shared memory alone;
+//   * tail: one shuffle reduction a row for dzh_i . zh_i, then dz_i.
+// Problems larger than shared memory stream tiles, adding into the partial
+// rows in tile order. Every sum has a fixed order and there are no float
+// atomics: dz repeats bit for bit.
 // The row normalisation is rsqrt(max(|z|^2, 1e-24)), the definition shared
 // with the plain version (sm3x_torch/ops/ntxent.py::inv_norm).
 
@@ -46,15 +62,18 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;          // backward: rows per block
-constexpr int kMaxPerLane = 16;    // backward: D <= 32 * kMaxPerLane = 512
-
-// forward: the wrapper's shape plan (ops/ntxent_cuda.py) mirrors these
-constexpr int kFwdCluster = 8;     // blocks a problem
+// the wrapper's shape plans (ops/ntxent_cuda.py) mirror these
+constexpr int kRW = 3;             // rows a warp, both kernels
+// columns a lane (the template parameter CW): 3, blocks of 96 columns, or 1
+// where 96 rows of a wide D do not fit in shared memory
+constexpr int kFwdCluster = 8;     // forward: blocks a problem
 constexpr int kFwdWarps = 4;
-constexpr int kRW = 3;             // rows a warp
-constexpr int kCW = 3;             // columns a lane: blocks of 96 columns
-constexpr int kChunk = kFwdWarps * kRW;  // rows a block handles at a time
+constexpr int kChunk = kFwdWarps * kRW;  // forward: rows a block handles at a time
+constexpr int kBwdMaxWarps = 8;    // backward: the launch sets the warps a block
+// Both kernels name 1 block an SM in their launch bounds: left to itself
+// ptxas holds them to about 70 registers (and spills 20 bytes of the
+// forward's), with the 1 it takes about 110 and the kernels are 8-20%
+// faster on an H100 (0.0090 -> 0.0082 and 0.0102 -> 0.0093 ms at (8, 96, 128)).
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: every lane ends with the same bits
@@ -69,7 +88,8 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Dynamic shared memory: kChunk own rows and tile_rows rows of the problem,
 // `stride` floats apart, then their inverse norms.
-__global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdWarps * 32)
+template <int CW>
+__global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdWarps * 32, 1)
 ntxent_fwd_kernel(const float* __restrict__ z, float* __restrict__ loss,
                   float* __restrict__ lse, float* __restrict__ inv, int n, int d,
                   int tile_rows, int vec, float temperature) {
@@ -119,18 +139,18 @@ ntxent_fwd_kernel(const float* __restrict__ z, float* __restrict__ loss,
       __syncthreads();
 
       if (warp * kRW < c_rows) {
-        for (int g0 = 0; g0 < t_rows; g0 += 32 * kCW) {
-          float acc[kRW][kCW];
-          tile_dots<kRW, kCW>(own + warp * kRW * stride, tile + g0 * stride, d4, stride, lane,
+        for (int g0 = 0; g0 < t_rows; g0 += 32 * CW) {
+          float acc[kRW][CW];
+          tile_dots<kRW, CW>(own + warp * kRW * stride, tile + g0 * stride, d4, stride, lane,
                               acc);
 #pragma unroll
           for (int r = 0; r < kRW; ++r) {
             const int i = c0 + warp * kRW + r;  // rows >= r_end are dropped below
             const int pos = (i + n / 2) % n;
             const float inv_i = own_inv[warp * kRW + r];
-            float s[kCW], top = -INFINITY;
+            float s[CW], top = -INFINITY;
 #pragma unroll
-            for (int c = 0; c < kCW; ++c) {
+            for (int c = 0; c < CW; ++c) {
               const int jt = g0 + lane + 32 * c, j = t0 + jt;
               const float v = acc[r][c] * (inv_i * tile_inv[jt]) / temperature;
               if (j == pos) s_pos[r] = v;
@@ -142,7 +162,7 @@ ntxent_fwd_kernel(const float* __restrict__ z, float* __restrict__ loss,
               const float m_new = fmaxf(m[r], top);
               float add = 0.f;
 #pragma unroll
-              for (int c = 0; c < kCW; ++c) add += expf(s[c] - m_new);
+              for (int c = 0; c < CW; ++c) add += expf(s[c] - m_new);
               l[r] = l[r] * expf(m[r] - m_new) + add;
               m[r] = m_new;
             }
@@ -188,64 +208,180 @@ ntxent_fwd_kernel(const float* __restrict__ z, float* __restrict__ loss,
   cluster.sync();  // no block leaves while block 0 reads its sum
 }
 
-__device__ __forceinline__ void load_row(const float* __restrict__ zr, float inv,
-                                         int d, int lane, float (&v)[kMaxPerLane]) {
-#pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) {
-    const int k = lane + 32 * c;
-    v[c] = k < d ? zr[k] * inv : 0.f;
-  }
-}
-
-__global__ void ntxent_bwd_kernel(const float* __restrict__ z,
-                                  const float* __restrict__ inv,
-                                  const float* __restrict__ lse,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ dz,
-                                  int n, int d, float temperature) {
-  const int p = blockIdx.x;
-  const int i = blockIdx.y * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
+// Dynamic shared memory, in floats (chunk = 3 x the block's warps): the
+// block's own rows and their partial sums (chunk x stride each), the tile
+// (tile_rows x stride), the coefficients (chunk x tile_rows), then inv and
+// lse of the own rows and of the tile's.
+template <int CW>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32, 1)
+ntxent_bwd_kernel(const float* __restrict__ z, const float* __restrict__ inv,
+                  const float* __restrict__ lse, const float* __restrict__ g,
+                  float* __restrict__ dz, int n, int d, int tile_rows, int vec,
+                  float temperature) {
+  using namespace ntxent_tile;
+  extern __shared__ __align__(16) float smem[];
+  const int p = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunk = (blockDim.x >> 5) * kRW;
+  const int stride = tile_stride(d), d4 = (d + 3) & ~3;
+  float* own = smem;
+  float* accb = own + chunk * stride;
+  float* tile = accb + chunk * stride;
+  float* coef = tile + tile_rows * stride;
+  float* own_inv = coef + chunk * tile_rows;
+  float* own_lse = own_inv + chunk;
+  float* tile_inv = own_lse + chunk;
+  float* tile_lse = tile_inv + tile_rows;
   const float* zp = z + (size_t)p * n * d;
   const float* invp = inv + (size_t)p * n;
   const float* lsep = lse + (size_t)p * n;
-  const int pos = (i + n / 2) % n;
-  const float lse_i = lsep[i];
-
-  float zi[kMaxPerLane], acc[kMaxPerLane];
-  load_row(zp + (size_t)i * d, invp[i], d, lane, zi);
-#pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) acc[c] = 0.f;
-
-  for (int j = 0; j < n; ++j) {
-    if (j == i) continue;  // p_ii = 0
-    float zj[kMaxPerLane];
-    load_row(zp + (size_t)j * d, invp[j], d, lane, zj);
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) dot += zi[c] * zj[c];
-    const float s = warp_sum(dot) / temperature;
-    float coef = expf(s - lse_i) + expf(s - lsep[j]);
-    if (j == pos) coef -= 2.f;
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) acc[c] += coef * zj[c];
-  }
-
+  const int per_block = (n + gridDim.x - 1) / gridDim.x;
+  const int r_begin = min((int)blockIdx.x * per_block, n);
+  const int r_end = min(r_begin + per_block, n);
+  const bool one_tile = tile_rows >= n;
   const float scale = g[p] / (n * temperature);
-  float proj = 0.f;
+  // this warp's rows of the chunk, their partial sums and coefficients
+  const float* my_rows = own + warp * kRW * stride;
+  float* my_acc = accb + warp * kRW * stride;
+  float* my_coef = coef + warp * kRW * tile_rows;
+
+  for (int c0 = r_begin; c0 < r_end; c0 += chunk) {
+    const int c_rows = min(chunk, r_end - c0);
+    const bool fill = !one_tile || c0 == r_begin;  // a single tile is loaded once
+    const bool active = warp * kRW < c_rows;
+    __syncthreads();  // the chunk before is done with its rows and the tile
+    tile_load(own, zp + (size_t)c0 * d, c_rows, d, stride, vec);
+    for (int k = threadIdx.x; k < c_rows; k += blockDim.x) {
+      own_inv[k] = invp[c0 + k];
+      own_lse[k] = lsep[c0 + k];
+    }
+    for (int t0 = 0; t0 < n; t0 += tile_rows) {
+      const int t_rows = min(tile_rows, n - t0);
+      if (fill) {
+        if (t0 > 0) __syncthreads();  // every warp is done with the tile before
+        tile_load(tile, zp + (size_t)t0 * d, t_rows, d, stride, vec);
+        for (int k = threadIdx.x; k < t_rows; k += blockDim.x) {
+          tile_inv[k] = invp[t0 + k];
+          tile_lse[k] = lsep[t0 + k];
+        }
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (d4 != d) {
+        if (t0 == 0) tile_zero_tails(own, c_rows, d, stride);
+        if (fill) tile_zero_tails(tile, t_rows, d, stride);
+        __syncthreads();
+      }
+      if (!active) continue;
+
+      // first product, lanes own columns: the coefficients of this warp's
+      // rows against the tile. Rows of the tile past t_rows hold anything;
+      // their coefficients are 0 and the second product never reads them.
+      for (int g0 = 0; g0 < t_rows; g0 += 32 * CW) {
+        float acc[kRW][CW];
+        tile_dots<kRW, CW>(my_rows, tile + g0 * stride, d4, stride, lane, acc);
 #pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) {
-    acc[c] *= scale;  // acc is now d(zh_i)
-    proj += acc[c] * zi[c];
-  }
-  proj = warp_sum(proj);
-  const float inv_i = invp[i];
-  float* out = dz + ((size_t)p * n + i) * d;
+        for (int r = 0; r < kRW; ++r) {
+          const int i = c0 + warp * kRW + r;  // rows >= r_end are dropped below
+          const int pos = (i + n / 2) % n;
+          const float inv_i = own_inv[warp * kRW + r], lse_i = own_lse[warp * kRW + r];
 #pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) {
-    const int k = lane + 32 * c;
-    if (k < d) out[k] = (acc[c] - zi[c] * proj) * inv_i;
+          for (int c = 0; c < CW; ++c) {
+            const int jt = g0 + lane + 32 * c, j = t0 + jt;
+            float v = 0.f;
+            if (j < n && j != i) {  // p_ii = 0
+              const float inv_j = tile_inv[jt];
+              const float s = acc[r][c] * (inv_i * inv_j) / temperature;
+              v = expf(s - lse_i) + expf(s - tile_lse[jt]);
+              if (j == pos) v -= 2.f;
+              v *= inv_j;  // the second product runs on the rows as they are
+            }
+            my_coef[r * tile_rows + jt] = v;
+          }
+        }
+      }
+      __syncwarp();
+
+      // second product, lanes own dimensions, j in index order; the partial
+      // rows of a lane are its own from tile to tile
+      for (int kb = 4 * lane; kb < d4; kb += 128) {
+        float4 a[kRW];
+#pragma unroll
+        for (int r = 0; r < kRW; ++r)
+          a[r] = t0 == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                         : *reinterpret_cast<const float4*>(my_acc + r * stride + kb);
+        const float* col = tile + kb;
+        const int t4 = t_rows & ~3;
+        for (int j = 0; j < t4; j += 4) {
+          float4 c4[kRW];
+#pragma unroll
+          for (int r = 0; r < kRW; ++r)
+            c4[r] = *reinterpret_cast<const float4*>(my_coef + r * tile_rows + j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 zj = *reinterpret_cast<const float4*>(col + (j + e) * stride);
+#pragma unroll
+            for (int r = 0; r < kRW; ++r) {
+              const float c = e == 0 ? c4[r].x : e == 1 ? c4[r].y : e == 2 ? c4[r].z : c4[r].w;
+              a[r].x = fmaf(c, zj.x, a[r].x);
+              a[r].y = fmaf(c, zj.y, a[r].y);
+              a[r].z = fmaf(c, zj.z, a[r].z);
+              a[r].w = fmaf(c, zj.w, a[r].w);
+            }
+          }
+        }
+        for (int j = t4; j < t_rows; ++j) {
+          const float4 zj = *reinterpret_cast<const float4*>(col + j * stride);
+#pragma unroll
+          for (int r = 0; r < kRW; ++r) {
+            const float c = my_coef[r * tile_rows + j];
+            a[r].x = fmaf(c, zj.x, a[r].x);
+            a[r].y = fmaf(c, zj.y, a[r].y);
+            a[r].z = fmaf(c, zj.z, a[r].z);
+            a[r].w = fmaf(c, zj.w, a[r].w);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRW; ++r)
+          *reinterpret_cast<float4*>(my_acc + r * stride + kb) = a[r];
+      }
+      __syncwarp();  // the next tile's coefficients wait for this product
+    }
+    if (!active) continue;
+
+    // tail: dzh_i = acc_i g / (n T), one reduction a row for dzh_i . zh_i,
+    // then dz_i. A lane reads back the partial sums it wrote.
+    for (int r = 0; r < kRW; ++r) {
+      const int k = warp * kRW + r;
+      if (k >= c_rows) break;
+      const float inv_i = own_inv[k];
+      float part = 0.f;
+      for (int kb = 4 * lane; kb < d4; kb += 128) {
+        const float4 a = *reinterpret_cast<const float4*>(my_acc + r * stride + kb);
+        const float4 zi = *reinterpret_cast<const float4*>(my_rows + r * stride + kb);
+        part += (a.x * zi.x + a.y * zi.y) + (a.z * zi.z + a.w * zi.w);
+      }
+      const float proj = warp_sum(part) * (scale * inv_i);  // dzh_i . zh_i
+      float* out = dz + ((size_t)p * n + c0 + k) * d;
+      for (int kb = 4 * lane; kb < d4; kb += 128) {
+        const float4 a = *reinterpret_cast<const float4*>(my_acc + r * stride + kb);
+        const float4 zi = *reinterpret_cast<const float4*>(my_rows + r * stride + kb);
+        float4 o;
+        o.x = (a.x * scale - zi.x * inv_i * proj) * inv_i;
+        o.y = (a.y * scale - zi.y * inv_i * proj) * inv_i;
+        o.z = (a.z * scale - zi.z * inv_i * proj) * inv_i;
+        o.w = (a.w * scale - zi.w * inv_i * proj) * inv_i;
+        if (vec) {
+          *reinterpret_cast<float4*>(out + kb) = o;
+        } else {
+          if (kb < d) out[kb] = o.x;
+          if (kb + 1 < d) out[kb + 1] = o.y;
+          if (kb + 2 < d) out[kb + 2] = o.z;
+          if (kb + 3 < d) out[kb + 3] = o.w;
+        }
+      }
+    }
   }
 }
 
@@ -254,30 +390,46 @@ __global__ void ntxent_bwd_kernel(const float* __restrict__ z,
 extern "C" {
 
 // z (P, n, D) f32 -> loss (P,), lse (P, n), inv (P, n), one launch.
-// tile_rows (a multiple of 96) and vec (16-byte copies) come from the
-// wrapper's shape plan. Returns the first CUDA error, or 0.
+// tile_rows (a multiple of 32 * cw), cw (3 or 1 columns a lane) and vec
+// (16-byte copies) come from the wrapper's shape plan. Returns the first CUDA
+// error, or 0.
 int sm3x_ntxent_fwd(const float* z, float* loss, float* lse, float* inv,
-                    int problems, int n, int d, int tile_rows, int vec,
+                    int problems, int n, int d, int tile_rows, int cw, int vec,
                     float temperature, cudaStream_t stream) {
-  if (tile_rows <= 0 || tile_rows % (32 * kCW) != 0) return (int)cudaErrorInvalidValue;
+  if ((cw != 1 && cw != 3) || tile_rows <= 0 || tile_rows % (32 * cw) != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kChunk + tile_rows) *
                       (ntxent_tile::tile_stride(d) + 1) * sizeof(float);
+  auto kernel = cw == 3 ? ntxent_fwd_kernel<3> : ntxent_fwd_kernel<1>;
   cudaError_t err = cudaFuncSetAttribute(
-      ntxent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(kFwdCluster, problems);
-  ntxent_fwd_kernel<<<grid, kFwdWarps * 32, smem, stream>>>(
-      z, loss, lse, inv, n, d, tile_rows, vec, temperature);
+  kernel<<<grid, kFwdWarps * 32, smem, stream>>>(z, loss, lse, inv, n, d, tile_rows, vec,
+                                                 temperature);
   return (int)cudaGetLastError();
 }
 
-// z (P, n, D), lse and inv from the forward, g (P,) -> dz (P, n, D).
+// z (P, n, D), lse and inv from the forward, g (P,) -> dz (P, n, D), one
+// launch of `blocks` blocks a problem, `warps` warps each. tile_rows, cw,
+// warps, blocks and vec come from the wrapper's shape plan.
 int sm3x_ntxent_bwd(const float* z, const float* lse, const float* inv,
                     const float* g, float* dz, int problems, int n, int d,
+                    int tile_rows, int cw, int warps, int blocks, int vec,
                     float temperature, cudaStream_t stream) {
-  dim3 grid(problems, (n + kWarps - 1) / kWarps);
-  ntxent_bwd_kernel<<<grid, kWarps * 32, 0, stream>>>(z, inv, lse, g, dz, n, d,
-                                                      temperature);
+  if ((cw != 1 && cw != 3) || tile_rows <= 0 || tile_rows % (32 * cw) != 0 || warps < 1 ||
+      warps > kBwdMaxWarps || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = warps * kRW, stride = ntxent_tile::tile_stride(d);
+  const size_t smem = ((size_t)chunk * (2 * stride + tile_rows + 2) +
+                       (size_t)tile_rows * (stride + 2)) * sizeof(float);
+  auto kernel = cw == 3 ? ntxent_bwd_kernel<3> : ntxent_bwd_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(blocks, problems);
+  kernel<<<grid, warps * 32, smem, stream>>>(z, inv, lse, g, dz, n, d, tile_rows, vec,
+                                             temperature);
   return (int)cudaGetLastError();
 }
 

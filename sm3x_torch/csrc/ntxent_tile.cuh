@@ -8,7 +8,8 @@
 // from eight consecutive rows hit eight distinct groups of four banks:
 // reads down a column of z are free of conflicts. The tail of a row
 // between D and D rounded up to 4 is set to zero by `tile_row_norms`, so
-// products run over whole 16-byte steps.
+// products run over whole 16-byte steps (the backward, which reads the
+// saved norms, calls `tile_zero_tails` alone).
 // Rows are filled by cp.async (16 bytes a copy where D is a multiple of 4
 // and z is 16-byte aligned, else 4 bytes a copy), all copies of a tile in
 // flight at once. The row normalisation is kept beside the tile as
@@ -92,6 +93,14 @@ __device__ __forceinline__ void tile_row_norms(float* tile, float* inv, int rows
     }
     inv[r] = rsqrtf(fmaxf((s0 + s1) + (s2 + s3), 1e-24f));
   }
+}
+
+// Zeroes each row's tail between d and d rounded up to 4. The caller
+// synchronises before the tails are read.
+__device__ __forceinline__ void tile_zero_tails(float* tile, int rows, int d, int stride) {
+  const int tail = ((d + 3) & ~3) - d;
+  for (int i = threadIdx.x; i < rows * tail; i += blockDim.x)
+    tile[(i / tail) * stride + d + i % tail] = 0.f;
 }
 
 // acc[r][c] = rows[r] . cols[lane + 32 c] over d4 floats (d4 a multiple of

@@ -21,6 +21,7 @@ class PairedBatch:
     derm_hw: np.ndarray     # (B, 2) int32
     clinic: np.ndarray
     clinic_hw: np.ndarray
+    index: np.ndarray       # (B,) int32: the cases' positions in the data
 
 
 def synthetic_canvas_batch(batch_size: int, canvas: int = 320, seed: int = 0):
@@ -53,4 +54,5 @@ class SyntheticPairedData:
         for k in range(self.steps_per_epoch(batch_size)):
             sel = order[k * batch_size:(k + 1) * batch_size]
             yield PairedBatch(self.derm[sel], self.derm_hw[sel],
-                              self.clinic[sel], self.clinic_hw[sel])
+                              self.clinic[sel], self.clinic_hw[sel],
+                              sel.astype(np.int32))

@@ -43,10 +43,11 @@ _SIGNATURES = {
     # images, params, scratch, out, B, H, W, mean x3, std x3, stream
     "sm3x_photometric_scratch": [_c_void_p] * 4 + [_c_int] * 3
     + [_c_float] * 6 + [_c_void_p],
-    # z, loss, lse, inv, P, n, D, tile_rows, vec, temperature, stream
-    "sm3x_ntxent_fwd": [_c_void_p] * 4 + [_c_int] * 5 + [_c_float, _c_void_p],
-    # z, lse, inv, g, dz, P, n, D, temperature, stream
-    "sm3x_ntxent_bwd": [_c_void_p] * 5 + [_c_int] * 3 + [_c_float, _c_void_p],
+    # z, loss, lse, inv, P, n, D, tile_rows, cw, vec, temperature, stream
+    "sm3x_ntxent_fwd": [_c_void_p] * 4 + [_c_int] * 6 + [_c_float, _c_void_p],
+    # z, lse, inv, g, dz, P, n, D, tile_rows, cw, warps, blocks, vec,
+    # temperature, stream
+    "sm3x_ntxent_bwd": [_c_void_p] * 5 + [_c_int] * 8 + [_c_float, _c_void_p],
     # ptrs (host array), strides (host int64 array), B, S, H, D, scale,
     # bf16, stream
     "sm3x_flash_fwd": [_c_void_p] * 2 + [_c_int] * 4 + [_c_float, _c_int,

@@ -17,46 +17,99 @@ import torch
 from sm3x_torch.ops import _native
 from sm3x_torch.ops.ntxent import ntxent_problems as ntxent_forward_plain
 
-MAX_DIM = 512  # 32 lanes x 16 registers a row (csrc/ntxent.cu kMaxPerLane)
-
 # K2f's shape (csrc/ntxent.cu): a cluster of CLUSTER blocks a problem, a
 # block CHUNK_ROWS of its rows at a time against tiles of the problem's rows
-# that are a multiple of COLUMN_BLOCK long (32 lanes x 3 columns)
-CLUSTER, CHUNK_ROWS, COLUMN_BLOCK = 8, 12, 96
-_FWD_STATIC = 128  # bytes of static shared memory the kernel declares
+# that are a multiple of a column block long: 96 (32 lanes x 3 columns), or
+# 32 (x 1 column) where D is too wide for 96 rows in shared memory
+CLUSTER, CHUNK_ROWS, COLUMN_BLOCKS = 8, 12, (96, 32)
+_FWD_STATIC = 128  # bytes of static shared memory the forward declares
+# K2b's shape: no cluster; a block takes 3 rows a warp at a time, with as
+# many warps as leave room for a tile; a problem of one tile gives a block
+# BWD_CHUNKS of those row groups (each block copies the tile from L2: fewer
+# blocks copy less, more blocks run more rows at once; picked by timing,
+# tools/k2b_variants_torch.py), a problem that streams tiles one
+ROWS_PER_WARP, BWD_WARPS, BWD_CHUNKS = 3, (4, 2, 1), 1
+
+
+def tile_stride(d: int) -> int:
+    """The padded row stride of a tile in floats: the least odd number of
+    16-byte steps with a step of padding, so that reads down a column hit
+    distinct banks."""
+    return 4 * (((d + 3) // 4 + 1) | 1)
+
+
+def _column_block(room: int):
+    return next((cb for cb in COLUMN_BLOCKS if room >= cb), None)
 
 
 def ntxent_forward_plan(n: int, d: int, aligned: bool = True) -> dict:
     """How K2f runs an (n, D) problem, from the shape alone: rows a block,
-    the padded row stride in floats (the least odd number of 16-byte steps
-    with a step of padding: reads down a column hit distinct banks), the
-    rows of a tile (the whole problem rounded up to COLUMN_BLOCK where that
-    fits in shared memory beside the block's own CHUNK_ROWS rows and every
-    row's inverse norm, else the largest multiple of COLUMN_BLOCK that
-    does), the number of tiles, the dynamic shared memory, and whether
-    copies are 16 bytes wide."""
-    stride = 4 * (((d + 3) // 4 + 1) | 1)
+    the padded row stride, the column block (96, or 32 for a wide D), the
+    rows of a tile (the whole problem rounded up to the column block where
+    that fits in shared memory beside the block's own CHUNK_ROWS rows and
+    every row's inverse norm, else the largest multiple of it that does),
+    the number of tiles, the dynamic shared memory, and whether copies are
+    16 bytes wide."""
+    stride = tile_stride(d)
     room = ((_native.SHARED_MEMORY_BYTES - _FWD_STATIC) // (4 * (stride + 1))
             - CHUNK_ROWS)
-    tile_rows = min(-(-n // COLUMN_BLOCK), room // COLUMN_BLOCK) * COLUMN_BLOCK
-    if tile_rows < COLUMN_BLOCK:
-        raise ValueError(f"D = {d}: one column block of K2f does not fit "
-                         f"in shared memory")
+    block = _column_block(room)
+    if block is None:
+        raise ValueError(
+            f"D = {d}: K2f's {CHUNK_ROWS} rows and one block of "
+            f"{COLUMN_BLOCKS[-1]} columns do not fit in the "
+            f"{_native.SHARED_MEMORY_BYTES} bytes of shared memory a block has")
+    tile_rows = min(-(-n // block), room // block) * block
     return dict(rows_per_block=-(-n // CLUSTER), chunk_rows=CHUNK_ROWS,
-                stride=stride, tile_rows=tile_rows,
+                stride=stride, column_block=block, tile_rows=tile_rows,
                 tiles=-(-n // tile_rows),
                 smem_bytes=(CHUNK_ROWS + tile_rows) * (stride + 1) * 4,
                 vec=d % 4 == 0 and aligned)
 
 
+def ntxent_backward_plan(n: int, d: int, aligned: bool = True) -> dict:
+    """How K2b runs an (n, D) problem: the warps a block (the most of
+    BWD_WARPS that leave room for one column block of the tile), the rows
+    a block takes at a time (3 a warp), the stride, column block, tile and
+    tiles as in the forward, the blocks a problem and the rows each takes,
+    and the dynamic shared memory: the block's rows and their partial sums
+    (chunk x stride each), the tile, the coefficients (chunk x tile rows),
+    and inv and lse of both. It accepts every shape the forward's plan
+    does."""
+    stride = tile_stride(d)
+    for warps in BWD_WARPS:
+        chunk = ROWS_PER_WARP * warps
+        room = ((_native.SHARED_MEMORY_BYTES - 4 * chunk * (2 * stride + 2))
+                // (4 * (stride + 2 + chunk)))
+        block = _column_block(room)
+        if block is not None:
+            break
+    else:
+        raise ValueError(
+            f"D = {d}: K2b's {chunk} rows, their sums and one block of "
+            f"{COLUMN_BLOCKS[-1]} columns do not fit in the "
+            f"{_native.SHARED_MEMORY_BYTES} bytes of shared memory a block has")
+    tile_rows = min(-(-n // block), room // block) * block
+    tiles = -(-n // tile_rows)
+    blocks = -(-n // (chunk * (BWD_CHUNKS if tiles == 1 else 1)))
+    return dict(warps=warps, chunk_rows=chunk, stride=stride,
+                column_block=block, tile_rows=tile_rows, tiles=tiles,
+                blocks=blocks, rows_per_block=-(-n // blocks),
+                smem_bytes=4 * (chunk * (2 * stride + tile_rows + 2)
+                                + tile_rows * (stride + 2)),
+                vec=d % 4 == 0 and aligned)
+
+
 def _check(z: torch.Tensor) -> None:
+    """The type and shape the kernels take; how wide D may be is for the
+    shape plans, which raise where a block's rows outgrow shared memory."""
     if z.dtype != torch.float32 or z.dim() != 3 or not z.is_contiguous():
         raise ValueError(f"z must be a contiguous (P, n, D) float32 tensor, "
                          f"got {tuple(z.shape)} {z.dtype}")
     p, n, d = z.shape
-    if not 1 <= p <= 65535 or n < 2 or n % 2 or not 1 <= d <= MAX_DIM:
+    if not 1 <= p <= 65535 or n < 2 or n % 2 or d < 1:
         raise ValueError(f"z shape {tuple(z.shape)}: need 1 <= P <= 65535, "
-                         f"even n >= 2 and 1 <= D <= {MAX_DIM}")
+                         f"even n >= 2 and D >= 1")
 
 
 def ntxent_forward_cuda(z: torch.Tensor, temperature: float):
@@ -74,7 +127,8 @@ def ntxent_forward_cuda(z: torch.Tensor, temperature: float):
     ntxent_forward_cuda.launches += 1
     _native.check(lib.sm3x_ntxent_fwd(
         z.data_ptr(), loss.data_ptr(), lse.data_ptr(), inv.data_ptr(),
-        p, n, d, plan["tile_rows"], int(plan["vec"]), float(temperature),
+        p, n, d, plan["tile_rows"], plan["column_block"] // 32,
+        int(plan["vec"]), float(temperature),
         _native.stream_handle(z.device)), "sm3x_ntxent_fwd")
     return loss, lse, inv
 
@@ -101,22 +155,27 @@ def ntxent_backward_plain(z, lse, inv, g, temperature: float):
 
 
 def ntxent_backward_cuda(z, lse, inv, g, temperature: float):
-    """K2b: the analytic gradient of the per-problem losses, on CUDA."""
+    """K2b: the analytic gradient of the per-problem losses, on CUDA, in
+    one kernel launch."""
     for t in (z, lse, inv, g):
         if not t.is_cuda:
             raise ValueError("ntxent_backward_cuda takes CUDA tensors")
     _check(z)
-    p, n, _ = z.shape
+    p, n, d = z.shape
     if (lse.shape != (p, n) or inv.shape != (p, n) or g.shape != (p,)
             or not all(t.dtype == torch.float32 and t.is_contiguous()
                        for t in (lse, inv, g))):
         raise ValueError("lse/inv must be (P, n) and g (P,), contiguous f32")
     dz = torch.empty_like(z)
+    plan = ntxent_backward_plan(
+        n, d, aligned=z.data_ptr() % 16 == 0 and dz.data_ptr() % 16 == 0)
     lib = _native.library()
     ntxent_backward_cuda.launches += 1
     _native.check(lib.sm3x_ntxent_bwd(
         z.data_ptr(), lse.data_ptr(), inv.data_ptr(), g.data_ptr(),
-        dz.data_ptr(), p, n, z.shape[2], float(temperature),
+        dz.data_ptr(), p, n, d, plan["tile_rows"],
+        plan["column_block"] // 32, plan["warps"], plan["blocks"],
+        int(plan["vec"]), float(temperature),
         _native.stream_handle(z.device)), "sm3x_ntxent_bwd")
     return dz
 

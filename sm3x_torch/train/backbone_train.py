@@ -16,8 +16,6 @@ each view draws from its own `torch.Generator` on the device.
 from __future__ import annotations
 
 import dataclasses
-import math
-import os
 import time
 
 import numpy as np
@@ -45,7 +43,8 @@ def unsupported(cfg) -> list:
         (d.data_name not in DATASETS,
          f"--data-name {d.data_name}: the port's stage 1 takes "
          f"{' or '.join(DATASETS)} (multi-crop SevenPCSwavDataset {later})"),
-        (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} {later}"),
+        (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} is not ported "
+         f"(measured harmful to feature quality, BENCH.md r4)"),
         (bool(m.arch_weights), f"--arch-weights {later}"),
         (o.use_lr_schedule, f"--use-lr-schedule {later}"),
         (bool(r.resume_path), f"--resume-path {later}"),
@@ -123,8 +122,9 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
     return train_step
 
 
-class SSLTrainer:
-    """Owns the model, the optimizer and the epoch loop on one device."""
+class SSLTrainer(common.CheckpointableTrainer):
+    """Owns the model, the optimizer and the epoch loop on one device; its
+    checkpoints have `export_simclr_skin`'s key layout."""
 
     def __init__(self, cfg, logger=None):
         problems = unsupported(cfg)
@@ -184,40 +184,10 @@ class SSLTrainer:
             batch_time.update(time.time() - end)
             end = time.time()
             if it % cfg.run.print_freq == 0 and it > 0:
-                self._drain(pending, losses, step_losses)
+                common.drain_losses(pending, losses, step_losses)
                 self.logger.info(progress.display(it))
-        self._drain(pending, losses, step_losses)
+        common.drain_losses(pending, losses, step_losses)
         return {"loss": losses.avg, "step_losses": step_losses}
-
-    @staticmethod
-    def _drain(pending, meter, out):
-        for loss, n in pending:
-            out.append(float(loss))
-            meter.update(out[-1], n)
-        pending.clear()
-
-    def state_dict(self, epoch: int) -> dict:
-        """Checkpoint in the reference's `{"epoch", "state_dict"}` wrapper;
-        the model keys are `export_simclr_skin`'s layout."""
-        return {
-            "epoch": epoch + 1,
-            "state_dict": {k: v.detach().cpu()
-                           for k, v in self.model.state_dict().items()},
-            "optimizer": self.optimizer.state_dict(),
-        }
-
-    def save(self, path: str, epoch: int):
-        torch.save(self.state_dict(epoch), path)
-
-    def guard_loss(self, epoch: int, loss: float):
-        """--nan-guard: dump the state and stop on a non-finite epoch loss."""
-        if not self.cfg.run.nan_guard or math.isfinite(loss):
-            return
-        path = os.path.join(self.cfg.run.log_path, "nan_dump.pth")
-        if common.is_main_process():
-            self.save(path, epoch)
-        raise FloatingPointError(
-            f"non-finite loss {loss} at epoch {epoch} (state: {path})")
 
     def fit(self, data) -> list:
         """Train `cfg.optim.epochs` epochs; returns each epoch's stats.
@@ -232,13 +202,5 @@ class SSLTrainer:
             self.guard_loss(epoch, stat["loss"])
             self.logger.info(f"Epoch {epoch}: loss {stat['loss']:.4f} "
                              f"({(time.time() - t0) / 60:.2f} min)")
-            if not common.is_main_process():
-                continue
-            if ((epoch + 1) % cfg.run.save_freq == 0
-                    or epoch + 1 == cfg.optim.epochs):
-                self.save(os.path.join(cfg.run.log_path, f"ckp_{epoch}.pth"),
-                          epoch)
-            if (epoch + 1) % max(cfg.run.ckpt_freq, 1) == 0:
-                self.save(os.path.join(cfg.run.log_path, "checkpoint.pth"),
-                          epoch)
+            self.epoch_checkpoint(epoch)
         return history

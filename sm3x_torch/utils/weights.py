@@ -10,6 +10,9 @@ into `sm3x_torch.models.simclr.SimCLRSkinV3`:
 
 The ViTs have no counterpart in `torch_export`; their layout is the port's
 own, named after the Flax tree (`vit_state_dict`).
+
+`mlc_state_dict` does the same for the stage-2 model, in the layout of
+`export_mlc_model`, which strict-loads into `sm3x_torch.models.mlc.MLCModel`.
 """
 
 from __future__ import annotations
@@ -151,6 +154,80 @@ def simclr_skin_state_dict(params: dict, stats: dict) -> StateDict:
         for i, name in enumerate(("cross_proj_derm", "cross_proj_clinic")):
             sd.update(projector_state_dict(params[name], stats[name],
                                            f"cross_proj.{i}."))
+    return sd
+
+
+# MultiLabelProjector variant -> (linears, batch norms), each (Flax name,
+# index in the head's Sequential); the last batch norm has no scale or bias
+_MLP_LAYOUT = {
+    "v0": ([], []),
+    "v1": ([("fc1", 0), ("fc2", 3), ("fc3", 6)],
+           [("bn1", 1), ("bn2", 4), ("bn3", 7)]),
+    "v2": ([("fc1", 0), ("fc2", 3)], [("bn1", 1), ("bn2", 4)]),
+    "v3": ([("fc1", 0)], [("bn1", 1)]),
+    "v4": ([("fc1", 0)], []),
+}
+
+
+def multilabel_projector_state_dict(params: dict, stats, variant: str = "v4",
+                                    prefix: str = "projectors.") -> StateDict:
+    """The vmapped heads, stacked (H, ...) in the Flax tree, one Sequential
+    a head."""
+    sd: StateDict = {}
+    lins, bns = _MLP_LAYOUT[variant]
+    if not lins:
+        return sd
+    heads_p = params["heads"]
+    heads_s = (stats or {}).get("heads", {})
+    num_labels = heads_p[lins[0][0]]["kernel"].shape[0]
+    for h in range(num_labels):
+        for name, idx in lins:
+            sd[f"{prefix}{h}.{idx}.weight"] = _lin_w(heads_p[name]["kernel"][h])
+            if "bias" in heads_p[name]:
+                sd[f"{prefix}{h}.{idx}.bias"] = _np(heads_p[name]["bias"][h])
+        for name, idx in bns:
+            affine = heads_p.get(name)
+            _bn(sd, f"{prefix}{h}.{idx}",
+                None if affine is None else {k: v[h] for k, v in affine.items()},
+                {k: v[h] for k, v in heads_s[name].items()})
+    return sd
+
+
+def transformer_layer_state_dict(params: dict,
+                                 prefix: str = "mlc_sa.") -> StateDict:
+    sd: StateDict = {}
+    attn = params["self_attn"]
+    sd[prefix + "self_attn.in_proj_weight"] = _lin_w(attn["in_proj"]["kernel"])
+    sd[prefix + "self_attn.in_proj_bias"] = _np(attn["in_proj"]["bias"])
+    _dense(sd, prefix + "self_attn.out_proj", attn["out_proj"])
+    _dense(sd, prefix + "linear1", params["linear1"])
+    _dense(sd, prefix + "linear2", params["linear2"])
+    _ln(sd, prefix + "norm1", params["norm1"])
+    _ln(sd, prefix + "norm2", params["norm2"])
+    return sd
+
+
+def mlc_state_dict(params: dict, stats: dict,
+                   variant: str = "v4") -> StateDict:
+    """Stage-2 / inference model (`MLCModel` with ResNet encoders): the two
+    extractor encoders, the per-label projectors of `variant`, the
+    transformer layer and the prototypes (a bias only in the eval
+    variant)."""
+    sd: StateDict = {}
+    for mod in ("derm_backbone", "clinic_backbone"):
+        sd.update(resnet_state_dict(params["extractor"][mod]["encoder"],
+                                    stats["extractor"][mod]["encoder"],
+                                    f"extractor.{mod}.encoder."))
+    head_p, head_s = params["head"], stats.get("head", {})
+    sd.update(multilabel_projector_state_dict(
+        head_p.get("projectors", {}), head_s.get("projectors"), variant,
+        "projectors.projectors."))
+    sd.update(transformer_layer_state_dict(head_p["mlc_sa"], "mlc_sa."))
+    for name, leaf in head_p["prototypes"].items():
+        key = f"prototypes.{int(name[len('proto'):])}"
+        sd[f"{key}.weight"] = _lin_w(leaf["kernel"])
+        if "bias" in leaf:
+            sd[f"{key}.bias"] = _np(leaf["bias"])
     return sd
 
 

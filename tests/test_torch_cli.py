@@ -57,19 +57,24 @@ def test_cli_trains_one_epoch_and_writes_a_strict_checkpoint(dataset,
     model.load_state_dict(ckpt["state_dict"], strict=True)
 
 
-@pytest.mark.parametrize("flag", [["--arch-version", "trimodal"],
-                                  ["--data-name", "SevenPCSwavDataset"],
-                                  ["--bn-stat-freq", "4"],
-                                  ["--arch-weights", "w.pth"],
-                                  ["--resume-path", "ckp_0.pth"],
-                                  ["--use-lr-schedule"],
-                                  ["--mesh-model", "2"],
-                                  ["--use-checkpoint"]])
-def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag):
+LATER = "not in the PyTorch port yet"
+
+
+@pytest.mark.parametrize("flag,said", [
+    (["--arch-version", "trimodal"], LATER),
+    (["--data-name", "SevenPCSwavDataset"], LATER),
+    # not to be ported at all: K = 4 hurt the features
+    (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
+    (["--arch-weights", "w.pth"], LATER),
+    (["--resume-path", "ckp_0.pth"], LATER),
+    (["--use-lr-schedule"], LATER),
+    (["--mesh-model", "2"], LATER),
+    (["--use-checkpoint"], LATER)])
+def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag, said):
     res = _run(COMMON + ["--data-path", dataset, "--log-path",
                          str(tmp_path / "bk")] + flag, str(tmp_path))
     assert res.returncode != 0
-    assert "not in the PyTorch port yet" in res.stdout + res.stderr
+    assert said in res.stdout + res.stderr
 
 
 def test_cli_trains_a_vit_with_flash_attention(dataset, tmp_path):

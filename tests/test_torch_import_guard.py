@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing `sm3x_torch`, every module in
-it, `chip_smoke.py` and the `tools/*_torch.py` scripts loads nothing of the
+it, `chip_smoke.py`, `bench_torch.py` and the `tools/*_torch.py` scripts loads nothing of the
 JAX package (`sm3x`, `sm3x.*`) and none of `jax`, `flax`, `optax`. The port
 never calls PyTorch's fused attention either: that call is only the
 yardstick that `chip_smoke.py` times beside K3.
@@ -21,7 +21,7 @@ _PROBE = textwrap.dedent("""
     import sm3x_torch
     mods = ["sm3x_torch"] + [m.name for m in pkgutil.walk_packages(
         sm3x_torch.__path__, "sm3x_torch.")]
-    mods += ["chip_smoke"]
+    mods += ["chip_smoke", "bench_torch"]
     for m in mods:
         importlib.import_module(m)
     for path in sorted(glob.glob(os.path.join("tools", "*_torch.py"))):
@@ -58,7 +58,13 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.ops.attention_cuda", "sm3x_torch.ops.copy_cuda",
               "sm3x_torch.data.derm7pt", "sm3x_torch.data.pipeline",
               "sm3x_torch.data.datasets", "chip_smoke",
-              "tools/backbone_train_torch", "tools/bench_copy_torch"):
+              "tools/backbone_train_torch", "tools/bench_copy_torch",
+              "sm3x_torch.models.transformer", "sm3x_torch.models.mlc",
+              "sm3x_torch.models.projector", "sm3x_torch.ops.kmeans",
+              "sm3x_torch.losses", "sm3x_torch.train.mlc_train",
+              "sm3x_torch.train.common", "sm3x_torch.utils.timing",
+              "bench_torch", "tools/mlc_train_torch",
+              "tools/k2b_variants_torch"):
         assert m in res["modules"]
     assert res["loaded"] == [], (
         f"modules of the JAX package or of JAX loaded: {res['loaded']}")
@@ -73,7 +79,8 @@ def test_port_sources_name_no_module_of_the_jax_package():
     files = (glob.glob(os.path.join(ROOT, "sm3x_torch", "**", "*.py"),
                        recursive=True)
              + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
-             + [os.path.join(ROOT, "chip_smoke.py")])
+             + [os.path.join(ROOT, "chip_smoke.py"),
+                os.path.join(ROOT, "bench_torch.py")])
     assert len(files) > 30
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []

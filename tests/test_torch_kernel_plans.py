@@ -1,6 +1,6 @@
 """The shape plans of the port's kernels K1 (sm3x_torch.ops.augment_cuda.
-photometric_plan) and K2f (sm3x_torch.ops.ntxent_cuda.ntxent_forward_plan),
-on the CPU: which kernel a shape takes, how many blocks, how many rows a
+photometric_plan), K2f and K2b (sm3x_torch.ops.ntxent_cuda.
+ntxent_forward_plan, ntxent_backward_plan), on the CPU: which kernel a shape takes, how many blocks, how many rows a
 block holds, how much shared memory, all under the H100's 227 KB a block.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda.
@@ -8,7 +8,9 @@ py); what surrounds them is Python, and is held here. `_banded` repeats
 K1's decomposition in torch (bands with reflected halo rows, pointwise
 rounds with one mean for the whole image, the blur inside a band) and is
 held against `photometric_plain`, so the plan's geometry is checked against
-the function the kernel must compute.
+the function the kernel must compute. `_tiled_backward` does the same for
+K2b: coefficients a tile, the second product a block of 128 dimensions,
+tiles added in order, held against `ntxent_backward_plain`.
 """
 
 from itertools import permutations
@@ -152,37 +154,151 @@ def test_band_decomposition_with_idle_blocks():
 
 
 # (n, D): the stage-1 problem; the smallest; D no multiple of 4; the widest
-# D; many rows; a D whose 16-byte steps are odd; a problem that streams tiles
+# D of the 96-column block; many rows; a D whose 16-byte steps are odd; a
+# problem that streams tiles; then D beyond 512: 32-column blocks, the
+# widest D of the tests, an unaligned one
 K2_SHAPES = [(96, 128), (2, 1), (10, 33), (64, 512), (300, 64), (10, 28),
-             (4096, 512)]
+             (4096, 512), (96, 640), (96, 1024), (10, 130)]
 
 
-@pytest.mark.parametrize("n,d", K2_SHAPES)
-def test_ntxent_forward_plan(n, d):
-    plan = K2.ntxent_forward_plan(n, d)
-    stride, tile = plan["stride"], plan["tile_rows"]
+def _check_tiles(plan, n, d, fixed_bytes, row_bytes, static_bytes=0):
+    """What both plans share: the stride, the column block, and a tile that
+    is the largest that fits (beside the kernel's static shared memory) or
+    as large as the problem needs."""
+    room = _native.SHARED_MEMORY_BYTES - static_bytes
+    stride, tile, block = plan["stride"], plan["tile_rows"], plan["column_block"]
     # rows are whole 16-byte steps with at least one step of padding, an odd
     # number of them: eight rows in a column start in eight distinct groups
     # of four banks
     assert stride % 4 == 0 and stride >= (d + 3) // 4 * 4 + 4
     assert stride <= (d + 3) // 4 * 4 + 8 and (stride // 4) % 2 == 1
     assert len({(r * stride // 4) % 8 for r in range(8)}) == 8
+    assert block in K2.COLUMN_BLOCKS
+    assert tile % block == 0 and tile >= block
+    assert plan["tiles"] * tile >= n > (plan["tiles"] - 1) * tile
+    assert plan["smem_bytes"] == fixed_bytes + tile * row_bytes
+    assert plan["vec"] == (d % 4 == 0)
+    # a larger tile would not fit, or is not needed
+    assert plan["smem_bytes"] <= room
+    assert tile >= n or plan["smem_bytes"] + block * row_bytes > room
+    # the wider column block is taken wherever one block of it fits
+    if block != K2.COLUMN_BLOCKS[0]:
+        assert fixed_bytes + K2.COLUMN_BLOCKS[0] * row_bytes > room
+
+
+@pytest.mark.parametrize("n,d", K2_SHAPES)
+def test_ntxent_forward_plan(n, d):
+    plan = K2.ntxent_forward_plan(n, d)
+    stride = plan["stride"]
     assert plan["chunk_rows"] == K2.CHUNK_ROWS == 12
     assert plan["rows_per_block"] * K2.CLUSTER >= n
     assert (plan["rows_per_block"] - 1) * K2.CLUSTER < n
-    assert tile % K2.COLUMN_BLOCK == 0 and tile >= K2.COLUMN_BLOCK
-    assert plan["tiles"] * tile >= n > (plan["tiles"] - 1) * tile
-    assert plan["smem_bytes"] == (12 + tile) * (stride + 1) * 4
-    assert plan["smem_bytes"] + 128 <= _native.SHARED_MEMORY_BYTES
-    assert plan["vec"] == (d % 4 == 0)
-    # a larger tile would not fit, or is not needed
-    more = (12 + tile + K2.COLUMN_BLOCK) * (stride + 1) * 4 + 128
-    assert tile >= n or more > _native.SHARED_MEMORY_BYTES
+    # 128 bytes of static shared memory beside the dynamic
+    _check_tiles(plan, n, d, 12 * (stride + 1) * 4, (stride + 1) * 4,
+                 static_bytes=128)
 
 
 def test_ntxent_forward_plan_stage1_shape():
     """(96, 128): 12 rows a block, the whole problem one tile of 57 KB."""
     assert K2.ntxent_forward_plan(96, 128) == dict(
-        rows_per_block=12, chunk_rows=12, stride=132, tile_rows=96, tiles=1,
-        smem_bytes=108 * 133 * 4, vec=True)
+        rows_per_block=12, chunk_rows=12, stride=132, column_block=96,
+        tile_rows=96, tiles=1, smem_bytes=108 * 133 * 4, vec=True)
     assert not K2.ntxent_forward_plan(96, 128, aligned=False)["vec"]
+
+
+@pytest.mark.parametrize("n,d", K2_SHAPES)
+def test_ntxent_backward_plan(n, d):
+    plan = K2.ntxent_backward_plan(n, d)
+    stride, chunk = plan["stride"], plan["chunk_rows"]
+    assert plan["warps"] in K2.BWD_WARPS and chunk == 3 * plan["warps"]
+    # the block's rows, their partial sums, inv and lse; then a row of the
+    # tile, its coefficients for the block's rows, its inv and lse
+    fixed, row = 4 * chunk * (2 * stride + 2), 4 * (stride + 2 + chunk)
+    _check_tiles(plan, n, d, fixed, row)
+    # more warps would leave no room for a column block
+    wider = [w for w in K2.BWD_WARPS if w > plan["warps"]]
+    for w in wider:
+        assert (4 * 3 * w * (2 * stride + 2) + 32 * 4 * (stride + 2 + 3 * w)
+                > _native.SHARED_MEMORY_BYTES)
+    # the blocks share the rows out, whole row groups each
+    blocks, per_block = plan["blocks"], plan["rows_per_block"]
+    assert blocks * per_block >= n > (blocks - 1) * per_block
+    assert per_block <= chunk * (K2.BWD_CHUNKS if plan["tiles"] == 1 else 1)
+
+
+def test_ntxent_backward_plan_stage1_shape():
+    """(96, 128): 8 blocks of 4 warps, 12 rows each, one tile, 67 KB."""
+    assert K2.ntxent_backward_plan(96, 128) == dict(
+        warps=4, chunk_rows=12, stride=132, column_block=96, tile_rows=96,
+        tiles=1, blocks=8, rows_per_block=12,
+        smem_bytes=4 * (12 * (264 + 96 + 2) + 96 * 134), vec=True)
+    assert not K2.ntxent_backward_plan(96, 128, aligned=False)["vec"]
+
+
+def test_ntxent_plans_bound_d_by_shared_memory():
+    """The backward takes every D the forward takes (up to 1312 floats a
+    row); past that both say what does not fit."""
+    widest = max(d for d in range(1200, 1400)
+                 if K2.tile_stride(d) + 1 <= (232448 - 128) // (4 * 44))
+    assert widest == 1312
+    for d in (1, 511, 512, 513, 640, 1024, widest):
+        assert K2.ntxent_forward_plan(96, d)["column_block"] in (96, 32)
+        assert K2.ntxent_backward_plan(96, d)["smem_bytes"] <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        K2.ntxent_forward_plan(96, widest + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        K2.ntxent_backward_plan(96, 2000)
+
+
+def _tiled_backward(z, lse, inv, g, temperature, plan):
+    """K2b's decomposition in torch: a block's rows in groups of
+    `chunk_rows`; for each tile of the problem's rows the coefficients
+    (p_ij + p_ji - 2 [j = pos(i)]) inv_j, 0 on the diagonal, from the saved
+    lse and inverse norms; the second product in blocks of 128 dimensions
+    on the rows as they are, padded with zeros to a multiple of 4, added
+    tile after tile; then the tail."""
+    p, n, d = z.shape
+    chunk, tile = plan["chunk_rows"], plan["tile_rows"]
+    d4 = (d + 3) // 4 * 4
+    zp = torch.nn.functional.pad(z, (0, d4 - d))
+    dz = torch.full_like(z, float("nan"))
+    scale = (g / (n * temperature))[:, None, None]
+    for b in range(plan["blocks"]):
+        r0 = min(b * plan["rows_per_block"], n)
+        r1 = min(r0 + plan["rows_per_block"], n)
+        for c0 in range(r0, r1, chunk):
+            i = torch.arange(c0, min(c0 + chunk, r1))
+            pos = (i + n // 2) % n
+            acc = torch.zeros(p, len(i), d4, dtype=z.dtype)
+            for t0 in range(0, n, tile):
+                j = torch.arange(t0, min(t0 + tile, n))
+                s = (zp[:, i] @ zp[:, j].transpose(1, 2)
+                     * (inv[:, i, None] * inv[:, None, j]) / temperature)
+                coef = (torch.exp(s - lse[:, i, None])
+                        + torch.exp(s - lse[:, None, j])
+                        - 2.0 * (j[None, :] == pos[:, None]))
+                coef = coef.masked_fill(j[None, :] == i[:, None], 0.0)
+                coef = coef * inv[:, None, j]
+                for kb in range(0, d4, 128):
+                    acc[..., kb:kb + 128] += coef @ zp[:, j, kb:kb + 128]
+            dzh = acc * scale
+            zh = zp[:, i] * inv[:, i, None]
+            proj = (dzh * zh).sum(-1, keepdim=True)
+            dz[:, i] = ((dzh - zh * proj) * inv[:, i, None])[..., :d]
+    return dz
+
+
+# the stage-1 problem; an odd unaligned D; D beyond 512 in two tiles of 32
+# columns; rows that stream several tiles; one row group short of whole
+@pytest.mark.parametrize("p,n,d", [(2, 96, 128), (3, 10, 33), (2, 96, 640),
+                                   (1, 200, 520), (2, 14, 130)])
+def test_tiled_backward_is_the_plain_backward(p, n, d):
+    rng = np.random.default_rng(n * d)
+    z = torch.from_numpy(rng.standard_normal((p, n, d), dtype=np.float32))
+    g = torch.from_numpy(rng.random(p, dtype=np.float32) + 0.5)
+    _, lse, inv = K2.ntxent_forward_plain(z, 0.1)
+    plan = K2.ntxent_backward_plan(n, d)
+    got = _tiled_backward(z, lse, inv, g, 0.1, plan)
+    want = K2.ntxent_backward_plain(z, lse, inv, g, 0.1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-6)

@@ -197,8 +197,13 @@ def test_photometric_counts_launches_and_checks_inputs(card):
     assert K1.photometric_cuda.launches == before + 1
 
 
+# the last five are K2b's: D beyond 512 (two tiles of 32-column blocks),
+# the widest D of the tests, rows that stream tiles at a wide D, an odd
+# unaligned D, one problem
 @pytest.mark.parametrize("shape", [(1, 2, 1), (3, 10, 33), (8, 96, 128),
-                                   (2, 64, 512), (2, 300, 64)])
+                                   (2, 64, 512), (2, 300, 64), (8, 96, 640),
+                                   (2, 96, 1024), (2, 300, 520), (3, 14, 131),
+                                   (1, 96, 128)])
 @pytest.mark.parametrize("temperature", [0.1, 0.5])
 def test_ntxent_kernels_match_plain(card, shape, temperature):
     rng = np.random.default_rng(sum(shape))
@@ -231,6 +236,57 @@ def test_ntxent_forward_repeats_bit_for_bit(card, shape):
         _close(a, w, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(8, 96, 128), (8, 96, 640), (3, 14, 131),
+                                   (2, 300, 520), (2, 700, 512), (1, 96, 128)])
+def test_ntxent_backward_repeats_bit_for_bit(card, shape):
+    """Fixed-order sums and no float atomics in K2b: the same input gives
+    the same bits, also where tiles are streamed and partial rows carried
+    from tile to tile ((700, 512): 11 tiles of 64 rows)."""
+    rng = np.random.default_rng(sum(shape))
+    z = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card)
+    g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).to(card)
+    _, lse, inv = K2.ntxent_forward_plain(z, 0.1)
+    first = K2.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+    second = K2.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+    want = K2.ntxent_backward_plain(z, lse, inv, g, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _close(first, want, rtol=1e-4, atol=1e-6)
+
+
+def test_ntxent_backward_reads_tensors_off_16_bytes(card):
+    rng = np.random.default_rng(8)
+    flat = torch.from_numpy(rng.standard_normal(2 * 48 * 64 + 1,
+                                                dtype=np.float32)).to(card)
+    off = flat[1:].view(2, 48, 64)
+    assert off.data_ptr() % 16 == 4
+    g = torch.ones(2, device=card)
+    _, lse, inv = K2.ntxent_forward_plain(off, 0.1)
+    got = K2.ntxent_backward_cuda(off, lse, inv, g, 0.1)
+    aligned = K2.ntxent_backward_cuda(off.clone(), lse, inv, g, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+
+
+def test_ntxent_function_takes_a_projection_wider_than_512(card):
+    """--proj-dim 640: the reference gives a loss at any width, and so does
+    the port on the card, forward and backward through the kernels."""
+    rng = np.random.default_rng(640)
+    z = rng.standard_normal((8, 96, 640), dtype=np.float32)
+    w = torch.from_numpy(rng.random(8, dtype=np.float32))
+    zc = torch.from_numpy(z).to(card).requires_grad_(True)
+    zp = torch.from_numpy(z).requires_grad_(True)
+    fwd, bwd = K2.ntxent_forward_cuda.launches, K2.ntxent_backward_cuda.launches
+    loss = K2.ntxent_problems_loss(zc, 0.1)
+    (loss * w.to(card)).sum().backward()
+    loss_p = K2.ntxent_forward_plain(zp, 0.1)[0]
+    (loss_p * w).sum().backward()
+    assert K2.ntxent_forward_cuda.launches == fwd + 1
+    assert K2.ntxent_backward_cuda.launches == bwd + 1
+    _close(loss, loss_p, rtol=1e-5, atol=1e-6)
+    _close(zc.grad, zp.grad, rtol=1e-4, atol=1e-6)
+
+
 def test_ntxent_forward_reads_tensors_off_16_bytes(card):
     rng = np.random.default_rng(6)
     flat = torch.from_numpy(rng.standard_normal(2 * 48 * 64 + 1,
@@ -261,9 +317,17 @@ def test_ntxent_function_on_card_matches_cpu_autograd(card):
 def test_ntxent_kernels_check_inputs(card):
     z = torch.randn(2, 8, 16, device=card)
     for bad in (z.double(), z[:, :7], z.transpose(1, 2),
-                torch.randn(1, 4, 513, device=card), z[0]):
+                z[0]):
         with pytest.raises(ValueError):
             K2.ntxent_forward_cuda(bad, 0.1)
+    # D is bounded by a block's shared memory alone: 1312 floats a row
+    wide = torch.randn(1, 4, 1313, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        K2.ntxent_forward_cuda(wide, 0.1)
+    with pytest.raises(ValueError, match="shared memory"):
+        K2.ntxent_backward_cuda(
+            torch.randn(1, 4, 2000, device=card), torch.zeros(1, 4, device=card),
+            torch.ones(1, 4, device=card), torch.ones(1, device=card), 0.1)
     with pytest.raises(ValueError):
         K2.ntxent_forward_cuda(z.cpu(), 0.1)
 

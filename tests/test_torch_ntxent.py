@@ -138,6 +138,22 @@ def test_ssl_loss_and_gradient_match_jax(rng_np, style, groups):
                                    rtol=1e-4, atol=1e-6)
 
 
+def test_kernel_wrappers_take_a_projection_wider_than_512():
+    """--proj-dim 640 is a loss in the reference; the port's shape check
+    and both kernels' plans take it, and past what a block's shared memory
+    holds the plans, not a register count, say no."""
+    z = torch.zeros(8, 96, 640)
+    K._check(z)
+    assert K.ntxent_forward_plan(96, 640)["tiles"] == 2
+    assert K.ntxent_backward_plan(96, 640)["tiles"] == 2
+    assert not hasattr(K, "MAX_DIM")
+    with pytest.raises(ValueError, match="shared memory"):
+        K.ntxent_forward_plan(96, 4096)
+    loss = K.ntxent_problems_loss(z.normal_(generator=torch.Generator()
+                                            .manual_seed(0)), 0.1)
+    assert loss.shape == (8,) and bool(torch.isfinite(loss).all())
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     z = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError):

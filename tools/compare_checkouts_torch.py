@@ -18,8 +18,8 @@ ViT-B's (64, 197, 12, 64): CUDA events around 200 launches in a row, three
 times, with the relative Frobenius error against this checkout's plain
 float32 forward. `k1k2` does the same for the photometric kernel K1 at
 (96, 224, 224, 3) (the smoke run's inputs: every flag combination and op
-order) and the NT-Xent forward K2f at (8, 96, 128), each with its largest
-error against the checkout's plain version; beside the events' time a
+order) and the NT-Xent forward K2f and backward K2b at (8, 96, 128), each
+with its largest error against the checkout's plain version; beside the events' time a
 launch (which holds the wrapper's host work where the kernel is short) it
 prints the kernels' own time a call from torch.profiler and their names
 and counts. Prints every run's lines under its checkout's name, then one
@@ -81,6 +81,11 @@ images, params = c.k1_inputs()
 z = torch.randn(8, 96, 128, device="cuda")
 k1 = lambda: K.photometric_cuda(images, params, c.MEAN, c.STD)
 k2f = lambda: N.ntxent_forward_cuda(z, 0.1)
+g = torch.rand(8, device="cuda")
+_, lse, inv = k2f()
+k2b = lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+err3 = float((k2b() - N.ntxent_backward_plain(z, lse, inv, g, 0.1))
+             .abs().max())
 err1 = float((k1() - K.photometric_plain(images, params, c.MEAN, c.STD))
              .abs().max())
 err2 = max(float((a - b).abs().max()) for a, b in zip(
@@ -119,6 +124,9 @@ print("K1 (96, 224, 224, 3) max abs err %.3e," % err1,
 print("K2f (8, 96, 128) max abs err %.3e," % err2,
       "device ms a launch:", events_ms(k2f) + ";", "kernels alone:",
       profiled(k2f))
+print("K2b (8, 96, 128) max abs err %.3e," % err3,
+      "device ms a launch:", events_ms(k2b) + ";", "kernels alone:",
+      profiled(k2b))
 """
 
 
