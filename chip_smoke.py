@@ -10,7 +10,9 @@ Phases, each printing its lines:
            (flash attention) and K4 (copy) against their plain PyTorch
            versions on the card, in float32 with TF32 off, at the stage-1
            shapes (K1 also at a shape that takes its general-shape kernel,
-           with the kernel each shape took; K2 also at --proj-dim 640, at
+           with the kernel each shape took, and at the supervised stages'
+           (128, 224, 224, 3) with parameter rows of the finetune preset:
+           flip and normalise only; K2 also at --proj-dim 640, at
            rows that stream several tiles and at an odd D off the 16-byte
            copies; K1, K2f and K2b twice for identical bits; K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
            runs on the tensor cores and is held against the plain versions
@@ -49,6 +51,28 @@ Phases, each printing its lines:
            the checkpoint and its running statistics moved by the init
            pass alone, ckp_1.pth; the times of the init pass, of an epoch's
            k-means and of a step, peak memory
+  eval     the supervised finetune of stage 2's model at the run.sh recipe
+           (stage2_eval: the ckp_1.pth that `stage2` wrote, batch 128, lr
+           1e-3, --finetune projector, v4 / 512, 1 head, ff 128, float32 with
+           TF32 off) over 1024 train and 256 test synthetic cases with
+           labels: one epoch through MLCEvalTrainer.fit and results.csv; the
+           checkpoint lacks only the prototype biases, K1 launched twice a
+           train step (band kernel) and never in an eval step, the extractor
+           bit-identical to the checkpoint, best_eval.pth written once after
+           the loop, the released CSV header and finite cells, a train
+           step's predictions equal to a second forward on the same views;
+           then two steps of --finetune all at batch 64 (stem frozen, its
+           statistics moving); step and eval-batch times, device busy time,
+           launches, peak memory
+  probe    the backbone linear eval at the run.sh recipe (stage1_eval: the
+           two encoders of `main`'s ckp_0.pth under 8 linear heads, batch
+           128, lr 1e-3, --finetune fc, bf16 autocast): one epoch through
+           BackboneEvalTrainer.fit and results.csv; backbones bit-identical
+           afterwards; the same numbers
+  infer    sm3x_torch.api on `eval`'s best_eval.pth: build_evaluator,
+           load_weights, predict_fn at batch 1 and 64 in float32, equal to
+           the trainer's eval step on the same images and to the same
+           forward on the CPU; latency a call
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
@@ -56,9 +80,9 @@ Phases, each printing its lines:
            kernel; losses, launch counts, step time, images/s, peak memory
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--profile DIR`, the main, stage2 and vit phases also trace three more
-steps with torch.profiler and write the device-time tables to
-DIR/profile_step.txt, DIR/profile_stage2.txt and DIR/profile_vit.txt.
+With `--profile DIR`, the main, stage2, eval, probe and vit phases also
+write the device-time tables of three traced steps to DIR/profile_step.txt,
+profile_stage2.txt, profile_eval.txt, profile_probe.txt and profile_vit.txt.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Any
@@ -108,6 +132,8 @@ K3F_LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 VIT_SHAPE = (64, 197, 12, 64)            # ViT-B/16 at 224, batch 64
+# the supervised stages at run.sh's recipes: batch 128, 8 train steps
+EVAL_BATCH, EVAL_TRAIN_CASES, EVAL_TEST_CASES = 128, 1024, 256
 LOGS = os.path.join(ROOT, "build", "chip_smoke_logs")  # a folder a phase
 MEAN = (0.7833, 0.6712, 0.6026)          # run.sh Derm7pt statistics
 STD = (0.2139, 0.2472, 0.2571)
@@ -267,6 +293,8 @@ def phase_kernels():
         **bound(nbytes(images, params, got), 130 * images[..., 0].numel(),
                 "f32"))
 
+    results["photometric"]["supervised"] = k1_supervised()
+
     errs = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(3)
     # the stage-1 shape (4 terms x 2 groups); more rows; --proj-dim 640 (two
@@ -346,6 +374,59 @@ def phase_kernels():
             f"{100 * r['share_of_bound']:.1f}% of it reached by the kernel "
             f"alone), plain {r['plain_ms']:.4f} ms{bf16}{lib}")
     return results, floor
+
+
+def k1_supervised() -> dict:
+    """K1 in the supervised stages' regime: (128, 224, 224, 3) with the
+    parameter rows `build_params` draws from the finetune preset, where
+    jitter, grayscale and blur are gated off on every image and only flip
+    and normalise apply. Against the plain version, band kernel, twice for
+    identical bits; its times beside a bound of one read and one write."""
+    from sm3x_torch.ops import augment as A
+    from sm3x_torch.ops import augment_cuda as K
+
+    shape = (EVAL_BATCH, 224, 224, 3)
+    images = torch.from_numpy(np.random.default_rng(7).random(
+        shape, dtype=np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = K.build_params(gen, shape[0], A.FINETUNE_AUG, "cuda")
+    gated = params[:, [K.P_DO_JIT, K.P_DO_GRAY, K.P_DO_BLUR]]
+    flips = params[:, K.P_DO_FLIP]
+    if bool(gated.any()) or not (0 < float(flips.sum()) < shape[0]):
+        raise AssertionError("the finetune preset must gate off all but the "
+                             "flip, and flip some images")
+    before = dict(K.photometric_cuda.variants)
+    got = K.photometric_cuda(images, params, MEAN, STD)
+    again = K.photometric_cuda(images, params, MEAN, STD)
+    want = K.photometric_plain(images, params, MEAN, STD)
+    torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
+    log(f"[kernels] K1 photometric {shape}, finetune preset (flip on "
+        f"{int(flips.sum())} of {shape[0]} images, every other step gated "
+        f"off): kernels taken {took}")
+    if took != {"band": 2, "scratch": 0}:
+        raise AssertionError(f"K1 at {shape} took {took}, expected band")
+    err = check_close("K1 out (supervised)", got, want, **K1_TOL)
+    if not torch.equal(got, again):
+        raise AssertionError("K1 does not repeat bit for bit")
+    del want, again
+    k1 = lambda: K.photometric_cuda(images, params, MEAN, STD)
+    # a subtraction and a division a value: 6 operations a pixel
+    row = dict(shape=list(shape), max_abs_err=err, ms=median_ms(k1),
+               device_ms=device_ms(k1), kernel_ms=kernel_ms(k1),
+               plain_ms=median_ms(lambda: K.photometric_plain(
+                   images, params, MEAN, STD)),
+               **bound(nbytes(images, params, got),
+                       6 * images[..., 0].numel(), "f32"))
+    alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
+        "device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / alone
+    log(f"  photometric (supervised): kernel {row['ms']:.4f} ms a single "
+        f"launch, {row['device_ms']:.4f} ms device time, the kernel alone "
+        f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
+        f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
+        f"reached), plain {row['plain_ms']:.4f} ms")
+    return row
 
 
 def k3_kernels() -> dict:
@@ -896,6 +977,380 @@ def phase_stage2(profile_dir=None) -> dict:
     return launches
 
 
+# K1 launches a supervised train step: one view a modality
+SUPERVISED_PER_STEP = {"photometric_cuda": 2}
+CSV_ROWS = ["Acc", "AUC", "Recall", "Spec", "Prec"]
+
+
+def capture_logger(name: str):
+    """A logger that keeps its records: (logger, [(level, message)])."""
+    import logging
+
+    logger = logging.getLogger(name)
+    logger.handlers, logger.propagate = [], False
+    logger.setLevel(logging.INFO)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append((r.levelname, r.getMessage()))
+    logger.addHandler(handler)
+    return logger, records
+
+
+def count_k1(fn, deltas: list):
+    """`fn`, with K1's launches during each call appended to `deltas`."""
+    from sm3x_torch.ops import augment_cuda as K
+
+    def counted(*args):
+        before = K.photometric_cuda.launches
+        out = fn(*args)
+        deltas.append(K.photometric_cuda.launches - before)
+        return out
+
+    return counted
+
+
+def check_results_csv(path: str) -> None:
+    """The released layout: `BWV-1` first, `DIAG avg` last, the five metric
+    rows, every cell finite."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    header = lines[0].split(",")
+    rows = {ln.split(",")[0]: [float(v) for v in ln.split(",")[1:]]
+            for ln in lines[1:]}
+    if (header[0], header[1], header[-1]) != ("", "BWV-1", "DIAG avg") \
+            or list(rows) != CSV_ROWS:
+        raise AssertionError(f"{path}: not the released layout: {header[:3]} "
+                             f"... {header[-1]}, rows {list(rows)}")
+    if not all(len(v) == len(header) - 1 and all(map(math.isfinite, v))
+               for v in rows.values()):
+        raise AssertionError(f"{path}: a missing or non-finite cell")
+    log(f"  results.csv: {len(header) - 1} columns {header[1]} .. "
+        f"{header[-1]}, rows {list(rows)}, every cell finite; AUC '8 avg' "
+        f"{rows['AUC'][-4]:.2f}")
+
+
+def supervised_cfg(tag: str, finetune: str, amp: bool, batch: int):
+    """An eval stage's config at the run.sh recipe: resnet50, 224x224, v4 /
+    512, 1 head, ff 128, dropout 0.1, lr 1e-3, one epoch."""
+    from sm3x_torch.core.config import EvalConfig
+
+    cfg = EvalConfig()
+    m, o, r = cfg.model, cfg.optim, cfg.run
+    m.arch, m.finetune, m.mlc_proj, m.mlc_proj_dim = ("resnet50", finetune,
+                                                      "v4", 512)
+    m.num_heads, m.sa_dim_ff, m.sa_dropout = 1, 128, 0.1
+    o.batch_size, o.base_lr, o.amp, o.epochs = batch, 1e-3, amp, 1
+    cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
+    cfg.train_sz = cfg.test_sz = 224
+    r.device, r.print_freq = "cuda", 10 ** 6
+    r.log_path = os.path.join(LOGS, tag)
+    shutil.rmtree(r.log_path, ignore_errors=True)
+    os.makedirs(r.log_path)
+    return cfg
+
+
+def supervised_fit(tag: str, trainer, records, train, test) -> dict:
+    """One epoch through `fit` and `write_results`, with every kernel count
+    set to 0 just before and read just after: K1 twice a train step, all
+    band, and never in an eval step; no other kernel; best_eval.pth written
+    once, after the loop; results.csv in the released layout."""
+    from sm3x_torch.ops import augment_cuda as K
+
+    cfg = trainer.cfg
+    steps = train.steps_per_epoch(cfg.optim.batch_size)
+    eval_batches = test.steps_per_epoch(cfg.optim.batch_size)
+    in_train, in_eval = [], []
+    trainer.train_step = count_k1(trainer.train_step, in_train)
+    trainer.eval_step = count_k1(trainer.eval_step, in_eval)
+    counters, _ = kernel_counters()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = trainer.fit(train, test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    k1_variants = dict(K.photometric_cuda.variants)
+    csv_path = os.path.join(cfg.run.log_path, "results.csv")
+    trainer.write_results(test, csv_path)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  one epoch via fit ({steps} train steps, then {eval_batches} eval "
+        f"batches) in {wall:.2f} s; best val AUC_AVG {best:.4f}")
+    log(f"  kernel launches in fit: {launches}; K1 by kernel {k1_variants}; "
+        f"K1 a train step {in_train}, K1 an eval step {in_eval}")
+    want = {fn.__name__: SUPERVISED_PER_STEP.get(fn.__name__, 0) * steps
+            for fn in counters}
+    if launches != want or in_train != [2] * steps \
+            or in_eval != [0] * (2 * eval_batches):  # fit's pass and the CSV's
+        raise AssertionError(f"launch counts {launches} (train {in_train}, "
+                             f"eval {in_eval}), expected {want}")
+    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
+        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
+    said = [msg for _, msg in records]
+    epoch_line = [i for i, msg in enumerate(said) if msg.startswith("Epoch 0:")]
+    wrote = [i for i, msg in enumerate(said)
+             if msg.startswith("wrote ") and "best_eval.pth" in msg]
+    m = epoch_line and __import__("re").search(r"train loss (\S+),",
+                                               said[epoch_line[0]])
+    if not m or not math.isfinite(float(m.group(1))):
+        raise AssertionError(f"no finite train loss in {said[-3:]}")
+    if len(wrote) != 1 or wrote[0] < epoch_line[-1] or not os.path.exists(
+            os.path.join(cfg.run.log_path, "best_eval.pth")):
+        raise AssertionError("best_eval.pth must be written once, after the "
+                             "epoch loop")
+    log(f"  {said[epoch_line[0]]}")
+    log(f"  best_eval.pth written once, after the loop: {said[wrote[0]]}")
+    check_results_csv(csv_path)
+    log(f"  peak device memory in fit and the CSV's pass: "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    return launches
+
+
+def supervised_times(trainer, train, test, profile_dir, profile_name) -> None:
+    """Step ms over 8 more train steps (median, minimum; canvases uploaded
+    before the clock), the eval pass's ms a batch, and the device's busy ms
+    and launches a step under torch.profiler."""
+    from sm3x_torch.train.supervised import upload_batch
+
+    cfg = trainer.cfg
+    batch = cfg.optim.batch_size
+
+    def device_batches(data, epoch, shuffle=True):
+        return [upload_batch(b, "cuda") + (
+            torch.from_numpy(b.label).cuda().long(),)
+            for b in data.batches(batch, epoch, cfg.run.seed, shuffle)]
+
+    train_batches = device_batches(train, 1)
+    times = timed_steps([
+        lambda it=it, args=args: trainer.train_step(*args, 1000 + it)[0]
+        for it, args in enumerate(train_batches)])
+    step_s = statistics.median(times)
+    log(f"  step time: median {step_s * 1e3:.1f} ms over {len(times)} steps, "
+        f"min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f} (host "
+        f"clock, synchronised; canvases uploaded before the clock); "
+        f"{2 * batch / step_s:.1f} images/s (2 x batch per step)")
+    eval_batches = device_batches(test, 0, shuffle=False)
+    for args in eval_batches:  # warm-up
+        trainer.eval_step(*args[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args in eval_batches:
+        trainer.eval_step(*args[:4])
+    torch.cuda.synchronize()
+    log(f"  eval pass: {(time.perf_counter() - t0) / len(eval_batches) * 1e3:.1f}"
+        f" ms a batch of {batch} over {len(eval_batches)} batches (host "
+        f"clock, one synchronise at the end)")
+    profiled = train_batches[:3]
+    step = lambda it: trainer.train_step(*profiled[it], 2000 + it)
+    if profile_dir:
+        profile_steps(step, len(profiled), profile_dir, profile_name)
+    else:
+        res = profile_device(step, len(profiled))
+        log(f"  device busy {res['busy_ms']:.1f} ms a step of "
+            f"{res['wall_ms']:.1f} ms on the host clock "
+            f"({100 * res['busy_ms'] / res['wall_ms']:.1f}% busy), "
+            f"{res['launches']:.0f} kernels and copies a step "
+            f"(torch.profiler, {len(profiled)} steps)")
+
+
+def snapshot(module) -> dict:
+    return {k: v.clone() for k, v in module.state_dict().items()}
+
+
+def phase_eval(profile_dir=None):
+    """stage2_eval at the run.sh recipe, from [stage2]'s ckp_1.pth, float32
+    with TF32 off. Returns the kernel launches of the epoch and, for
+    [infer], the path of best_eval.pth with test canvases and the trainer's
+    eval-step logits on them, taken while its weights are still the ones
+    it wrote."""
+    from sm3x_torch.core import prng
+    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.ops.augment import FINETUNE_AUG
+    from sm3x_torch.train import supervised
+    from sm3x_torch.train.mlc_eval import MLCEvalTrainer
+    from sm3x_torch.train.mlc_train import augment_pair
+    from sm3x_torch.utils.checkpoint import load_pretrained_state
+    import dataclasses
+
+    cfg = supervised_cfg("eval", "projector", False, EVAL_BATCH)
+    train = SyntheticPairedData(EVAL_TRAIN_CASES, canvas=320, seed=2)
+    test = SyntheticPairedData(EVAL_TEST_CASES, canvas=320, seed=3)
+    state = load_pretrained_state(os.path.join(LOGS, "stage2", "ckp_1.pth"))
+    logger, records = capture_logger("chip_smoke.eval")
+    trainer = MLCEvalTrainer(cfg, logger=logger, pretrained_state=state)
+    log(f"[eval] stage2_eval: resnet50 frozen, --finetune projector, v4 / "
+        f"512, 1 head, ff 128, dropout 0.1, batch {EVAL_BATCH}, lr 1e-3, "
+        f"float32 (TF32 off), 224x224, {EVAL_TRAIN_CASES} train / "
+        f"{EVAL_TEST_CASES} test cases, from [stage2]'s ckp_1.pth")
+    biases = [f"prototypes.{i}.bias" for i in range(8)]
+    warned = [msg for lvl, msg in records if lvl == "WARNING"]
+    log(f"  keys the checkpoint lacks: {trainer.missing_keys}")
+    if trainer.missing_keys != biases or warned != [
+            f"Missing key in checkpoint: {k}" for k in biases]:
+        raise AssertionError(f"expected only the prototype biases to be "
+                             f"missing, with a warning each: {warned}")
+    if trainer.optimizer.defaults["eps"] != 1e-8:
+        raise AssertionError("the eval stage's AdamW eps is 1e-8")
+    loaded = snapshot(trainer.model.extractor)
+
+    launches = supervised_fit("eval", trainer, records, train, test)
+    after = snapshot(trainer.model.extractor)
+    same = all(torch.equal(after[k], v) for k, v in loaded.items())
+    log(f"  extractor after fit: weights and running statistics "
+        f"bit-identical to the checkpoint {same} ({len(loaded)} tensors)")
+    if not same:
+        raise AssertionError("the frozen extractor changed")
+    canvases = supervised.upload_batch(
+        next(test.batches(64, 0, shuffle=False)), "cuda")
+    reference = dict(
+        path=os.path.join(cfg.run.log_path, "best_eval.pth"),
+        canvases=canvases,
+        logits={n: trainer.eval_step(*(x[:n] for x in canvases))
+                for n in (1, 64)})
+
+    # a train step's predictions against a second forward on the same views:
+    # the same seed gives the same views and the same dropout masks
+    batch = next(train.batches(EVAL_BATCH, 5, cfg.run.seed))
+    args = supervised.upload_batch(batch, "cuda")
+    labels = torch.from_numpy(batch.label).cuda().long()
+    seed = prng.step_seed(cfg.run.seed, 5, 0)
+    aug = dataclasses.replace(FINETUNE_AUG, out_size=(224, 224))
+    d, c = augment_pair(seed, *args, MEAN, STD, aug, False)
+    with torch.no_grad():
+        second = trainer.model(
+            d, c, extractor_train=False, head_train=True,
+            generator=prng.generator(prng.fold_in(seed, 2), "cuda"))[1]
+    loss, preds = trainer.train_step(*args, labels, seed)
+    for i, (got, want) in enumerate(zip(preds, second)):
+        check_close(f"train step's predictions, label {i}", got, want,
+                    rtol=1e-5, atol=1e-6)
+    if not math.isfinite(float(loss)):
+        raise AssertionError("non-finite loss")
+    supervised_times(trainer, train, test, profile_dir, "profile_eval.txt")
+
+    # --finetune all at batch 64, two steps: the stem stays as it was, its
+    # batch norm still moves its running statistics, layer1-4 train
+    cfg_all = supervised_cfg("eval_all", "all", False, 64)
+    logger_all, _ = capture_logger("chip_smoke.eval_all")
+    all_trainer = MLCEvalTrainer(cfg_all, logger=logger_all,
+                                 pretrained_state=state)
+    before = snapshot(all_trainer.model.extractor)
+    torch.cuda.reset_peak_memory_stats()
+    stats = supervised.run_train_epoch(
+        all_trainer, SyntheticPairedData(128, canvas=320, seed=4), 0)
+    peak = torch.cuda.max_memory_allocated()
+    now = all_trainer.model.extractor.state_dict()
+    stem = lambda k: ".encoder.conv1." in k or ".encoder.bn1." in k
+    weight = lambda k: "running" not in k and "num_batches" not in k
+    stem_same = all(torch.equal(now[k], v) for k, v in before.items()
+                    if stem(k) and weight(k))
+    stem_stats = [not torch.equal(now[k], v) for k, v in before.items()
+                  if stem(k) and "running" in k]
+    layers = [not torch.equal(now[k], v) for k, v in before.items()
+              if ".encoder.layer" in k and weight(k)]
+    log(f"  --finetune all, batch 64, 2 steps: loss {stats['loss']:.4f}; "
+        f"stem weights bit-identical {stem_same}; stem running statistics "
+        f"moved {sum(stem_stats)} of {len(stem_stats)}; layer1-4 tensors "
+        f"moved {sum(layers)} of {len(layers)}; peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    if not (math.isfinite(stats["loss"]) and stem_same and all(stem_stats)
+            and all(layers)):
+        raise AssertionError("--finetune all: the stem must stay frozen with "
+                             "moving statistics, and layer1-4 must train")
+    del all_trainer, trainer
+    torch.cuda.empty_cache()
+    return launches, reference
+
+
+def phase_probe(profile_dir=None) -> dict:
+    """stage1_eval at the run.sh recipe, from [main]'s ckp_0.pth: --finetune
+    fc under bf16 autocast."""
+    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.train.backbone_eval import BackboneEvalTrainer
+    from sm3x_torch.utils.checkpoint import load_encoder_state
+
+    cfg = supervised_cfg("probe", "fc", True, EVAL_BATCH)
+    train = SyntheticPairedData(EVAL_TRAIN_CASES, canvas=320, seed=2)
+    test = SyntheticPairedData(EVAL_TEST_CASES, canvas=320, seed=3)
+    encoders = load_encoder_state(os.path.join(LOGS, "main", "ckp_0.pth"))
+    logger, records = capture_logger("chip_smoke.probe")
+    trainer = BackboneEvalTrainer(cfg, logger=logger, encoder_state=encoders)
+    log(f"[probe] stage1_eval: two resnet50 frozen under 8 linear heads, "
+        f"--finetune fc, batch {EVAL_BATCH}, lr 1e-3, bf16 autocast, "
+        f"224x224, from [main]'s ckp_0.pth")
+    backbones = lambda: {k: v.clone()
+                         for k, v in trainer.model.state_dict().items()
+                         if not k.startswith("classifier.")}
+    loaded = backbones()
+    if len(loaded) != len(encoders) or not all(
+            torch.equal(loaded[k.replace(".encoder.", ".")], v.cuda())
+            for k, v in encoders.items()):
+        raise AssertionError("the backbones are not the checkpoint's")
+    heads = snapshot(trainer.model.classifier)
+    launches = supervised_fit("probe", trainer, records, train, test)
+    after = backbones()
+    same = all(torch.equal(after[k], v) for k, v in loaded.items())
+    moved = sum(not torch.equal(v, heads[k])
+                for k, v in trainer.model.classifier.state_dict().items())
+    log(f"  backbones after fit: weights and running statistics "
+        f"bit-identical to the checkpoint {same} ({len(loaded)} tensors); "
+        f"head tensors moved {moved} of {len(heads)}")
+    if not same or moved != len(heads):
+        raise AssertionError("--finetune fc must train the heads alone")
+    supervised_times(trainer, train, test, profile_dir, "profile_probe.txt")
+    return launches
+
+
+def phase_infer(reference: dict) -> None:
+    """The inference API on [eval]'s best_eval.pth, float32 with TF32 off:
+    against the trainer's eval step on the same images (`reference`, from
+    [eval]) and the same forward on the CPU, at batch 1 and 64; latency a
+    call."""
+    from sm3x_torch import api
+    from sm3x_torch.ops.augment import eval_resize_batch
+
+    path, args = reference["path"], reference["canvases"]
+    model = api.load_weights(api.build_evaluator(), path, "cuda")
+    cpu_model = api.load_weights(api.build_evaluator(), path, "cpu")
+    predict, predict_cpu = api.predict_fn(model), api.predict_fn(cpu_model)
+    counters, _ = kernel_counters()
+    reset_counters()
+    log("[infer] sm3x_torch.api on [eval]'s best_eval.pth: build_evaluator, "
+        "load_weights, predict_fn; float32 (TF32 off), NHWC float batches")
+    for n in (1, 64):
+        # the images the eval step makes of these canvases
+        d = eval_resize_batch(args[0][:n], args[1][:n], MEAN, STD, (224, 224))
+        c = eval_resize_batch(args[2][:n], args[3][:n], MEAN, STD, (224, 224))
+        got, want = predict(d, c), reference["logits"][n]
+        t0 = time.perf_counter()
+        on_cpu = predict_cpu(d.cpu().numpy(), c.cpu().numpy())
+        cpu_s = time.perf_counter() - t0
+        if len(got) != 8 or got[0].shape != (n, 5) or got[0].requires_grad:
+            raise AssertionError("predict_fn: eight logit tensors expected")
+        for i in range(8):
+            check_close(f"batch {n}, label {i}, against the eval step",
+                        got[i], want[i], rtol=1e-5, atol=1e-5)
+            check_close(f"batch {n}, label {i}, against the CPU",
+                        got[i], on_cpu[i], rtol=1e-3, atol=1e-4)
+        call = lambda: predict(d, c)
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        log(f"  batch {n}: latency a call {statistics.median(host):.2f} ms "
+            f"on the host clock (median of 10, synchronised; min "
+            f"{min(host):.2f}), {device_ms(call, 20):.2f} ms device time (20 "
+            f"calls in a row); the same forward on the CPU {cpu_s:.2f} s")
+    if any(fn.launches for fn in counters):
+        raise AssertionError("inference launches none of the kernels")
+    log("  kernel launches at inference: none (no view is made)")
+
+
 def phase_copy() -> dict:
     """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
     import importlib.util
@@ -918,8 +1373,8 @@ def phase_copy() -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="also profile three steps of the main, stage2 and "
-                   "vit phases and write the tables to DIR")
+                   help="also write the device-time tables of three steps "
+                   "of the main, stage2, eval, probe and vit phases to DIR")
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
@@ -931,6 +1386,11 @@ def main(argv=None) -> int:
     phase_step()
     launches = phase_main(args.profile)
     stage2_launches = phase_stage2(args.profile)
+    eval_launches, eval_reference = phase_eval(args.profile)
+    probe_launches = phase_probe(args.profile)
+    phase_infer(eval_reference)
+    del eval_reference
+    torch.cuda.empty_cache()
     vit_launches = phase_vit(args.profile)
     copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
@@ -965,9 +1425,14 @@ def main(argv=None) -> int:
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=counts[counter],
                  launches_stage2=stage2_launches[counter],
-                 launches_per_step={"main": MAIN_PER_STEP.get(counter, 0),
-                                    "vit": VIT_PER_STEP.get(counter, 0),
-                                    "stage2": STAGE2_PER_STEP.get(counter, 0)},
+                 launches_eval=eval_launches[counter],
+                 launches_probe=probe_launches[counter],
+                 launches_per_step={
+                     "main": MAIN_PER_STEP.get(counter, 0),
+                     "vit": VIT_PER_STEP.get(counter, 0),
+                     "stage2": STAGE2_PER_STEP.get(counter, 0),
+                     "eval": SUPERVISED_PER_STEP.get(counter, 0),
+                     "probe": SUPERVISED_PER_STEP.get(counter, 0)},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))

@@ -1,20 +1,20 @@
-"""Argparse surface of the port's stages 1 and 2 (counterpart of
-sm3x/cli/parser.py `get_parser`, `ssl_config` and `mlc_train_config`, with
-the flags that sm3x/cli/apps.py `backbone_train_main` and `mlc_train_main`
-add).
+"""Argparse surface of the port's four stages (counterpart of
+sm3x/cli/parser.py `get_parser`, `ssl_config`, `mlc_train_config` and
+`eval_config`, with the flags that each app of sm3x/cli/apps.py adds).
 
 The flags and defaults are the JAX package's, plus `--device` (default
 `cuda`). Values the port does not support yet are refused by the trainer
-(`unsupported` in `sm3x_torch.train.backbone_train` and `mlc_train`) and by
-the app, never silently ignored.
+(`unsupported` in `sm3x_torch.train.backbone_train`, `mlc_train` and
+`supervised`) and by the app, never silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from sm3x_torch.core.config import (DataConfig, MLCTrainConfig, ModelConfig,
-                                    OptimConfig, RunConfig, SSLConfig)
+from sm3x_torch.core.config import (DataConfig, EvalConfig, MLCTrainConfig,
+                                    ModelConfig, OptimConfig, RunConfig,
+                                    SSLConfig)
 
 
 def get_parser(desc: str = "sm3x_torch SimCLR skin SSL training"):
@@ -125,7 +125,11 @@ def add_ssl_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--negatives", choices=("local", "global"),
                    default="local")
     p.add_argument("--bn-stat-freq", type=int, default=1)
-    p.add_argument("--linear-probe", action="store_true")
+    p.add_argument("--linear-probe", action="store_true",
+                   help="run the in-tool linear probe after training")
+    p.add_argument("--probe-epochs", type=int, default=50,
+                   help="epochs of the in-tool linear probe (the port's "
+                   "flag; the reference fixes 50)")
     return p
 
 
@@ -146,6 +150,35 @@ def add_mlc_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.1)
     p.add_argument("--l2-norm", action="store_true")
     p.add_argument("--finetune-backbone", action="store_true")
+    return p
+
+
+def add_mlc_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags of the JAX package's mlc_eval app, with its defaults
+    (run.sh sets --mlc-proj-dim 512 and --sa-dim-ff 128)."""
+    p.add_argument("--mlc-proj", type=str, default="v4")
+    p.add_argument("--mlc-proj-dim", type=int, default=256)
+    p.add_argument("--num-heads", type=int, default=1)
+    p.add_argument("--sa-dim-ff", type=int, default=256)
+    p.add_argument("--sa-dropout", type=float, default=0.1)
+    p.add_argument("--arch-weights", type=str, default=None)
+    p.add_argument("--extractor-proj-dim", type=int, default=128)
+    p.add_argument("--num-labels", type=int, default=8)
+    p.add_argument("--label-weights", nargs="*", type=float,
+                   default=[1.0] * 8)
+    p.add_argument("--l2-norm", action="store_true")
+    p.add_argument("--init-prototype", action="store_true")
+    p.add_argument("--train-sz", type=int, default=224)
+    p.add_argument("--test-sz", type=int, default=224)
+    return p
+
+
+def add_backbone_eval_args(p: argparse.ArgumentParser
+                           ) -> argparse.ArgumentParser:
+    """The flags of the JAX package's backbone_eval app."""
+    p.add_argument("--num-labels", type=int, default=8)
+    p.add_argument("--label-weights", nargs="*", type=float,
+                   default=[1.0] * 8)
     return p
 
 
@@ -213,3 +246,26 @@ def mlc_train_config(args) -> MLCTrainConfig:
         use_pallas_augment=args.use_pallas_augment)
     return MLCTrainConfig(data=data, model=model, optim=optim, run=run,
                           extractor_weights=args.extractor_weights)
+
+
+def eval_config(args, train_sz=None, test_sz=None) -> EvalConfig:
+    """Both eval apps; flags that only mlc_eval's parser has keep the
+    run.sh recipe's values for backbone_eval."""
+    data, optim, run = base_configs(args)
+    model = ModelConfig(
+        arch=args.arch, finetune=args.finetune,
+        arch_weights=getattr(args, "arch_weights", None),
+        num_labels=getattr(args, "num_labels", 8),
+        extractor_proj_dim=getattr(args, "extractor_proj_dim", 128),
+        mlc_proj=getattr(args, "mlc_proj", "v4"),
+        mlc_proj_dim=getattr(args, "mlc_proj_dim", 512),
+        num_heads=getattr(args, "num_heads", 1),
+        sa_dim_ff=getattr(args, "sa_dim_ff", 128),
+        sa_dropout=getattr(args, "sa_dropout", 0.1),
+        l2_norm=getattr(args, "l2_norm", False),
+        init_prototype=getattr(args, "init_prototype", False),
+        use_pallas_augment=args.use_pallas_augment)
+    return EvalConfig(
+        data=data, model=model, optim=optim, run=run,
+        train_sz=train_sz or getattr(args, "train_sz", 224),
+        test_sz=test_sz or getattr(args, "test_sz", 224))

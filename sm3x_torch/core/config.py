@@ -1,8 +1,6 @@
-"""Configuration dataclasses of stages 1 and 2 (the SSL and MLC-train
-subset of sm3x/core/config.py, with the same class and field names).
-
-Fields of the JAX package that only later stages read (the eval policies)
-come with the slices that port those stages.
+"""Configuration dataclasses of the four stages (counterpart of
+sm3x/core/config.py, with the same class and field names, plus
+`RunConfig.device`).
 """
 
 from __future__ import annotations
@@ -42,6 +40,7 @@ class ModelConfig:
     proj_dim: int = 128
     temperature: float = 0.1
     use_checkpoint: Union[bool, str] = False
+    finetune: str = "fc"               # the eval stages: fc | projector | all
     # the MLC head of stage 2
     num_labels: int = 8
     extractor_proj_dim: int = 128
@@ -51,6 +50,7 @@ class ModelConfig:
     sa_dim_ff: int = 128
     sa_dropout: float = 0.1
     l2_norm: bool = False
+    init_prototype: bool = False
     finetune_backbone: bool = False
     num_classes: Tuple[int, ...] = tuple(NUM_CLASSES)
     use_pallas_ntxent: bool = False
@@ -132,6 +132,19 @@ class MLCTrainConfig:
     run: RunConfig = dataclasses.field(default_factory=RunConfig)
     extractor_weights: Optional[str] = None
     kmeans_iters: int = 10
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    """Supervised eval / finetune (run.sh stage1_eval and stage2_eval)."""
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    optim: OptimConfig = dataclasses.field(
+        default_factory=lambda: OptimConfig(epochs=100, batch_size=128,
+                                            base_lr=1e-3))
+    run: RunConfig = dataclasses.field(default_factory=RunConfig)
+    train_sz: int = 224
+    test_sz: int = 224
 
 
 def asdict_flat(cfg) -> dict:

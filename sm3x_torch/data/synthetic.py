@@ -3,25 +3,20 @@ sm3x/data/synthetic.py `synthetic_canvas_batch`, made with numpy alone).
 
 `synthetic_canvas_batch` draws the same canvases, valid sizes and labels as
 the JAX package's function for the same arguments. `SyntheticPairedData`
-pairs two such draws (derm from `seed`, clinic from `seed + 1`) behind the
-interface the trainers read from a dataset (`n`, `steps_per_epoch`,
-`batches`; sm3x/data/pipeline.py:171-190).
+pairs two such draws (derm from `seed`, clinic from `seed + 1`; the labels
+are the derm draw's) behind the interface the trainers read from a dataset
+(`n`, `steps_per_epoch`, `batches`; sm3x_torch/data/pipeline.py): batches
+of a fixed size with labels, the last one padded by wrapping and masked,
+in a per-epoch permutation or, with `shuffle=False`, in order.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
+from sm3x_torch.data.pipeline import Batch, iter_batch_selections
 
-@dataclasses.dataclass
-class PairedBatch:
-    derm: np.ndarray        # (B, S, S, 3) uint8
-    derm_hw: np.ndarray     # (B, 2) int32
-    clinic: np.ndarray
-    clinic_hw: np.ndarray
-    index: np.ndarray       # (B,) int32: the cases' positions in the data
+PairedBatch = Batch  # the batches' type, under its first name
 
 
 def synthetic_canvas_batch(batch_size: int, canvas: int = 320, seed: int = 0):
@@ -41,18 +36,27 @@ def synthetic_canvas_batch(batch_size: int, canvas: int = 320, seed: int = 0):
 class SyntheticPairedData:
     def __init__(self, n: int, canvas: int = 320, seed: int = 0):
         self.n = n
-        self.derm, self.derm_hw, _ = synthetic_canvas_batch(n, canvas, seed)
+        self.derm, self.derm_hw, self.labels = synthetic_canvas_batch(
+            n, canvas, seed)
         self.clinic, self.clinic_hw, _ = synthetic_canvas_batch(
             n, canvas, seed + 1)
 
     def steps_per_epoch(self, batch_size: int) -> int:
-        return self.n // batch_size
+        return (self.n + batch_size - 1) // batch_size
 
-    def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407):
-        """Full batches of a per-epoch permutation."""
-        order = np.random.default_rng(seed + epoch).permutation(self.n)
-        for k in range(self.steps_per_epoch(batch_size)):
-            sel = order[k * batch_size:(k + 1) * batch_size]
-            yield PairedBatch(self.derm[sel], self.derm_hw[sel],
-                              self.clinic[sel], self.clinic_hw[sel],
-                              sel.astype(np.int32))
+    def epoch_order(self, epoch: int, seed: int = 3407,
+                    shuffle: bool = True) -> np.ndarray:
+        if not shuffle:
+            return np.arange(self.n)
+        return np.random.default_rng(seed + epoch).permutation(self.n)
+
+    def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
+                shuffle: bool = True):
+        """Fixed-size batches of the epoch's order; see
+        `iter_batch_selections` for the padding of the last one."""
+        order = self.epoch_order(epoch, seed, shuffle)
+        for sel, mask in iter_batch_selections(order, batch_size):
+            yield Batch(derm=self.derm[sel], derm_hw=self.derm_hw[sel],
+                        clinic=self.clinic[sel], clinic_hw=self.clinic_hw[sel],
+                        label=self.labels[sel], index=sel.astype(np.int32),
+                        mask=mask)

@@ -240,6 +240,14 @@ def ssl_augment_batch(gen: torch.Generator, canvases: torch.Tensor,
     return ssl_augment_batch_fused(gen, canvases, valid_hw, mean, std, cfg)
 
 
+def supervised_augment_batch(gen: torch.Generator, canvases: torch.Tensor,
+                             valid_hw: torch.Tensor, mean, std,
+                             cfg: AugConfig = FINETUNE_AUG) -> torch.Tensor:
+    """A supervised train view per canvas: the same pipeline under the
+    finetune preset (crop, flip and normalise; K1 on CUDA tensors)."""
+    return ssl_augment_batch(gen, canvases, valid_hw, mean, std, cfg)
+
+
 def modality_keys(kd: int, kc: int, joint_aug: bool = False):
     """Per-modality augmentation seeds (k_derm, k_clinic). joint_aug=True
     (SevenPCBaseDataset2) hands both modalities the derm seed, so the pair

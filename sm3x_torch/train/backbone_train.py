@@ -28,6 +28,7 @@ from sm3x_torch.models.simclr import build_ssl_model
 from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
                                     ssl_augment_batch)
 from sm3x_torch.train import common
+from sm3x_torch.utils.logging import StatWriter
 from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 
 DATASETS = ("SevenPCBaseDataset", "SevenPCBaseDataset2")
@@ -47,13 +48,11 @@ def unsupported(cfg) -> list:
          f"(measured harmful to feature quality, BENCH.md r4)"),
         (bool(m.arch_weights), f"--arch-weights {later}"),
         (o.use_lr_schedule, f"--use-lr-schedule {later}"),
-        (bool(r.resume_path), f"--resume-path {later}"),
         (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
          f"a device mesh (--mesh-data/--mesh-model) {later}; the port's "
          f"stage 1 runs on one device (--world-size only groups negatives)"),
         (r.ckpt_backend != "msgpack", f"--ckpt-backend {r.ckpt_backend} "
          f"{later}"),
-        (r.tensorboard or r.wandb, f"--tensorboard/--wandb {later}"),
         (r.save_on_preempt, f"--save-on-preempt {later}"),
         (not d.cache_images, f"--no-cache-images (streaming) {later}"),
         (d.device_feed not in ("auto", "host"),
@@ -134,6 +133,9 @@ class SSLTrainer(common.CheckpointableTrainer):
         self.device = torch.device(cfg.run.device)
         self.logger = logger or setup_logger(cfg.run.log_path,
                                              "sm3x_torch.ssl")
+        self.writer = StatWriter(cfg.run.log_path, cfg.run.tensorboard,
+                                 cfg.run.wandb, cfg.run.proj_name,
+                                 logger=self.logger)
         m = cfg.model
         self.remat = resolve_remat(m.use_checkpoint, m.arch, self.logger)
         # initialise from the seed on the CPU, whatever the device
@@ -190,16 +192,17 @@ class SSLTrainer(common.CheckpointableTrainer):
         return {"loss": losses.avg, "step_losses": step_losses}
 
     def fit(self, data) -> list:
-        """Train `cfg.optim.epochs` epochs; returns each epoch's stats.
-        Rank 0 writes `ckp_{epoch}.pth` every `save_freq` epochs and at the
+        """Train up to `cfg.optim.epochs` epochs, from `start_epoch` (0
+        unless resumed); returns each epoch's stats. Rank 0 writes `ckp_{epoch}.pth` every `save_freq` epochs and at the
         end, and `checkpoint.pth` every `ckpt_freq` epochs."""
         cfg = self.cfg
         history = []
-        for epoch in range(cfg.optim.epochs):
+        for epoch in range(self.start_epoch, cfg.optim.epochs):
             t0 = time.time()
             stat = self.train_epoch(data, epoch)
             history.append(stat)
             self.guard_loss(epoch, stat["loss"])
+            self.writer.log({"loss": stat["loss"]}, epoch, "train/")
             self.logger.info(f"Epoch {epoch}: loss {stat['loss']:.4f} "
                              f"({(time.time() - t0) / 60:.2f} min)")
             self.epoch_checkpoint(epoch)

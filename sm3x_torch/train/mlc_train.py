@@ -38,7 +38,11 @@ from sm3x_torch.ops.augment import (MLC_TRAIN_AUG, modality_keys,
                                     modality_valid_hw, ssl_augment_batch)
 from sm3x_torch.ops.kmeans import spherical_kmeans
 from sm3x_torch.train import common
+from sm3x_torch.utils.logging import StatWriter
 from sm3x_torch.train.backbone_train import DATASETS
+# a stage-1 file's two encoders; kept importable under its first name
+from sm3x_torch.utils.checkpoint import (  # noqa: F401
+    load_encoder_state as load_extractor_state)
 from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 
 INIT_STREAM, KMEANS_STREAM = 999, 1000
@@ -55,13 +59,11 @@ def unsupported(cfg) -> list:
          f"{' or '.join(DATASETS)}"),
         (o.use_lr_schedule, f"--use-lr-schedule {later}; stage 2 trains at "
          f"a constant lr"),
-        (bool(r.resume_path), f"--resume-path {later}"),
         (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
          f"a device mesh (--mesh-data/--mesh-model) {later}; the port's "
          f"stage 2 runs on one device"),
         (r.ckpt_backend != "msgpack", f"--ckpt-backend {r.ckpt_backend} "
          f"{later}"),
-        (r.tensorboard or r.wandb, f"--tensorboard/--wandb {later}"),
         (r.save_on_preempt, f"--save-on-preempt {later}"),
         (not d.cache_images, f"--no-cache-images (streaming) {later}"),
         (d.device_feed not in ("auto", "host"),
@@ -165,16 +167,6 @@ def cluster_and_update(seed: int, bank: torch.Tensor, model,
     return torch.stack(assignments)
 
 
-def load_extractor_state(path: str) -> dict:
-    """The two encoders of a stage-1 `ckp_*.pth` of the port, keyed as
-    `DualExtractor` names them (`{mod}.encoder.*`); the projectors of the
-    SSL model are dropped."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    state = state.get("state_dict", state)
-    mods = ("derm_backbone.encoder.", "clinic_backbone.encoder.")
-    return {k: v for k, v in state.items() if k.startswith(mods)}
-
-
 class MLCTrainer(common.CheckpointableTrainer):
     """Owns the model, the optimizer, the memory bank and the DeepCluster
     loop on one device; its checkpoints have `export_mlc_model`'s key
@@ -188,6 +180,9 @@ class MLCTrainer(common.CheckpointableTrainer):
         self.device = torch.device(cfg.run.device)
         self.logger = logger or setup_logger(cfg.run.log_path,
                                              "sm3x_torch.mlc")
+        self.writer = StatWriter(cfg.run.log_path, cfg.run.tensorboard,
+                                 cfg.run.wandb, cfg.run.proj_name,
+                                 logger=self.logger)
         m = cfg.model
         # initialise from the seed on the CPU, whatever the device
         with torch.random.fork_rng(devices=[]):
@@ -219,6 +214,16 @@ class MLCTrainer(common.CheckpointableTrainer):
                                           joint_aug)
         self.bank = None
         self.assignments = None
+
+    def extra_state(self) -> dict:
+        """The memory bank goes into every checkpoint, so a resumed run
+        clusters from the rows the run before it left and skips the init
+        pass."""
+        return {} if self.bank is None else {"bank": self.bank.cpu()}
+
+    def restore_extra_state(self, ckpt: dict) -> None:
+        if "bank" in ckpt:
+            self.bank = ckpt["bank"].to(self.device)
 
     def _upload(self, x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -276,19 +281,21 @@ class MLCTrainer(common.CheckpointableTrainer):
         return {"loss": losses.avg, "step_losses": step_losses}
 
     def fit(self, data) -> list:
-        """Fill the bank if it is empty, then train `cfg.optim.epochs`
-        epochs; returns each epoch's stats. Rank 0 writes `ckp_{epoch}.pth`
+        """Fill the bank if it is empty (a resumed run brings its own),
+        then train up to `cfg.optim.epochs` epochs from `start_epoch`;
+        returns each epoch's stats. Rank 0 writes `ckp_{epoch}.pth`
         every `save_freq` epochs and at the end, and `checkpoint.pth` every
         `ckpt_freq` epochs."""
         cfg = self.cfg
         if self.bank is None:
             self.init_memory(data)
         history = []
-        for epoch in range(cfg.optim.epochs):
+        for epoch in range(self.start_epoch, cfg.optim.epochs):
             t0 = time.time()
             stat = self.train_epoch(data, epoch)
             history.append(stat)
             self.guard_loss(epoch, stat["loss"])
+            self.writer.log({"loss": stat["loss"]}, epoch, "train/")
             self.logger.info(f"Epoch {epoch}: loss {stat['loss']:.4f} "
                              f"({(time.time() - t0) / 60:.2f} min)")
             self.epoch_checkpoint(epoch)

@@ -1,6 +1,7 @@
-"""Run-directory, meter and logger helpers of the stage-1 CLI (counterpart
-of the parts of sm3x/utils/misc.py and sm3x/utils/logging.py it uses;
-that package's `sm3x.utils` imports the JAX checkpoint code)."""
+"""Run-directory, meter and logger helpers of the CLIs (counterpart of
+sm3x/utils/misc.py and of `setup_logger` in sm3x/utils/logging.py; that
+package's `sm3x.utils` imports the JAX checkpoint code). The stat writer
+and the summary table are in `sm3x_torch.utils.logging`."""
 
 from __future__ import annotations
 
@@ -83,6 +84,36 @@ class ProgressMeter:
         entries = [self.prefix + self.batch_fmtstr.format(batch)]
         entries += [str(m) for m in self.meters]
         return "\t".join(entries)
+
+
+class BestRecorder:
+    """The best value seen so far of a metric that should fall ("min") or
+    rise ("max")."""
+
+    def __init__(self, mode: str, best=None):
+        if mode not in ("min", "max"):
+            raise ValueError(f"invalid mode {mode!r}")
+        self.mode = mode
+        if best is None:
+            best = sys.maxsize if mode == "min" else -sys.maxsize
+        self.best = best
+
+    def update(self, val):
+        """Returns (best, improved)."""
+        pick = min if self.mode == "min" else max
+        improved = val < self.best if self.mode == "min" else val > self.best
+        self.best = pick(val, self.best)
+        return self.best, improved
+
+    def val(self):
+        return self.best
+
+
+def create_eval_stat(prefix: str, metrics_name, classes_name,
+                     mode: str) -> dict:
+    """{"<prefix>/<metric>_<class>": mode}, the classes and AVG."""
+    return {f"{prefix}/{m}_{c}": mode for m in metrics_name
+            for c in list(classes_name) + ["AVG"]}
 
 
 class _ElapsedFormatter(logging.Formatter):

@@ -12,7 +12,9 @@ The ViTs have no counterpart in `torch_export`; their layout is the port's
 own, named after the Flax tree (`vit_state_dict`).
 
 `mlc_state_dict` does the same for the stage-2 model, in the layout of
-`export_mlc_model`, which strict-loads into `sm3x_torch.models.mlc.MLCModel`.
+`export_mlc_model`, which strict-loads into `sm3x_torch.models.mlc.MLCModel`,
+and `baseline_state_dict` for `sm3x_torch.models.baseline.Baseline` and
+`SingleBaseline` (bare backbones and `classifier.{i}` heads).
 """
 
 from __future__ import annotations
@@ -228,6 +230,29 @@ def mlc_state_dict(params: dict, stats: dict,
         sd[f"{key}.weight"] = _lin_w(leaf["kernel"])
         if "bias" in leaf:
             sd[f"{key}.bias"] = _np(leaf["bias"])
+    return sd
+
+
+def baseline_state_dict(params: dict, stats: dict) -> StateDict:
+    """`Baseline` / `SingleBaseline` with ResNet backbones: each backbone
+    the tree holds, then the heads, linear (`classifier/head{i}`) or MLP
+    (`classifier_{i}` with fc1, an optional bn, fc2)."""
+    sd: StateDict = {}
+    for mod in ("derm_backbone", "clinic_backbone"):
+        if mod in params:
+            sd.update(resnet_state_dict(params[mod], stats[mod], f"{mod}."))
+    if "classifier" in params:
+        for name, leaf in params["classifier"].items():
+            _dense(sd, f"classifier.{int(name[len('head'):])}", leaf)
+        return sd
+    for name, leaf in params.items():
+        if not name.startswith("classifier_"):
+            continue
+        key = f"classifier.{int(name[len('classifier_'):])}"
+        _dense(sd, f"{key}.fc1", leaf["fc1"])
+        _dense(sd, f"{key}.fc2", leaf["fc2"])
+        if "bn" in leaf:
+            _bn(sd, f"{key}.bn", leaf["bn"], stats[name]["bn"])
     return sd
 
 

@@ -66,7 +66,7 @@ LATER = "not in the PyTorch port yet"
     # not to be ported at all: K = 4 hurt the features
     (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
     (["--arch-weights", "w.pth"], LATER),
-    (["--resume-path", "ckp_0.pth"], LATER),
+    (["--save-on-preempt"], LATER),
     (["--use-lr-schedule"], LATER),
     (["--mesh-model", "2"], LATER),
     (["--use-checkpoint"], LATER)])

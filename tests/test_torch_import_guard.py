@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing `sm3x_torch`, every module in
-it, `chip_smoke.py`, `bench_torch.py` and the `tools/*_torch.py` scripts loads nothing of the
-JAX package (`sm3x`, `sm3x.*`) and none of `jax`, `flax`, `optax`. The port
-never calls PyTorch's fused attention either: that call is only the
-yardstick that `chip_smoke.py` times beside K3.
+it, `chip_smoke.py`, `bench_torch.py`, `inference_torch.py` and the
+`tools/*_torch.py` scripts loads nothing of the JAX package (`sm3x`,
+`sm3x.*`) and none of `jax`, `flax`, `optax`. The port never calls PyTorch's
+fused attention either: that call is only the yardstick that
+`chip_smoke.py` times beside K3.
 
 The probe runs in a fresh interpreter, because this test process has
 imported jax already (tests/conftest.py)."""
@@ -21,7 +22,7 @@ _PROBE = textwrap.dedent("""
     import sm3x_torch
     mods = ["sm3x_torch"] + [m.name for m in pkgutil.walk_packages(
         sm3x_torch.__path__, "sm3x_torch.")]
-    mods += ["chip_smoke", "bench_torch"]
+    mods += ["chip_smoke", "bench_torch", "inference_torch"]
     for m in mods:
         importlib.import_module(m)
     for path in sorted(glob.glob(os.path.join("tools", "*_torch.py"))):
@@ -64,7 +65,15 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.losses", "sm3x_torch.train.mlc_train",
               "sm3x_torch.train.common", "sm3x_torch.utils.timing",
               "bench_torch", "tools/mlc_train_torch",
-              "tools/k2b_variants_torch"):
+              "tools/k2b_variants_torch", "sm3x_torch.metrics",
+              "sm3x_torch.models.baseline", "sm3x_torch.models.evaluator",
+              "sm3x_torch.utils.checkpoint", "sm3x_torch.utils.logging",
+              "sm3x_torch.train.supervised", "sm3x_torch.train.mlc_eval",
+              "sm3x_torch.train.backbone_eval",
+              "sm3x_torch.train.linear_probe", "sm3x_torch.api",
+              "sm3x_torch.reproduce", "inference_torch",
+              "tools/mlc_eval_torch", "tools/backbone_eval_torch",
+              "tools/reproduce_results_torch"):
         assert m in res["modules"]
     assert res["loaded"] == [], (
         f"modules of the JAX package or of JAX loaded: {res['loaded']}")
@@ -80,10 +89,45 @@ def test_port_sources_name_no_module_of_the_jax_package():
                        recursive=True)
              + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
              + [os.path.join(ROOT, "chip_smoke.py"),
-                os.path.join(ROOT, "bench_torch.py")])
-    assert len(files) > 30
+                os.path.join(ROOT, "bench_torch.py"),
+                os.path.join(ROOT, "inference_torch.py")])
+    assert len(files) > 45
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []
+
+
+def test_metrics_need_numpy_alone():
+    """`sm3x_torch.metrics` imports neither scipy nor torch: the machine
+    that serves or evaluates may have numpy only."""
+    probe = ("import sys, importlib.util as u; "
+             "spec = u.spec_from_file_location('m', "
+             "'sm3x_torch/metrics/__init__.py'); m = u.module_from_spec(spec); "
+             "sys.modules['sm3x_torch'] = type(sys)('sm3x_torch'); "
+             "sys.modules['sm3x_torch'].__dict__.update("
+             "CLASSES_NAME=['a'], CLS_WEIGHTS=[1], METRICS_NAME=['AUC'], "
+             "NUM_CLASSES=[2]); spec.loader.exec_module(m); "
+             "import numpy as np; "
+             "print(m.binary_auroc_from_scores(np.array([.1, .4, .4, .8]), "
+             "np.array([False, False, True, True]))); "
+             "print(sorted(k for k in sys.modules "
+             "if k.split('.')[0] in ('scipy', 'torch')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["0.875", "[]"]
+
+
+def test_run_torch_sh_names_the_port_s_tools():
+    text = open(os.path.join(ROOT, "run_torch.sh")).read()
+    res = subprocess.run(["bash", "-n", os.path.join(ROOT, "run_torch.sh")],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    tools = set(__import__("re").findall(r"tools/(\w+)\.py", text))
+    assert tools == {"backbone_train_torch", "backbone_eval_torch",
+                     "mlc_train_torch", "mlc_eval_torch"}
+    assert ".msgpack" not in text and "ckp_399.pth" in text
+    for t in tools:
+        assert os.path.exists(os.path.join(ROOT, "tools", t + ".py"))
 
 
 def test_port_never_calls_the_library_attention():

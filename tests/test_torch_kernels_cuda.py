@@ -647,3 +647,85 @@ def test_vit_with_flash_on_card_matches_cpu(card):
     (cpu(x) * proj).sum().backward()
     for p, q in zip(gpu.parameters(), cpu.parameters()):
         _close(p.grad, q.grad, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The supervised stages: K1 under the finetune and probe presets, and a
+# supervised train step on the card against the CPU's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("preset", ["FINETUNE_AUG", "PROBE_AUG"])
+@pytest.mark.parametrize("batch,size", [(128, 224), (5, 37)])
+def test_photometric_at_the_supervised_presets(card, preset, batch, size):
+    """The parameter rows `build_params` draws from the supervised presets
+    gate off jitter, grayscale and blur on every image: flip and normalise
+    are all K1 does, and it does them as its plain version."""
+    cfg = getattr(A, preset)
+    gen = torch.Generator(device=card).manual_seed(3)
+    params = K1.build_params(gen, batch, cfg, card)
+    assert not bool(params[:, [K1.P_DO_JIT, K1.P_DO_GRAY,
+                               K1.P_DO_BLUR]].any())
+    assert 0 < float(params[:, K1.P_DO_FLIP].sum()) < batch
+    images = torch.rand((batch, size, size, 3), device=card,
+                        generator=torch.Generator(device=card).manual_seed(4))
+    before = dict(K1.photometric_cuda.variants)
+    got = K1.photometric_cuda(images, params, MEAN, STD)
+    assert K1.photometric_cuda.variants["band"] == before["band"] + 1
+    _close(got, K1.photometric_plain(images, params, MEAN, STD),
+           rtol=1e-4, atol=1e-5)
+    # what is left of the chain, written out: a flip, then the normalise
+    flipped = torch.where(params[:, K1.P_DO_FLIP, None, None, None] > 0.5,
+                          images.flip(2), images)
+    _close(got, A.normalize_images(flipped, MEAN, STD), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("finetune", ["projector", "all"])
+def test_supervised_train_step_on_card_matches_cpu(card, finetune):
+    """One update of the MLC eval model (resnet18, 64x64, batch 8, dropout
+    0) on the card against the same update on the CPU, from the same
+    weights, labels and views; the views come from K1 on the card."""
+    import dataclasses
+
+    from sm3x_torch.models.mlc import MLCModel
+    from sm3x_torch.train import common, supervised
+    from sm3x_torch.train.mlc_train import augment_pair
+    from sm3x_torch.data.synthetic import SyntheticPairedData
+
+    torch.manual_seed(0)
+    cpu_model = MLCModel("resnet18", proj_dim=32, sa_dim_ff=16,
+                         sa_dropout=0.0, use_prototype_bias=True)
+    gpu_model = MLCModel("resnet18", proj_dim=32, sa_dim_ff=16,
+                         sa_dropout=0.0, use_prototype_bias=True)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(card)
+    data = SyntheticPairedData(8, canvas=96, seed=4)
+    aug = dataclasses.replace(A.FINETUNE_AUG, out_size=(64, 64))
+    before = K1.photometric_cuda.launches
+    d, c = augment_pair(11, *(torch.from_numpy(x).to(card) for x in (
+        data.derm, data.derm_hw, data.clinic, data.clinic_hw)), MEAN, STD,
+        aug, False)
+    assert K1.photometric_cuda.launches == before + 2
+    labels = torch.from_numpy(data.labels).long()
+    out = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("cuda", gpu_model, card)):
+        opt = common.make_adamw(common.trainable_parameters(
+            model, lambda n: common.mlc_eval_trainable(n, finetune)),
+            1e-3, 5e-2)
+        forward = lambda a, b, gen, model=model: model(
+            a, b, extractor_train=finetune == "all", head_train=True,
+            stop_extractor_grad=finetune != "all", generator=gen)[1]
+        out[name] = supervised.supervised_update(
+            forward, opt, d.to(dev), c.to(dev), labels.to(dev), (1.0,) * 8)
+    _close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        _close(got, want, rtol=1e-3, atol=1e-4)
+    worst = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(gpu_model.parameters(),
+                                cpu_model.parameters()))
+    assert worst <= 3e-3  # Adam's update is about lr whatever the gradient
+    frozen = [n for n, p in gpu_model.named_parameters()
+              if not p.requires_grad]
+    assert frozen and all(
+        torch.equal(gpu_model.state_dict()[n].cpu(),
+                    cpu_model.state_dict()[n]) for n in frozen)

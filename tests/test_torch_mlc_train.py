@@ -312,9 +312,9 @@ def test_trainer_clusters_then_trains(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("run.resume_path", "checkpoint.pth"), ("run.mesh_model", 2),
+    ("run.save_on_preempt", True), ("run.mesh_model", 2),
     ("run.ckpt_backend", "orbax"), ("data.cache_images", False),
-    ("run.tensorboard", True), ("optim.use_lr_schedule", True),
+    ("data.device_feed", "resident"), ("optim.use_lr_schedule", True),
     ("data.data_name", "SevenPCSwavDataset")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
     cfg = _cfg(tmp_path)
@@ -395,7 +395,7 @@ def test_cli_trains_two_epochs_from_a_stage1_checkpoint(tmp_path):
 
 
 def test_cli_refuses_a_flag_outside_the_slice(tmp_path):
-    res = _run("mlc_train_torch.py", ["--device", "cpu", "--resume-path", "x",
+    res = _run("mlc_train_torch.py", ["--device", "cpu", "--use-lr-schedule",
                                       "--log-path", str(tmp_path / "m")],
                str(tmp_path))
     assert res.returncode != 0

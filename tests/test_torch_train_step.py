@@ -183,8 +183,10 @@ def test_synthetic_source_matches_jax_package():
     data = SyntheticPairedData(10, canvas=40, seed=7)
     np.testing.assert_array_equal(data.clinic, jax_synth(10, 40, 8)[0])
     batches = list(data.batches(4, epoch=1))
-    assert data.steps_per_epoch(4) == len(batches) == 2
+    # the last batch is padded by wrapping, as the datasets pad theirs
+    assert data.steps_per_epoch(4) == len(batches) == 3
     assert batches[0].derm.shape == (4, 40, 40, 3)
+    assert [int(b.mask.sum()) for b in batches] == [4, 4, 2]
 
 
 def test_trainer_fit_on_synthetic_canvases(tmp_path):
