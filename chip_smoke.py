@@ -73,6 +73,24 @@ Phases, each printing its lines:
            load_weights, predict_fn at batch 1 and 64 in float32, equal to
            the trainer's eval step on the same images and to the same
            forward on the CPU; latency a call
+  serve    sm3x_torch.serve.Predictor on `eval`'s best_eval.pth at the
+           defaults (two resnet50, 224x224, canvas 320, buckets 1 / 8 / 32 /
+           128, float32 with TF32 off): a CUDA graph a bucket in one memory
+           pool; requests of 1, 5, 8, 33 and 300 cases of raw uint8 images
+           against the eager forward on the same canvases, rows summing to
+           1, a padded request against the case alone, the 300 against its
+           chunks, one device-to-host copy a dispatch (torch.profiler),
+           latency at 1 / 8 / 32 / 128 cases, replay against eager; then
+           the HTTP server on 127.0.0.1: /healthz, /labels, 400, 413, 16
+           threads through the batcher, POST /predict where PIL or cv2 is
+           there, stop()
+  feed     `main`'s recipe over 1024 synthetic cases under --device-feed
+           host, resident and prefetch from the same seed: 8 steps each with
+           bit-identical batches and losses, K1 4 launches a step (band),
+           step times and the device's busy share, the upload's ms under
+           `host`, the bytes the resident feed pins, what `auto` picks; one
+           save_async of the stage-1 state against a synchronous save;
+           streaming and the libjpeg loader where a JPEG encoder is there
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
@@ -710,16 +728,10 @@ def timed_steps(steps) -> list:
     return times
 
 
-def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
-              per_step: dict, profile_dir=None, profile_name=None) -> dict:
-    """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
-    steps through SSLTrainer.fit with every kernel count set to 0 just
-    before and read just after (each must equal `per_step` x steps), then
-    the step time over two more epochs."""
+def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
+    """Stage 1 at the run.sh recipe with encoder `arch`, logging under
+    LOGS/tag (emptied)."""
     from sm3x_torch.core.config import SSLConfig
-    from sm3x_torch.data.synthetic import SyntheticPairedData
-    from sm3x_torch.ops import augment_cuda as K
-    from sm3x_torch.train.backbone_train import SSLTrainer
 
     cfg = SSLConfig()
     m, o, r = cfg.model, cfg.optim, cfg.run
@@ -732,8 +744,24 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     r.world_size, r.device, r.print_freq = 2, "cuda", 10 ** 6
     r.log_path = os.path.join(LOGS, tag)
     shutil.rmtree(r.log_path, ignore_errors=True)
+    return cfg
 
-    data = SyntheticPairedData(batch * steps, canvas=320, seed=0)
+
+def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
+              per_step: dict, profile_dir=None, profile_name=None) -> dict:
+    """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
+    steps through SSLTrainer.fit with every kernel count set to 0 just
+    before and read just after (each must equal `per_step` x steps), then
+    the step time over two more epochs."""
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    cfg = stage1_cfg(tag, arch, batch, use_checkpoint)
+    r = cfg.run
+    # a PairedImageData: under --device-feed auto, fit takes the resident
+    # feed for it
+    data = synthetic_paired_data(batch * steps, canvas=320, seed=0)
     trainer = SSLTrainer(cfg)
     counters, k3 = kernel_counters()
     reset_counters()
@@ -828,7 +856,7 @@ def phase_stage2(profile_dir=None) -> dict:
     from sm3x_torch import NUM_CLASSES
     from sm3x_torch.core import prng
     from sm3x_torch.core.config import MLCTrainConfig
-    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.ops.kmeans import spherical_kmeans
     from sm3x_torch.train import mlc_train
@@ -845,7 +873,7 @@ def phase_stage2(profile_dir=None) -> dict:
     shutil.rmtree(r.log_path, ignore_errors=True)
     cfg.extractor_weights = os.path.join(LOGS, "main", "ckp_0.pth")
 
-    data = SyntheticPairedData(STAGE2_CASES, canvas=320, seed=1)
+    data = synthetic_paired_data(STAGE2_CASES, canvas=320, seed=1)
     steps = data.steps_per_epoch(STAGE2_BATCH)
     trainer = mlc_train.MLCTrainer(
         cfg, extractor_state=mlc_train.load_extractor_state(
@@ -1166,7 +1194,8 @@ def phase_eval(profile_dir=None):
     eval-step logits on them, taken while its weights are still the ones
     it wrote."""
     from sm3x_torch.core import prng
-    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.data.synthetic import (SyntheticPairedData,
+                                           synthetic_paired_data)
     from sm3x_torch.ops.augment import FINETUNE_AUG
     from sm3x_torch.train import supervised
     from sm3x_torch.train.mlc_eval import MLCEvalTrainer
@@ -1175,8 +1204,8 @@ def phase_eval(profile_dir=None):
     import dataclasses
 
     cfg = supervised_cfg("eval", "projector", False, EVAL_BATCH)
-    train = SyntheticPairedData(EVAL_TRAIN_CASES, canvas=320, seed=2)
-    test = SyntheticPairedData(EVAL_TEST_CASES, canvas=320, seed=3)
+    train = synthetic_paired_data(EVAL_TRAIN_CASES, canvas=320, seed=2)
+    test = synthetic_paired_data(EVAL_TEST_CASES, canvas=320, seed=3)
     state = load_pretrained_state(os.path.join(LOGS, "stage2", "ckp_1.pth"))
     logger, records = capture_logger("chip_smoke.eval")
     trainer = MLCEvalTrainer(cfg, logger=logger, pretrained_state=state)
@@ -1267,13 +1296,13 @@ def phase_eval(profile_dir=None):
 def phase_probe(profile_dir=None) -> dict:
     """stage1_eval at the run.sh recipe, from [main]'s ckp_0.pth: --finetune
     fc under bf16 autocast."""
-    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.train.backbone_eval import BackboneEvalTrainer
     from sm3x_torch.utils.checkpoint import load_encoder_state
 
     cfg = supervised_cfg("probe", "fc", True, EVAL_BATCH)
-    train = SyntheticPairedData(EVAL_TRAIN_CASES, canvas=320, seed=2)
-    test = SyntheticPairedData(EVAL_TEST_CASES, canvas=320, seed=3)
+    train = synthetic_paired_data(EVAL_TRAIN_CASES, canvas=320, seed=2)
+    test = synthetic_paired_data(EVAL_TEST_CASES, canvas=320, seed=3)
     encoders = load_encoder_state(os.path.join(LOGS, "main", "ckp_0.pth"))
     logger, records = capture_logger("chip_smoke.probe")
     trainer = BackboneEvalTrainer(cfg, logger=logger, encoder_state=encoders)
@@ -1351,6 +1380,675 @@ def phase_infer(reference: dict) -> None:
     log("  kernel launches at inference: none (no view is made)")
 
 
+# requests of raw images: the sizes of each call, and the buckets they take
+SERVE_REQUESTS = {1: [1], 5: [8], 8: [8], 33: [128], 300: [128, 128, 128]}
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)     # [infer]'s bound on its logits
+SERVE_BATCH_TOL = dict(rtol=1e-4, atol=1e-5)  # another batch size's programs
+
+
+def raw_images(n: int, seed: int) -> list:
+    """Random uint8 RGB images of mixed sizes that fit canvas 320 once the
+    25-pixel border is cropped (no resize on the host, so no decoder)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (int(rng.integers(100, 371)),
+                                  int(rng.integers(100, 371)), 3),
+                         dtype=np.uint8) for _ in range(n)]
+
+
+def image_decoder():
+    """'PIL', 'cv2' or None: what this machine can encode and decode an
+    image with."""
+    for name in ("PIL", "cv2"):
+        try:
+            __import__(name)
+            return name
+        except ImportError:
+            pass
+    return None
+
+
+def encode_image(img: np.ndarray, fmt: str, decoder: str) -> bytes:
+    """RGB array -> PNG or JPEG bytes with the decoder that is there."""
+    if decoder == "PIL":
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format=fmt, quality=95)
+        return buf.getvalue()
+    import cv2
+
+    ok, data = cv2.imencode("." + ("jpg" if fmt == "JPEG" else "png"),
+                            img[:, :, ::-1])
+    if not ok:
+        raise AssertionError("cv2.imencode failed")
+    return data.tobytes()
+
+
+def host_ms(fn, reps: int = 20) -> tuple:
+    """(median, minimum) ms of fn() on the host clock, each call ended by a
+    synchronise, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
+
+
+def phase_serve(reference: dict) -> dict:
+    """The serving path on [eval]'s best_eval.pth: `Predictor` at its
+    defaults (a CUDA graph a bucket), then `PredictionServer`."""
+    import json as _json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sm3x_torch import CLASSES_NAME, NUM_CLASSES
+    from sm3x_torch.ops.augment import eval_resize_batch
+    from sm3x_torch.serve import FIELDS, Predictor
+    from sm3x_torch.serve_http import PredictionServer
+    from sm3x_torch.utils.timing import _profile, device_events
+
+    counters, _ = kernel_counters()
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    predictor = Predictor.from_checkpoint(reference["path"], mean=MEAN,
+                                          std=STD, device="cuda")
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    gib = 2 ** 30
+    weights = sum(p.numel() * p.element_size()
+                  for p in predictor.model.state_dict().values())
+    log(f"[serve] sm3x_torch.serve.Predictor.from_checkpoint on [eval]'s "
+        f"best_eval.pth: two resnet50, 224x224, canvas {predictor.canvas}, "
+        f"crop {predictor.crop_amount}, buckets {predictor.buckets}, float32 "
+        f"(TF32 off); weights, warm-ups and captures in {built_s:.2f} s")
+    for b in predictor.buckets:
+        g = predictor._graphs[b]
+        log(f"  bucket {b}: one CUDA graph over static inputs "
+            f"{tuple(g.static['derm'].shape)} uint8 x 2 and "
+            f"{tuple(g.static['derm_hw'].shape)} int32 x 2, static output "
+            f"{tuple(g.out.shape)} {str(g.out.dtype).split('.')[-1]}")
+        if g.out.shape != (b, sum(NUM_CLASSES)) or g.out.dtype != torch.float32:
+            raise AssertionError(f"bucket {b}: packed float32 output expected")
+    if sorted(predictor._graphs) != [1, 8, 32, 128]:
+        raise AssertionError("a graph a default bucket expected")
+    segments = torch.cuda.memory_snapshot()
+    in_pool = sum(s["total_size"] for s in segments
+                  if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    log(f"  the graphs' memory pool holds {in_pool / gib:.2f} GiB of "
+        f"segments (torch.cuda.memory_snapshot), the allocator's other "
+        f"segments {(sum(s['total_size'] for s in segments) - in_pool) / gib:.2f}"
+        f" GiB")
+    log(f"  device memory: {(torch.cuda.memory_allocated() - held0) / gib:.2f}"
+        f" GiB held by the weights ({weights / gib:.2f} GiB), the four "
+        f"graphs' pool and the static buffers; peak while warming up and "
+        f"capturing {(torch.cuda.max_memory_allocated() - held0) / gib:.2f} "
+        f"GiB; reserved {(torch.cuda.memory_reserved() - reserved0) / gib:.2f}"
+        f" GiB after the warm-ups' cache was given back")
+
+    def eager_packed(arrays) -> torch.Tensor:
+        """The eager forward of [infer] on canvases as `_call` gets them:
+        eval_resize_batch, api.predict_fn's forward, a softmax a head."""
+        from sm3x_torch import api
+
+        derm, derm_hw, clinic, clinic_hw = (
+            torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+        d = eval_resize_batch(derm, derm_hw, MEAN, STD, (224, 224))
+        c = eval_resize_batch(clinic, clinic_hw, MEAN, STD, (224, 224))
+        logits = api.predict_fn(predictor.model)(d, c)
+        return torch.cat([torch.softmax(p.float(), dim=-1) for p in logits],
+                         dim=-1)
+
+    # every dispatch of the requests below, as `_call` saw it
+    seen = []
+    call = predictor._call
+
+    def spy(b, *arrays):
+        out = call(b, *arrays)
+        seen.append((b, arrays, np.concatenate(out, axis=-1)))
+        return out
+
+    predictor._call = spy
+    results = {}
+    for n, want_buckets in SERVE_REQUESTS.items():
+        derm, clinic = raw_images(n, 100 + n), raw_images(n, 200 + n)
+        seen.clear()
+        out = predictor.predict(derm, clinic)
+        results[n] = (derm, clinic, out)
+        took = [b for b, _, _ in seen]
+        if took != want_buckets:
+            raise AssertionError(f"{n} cases took buckets {took}, expected "
+                                 f"{want_buckets}")
+        if [p.shape for p in out] != [(n, c) for c in NUM_CLASSES]:
+            raise AssertionError(f"{n} cases: shapes {[p.shape for p in out]}")
+        sums = np.stack([p.sum(axis=-1) for p in out])
+        if not (np.isfinite(sums).all() and np.abs(sums - 1).max() < 1e-5):
+            raise AssertionError(f"{n} cases: rows do not sum to 1")
+        worst = 0.0
+        for k, (b, arrays, packed) in enumerate(seen):
+            worst = max(worst, check_close(
+                f"{n} cases, dispatch {k} (bucket {b}): graph against the "
+                f"eager forward on the same canvases",
+                torch.from_numpy(packed), eager_packed(arrays), **SERVE_TOL))
+        log(f"  {n} cases -> buckets {took}; rows sum to 1 within "
+            f"{np.abs(sums - 1).max():.1e}; max abs err {worst:.3e}")
+    del predictor._call
+
+    # a padded request against the same case alone (bucket 8 against 1)
+    derm, clinic, out5 = results[5]
+    alone = predictor.predict(derm[2:3], clinic[2:3])
+    check_close("case 2 of the 5-case request against the case alone",
+                torch.from_numpy(np.concatenate([p[2:3] for p in out5], -1)),
+                torch.from_numpy(np.concatenate(alone, -1)), **SERVE_BATCH_TOL)
+    # the 300 cases against their chunks of 128
+    derm, clinic, out300 = results[300]
+    chunks = [predictor.predict(derm[s:s + 128], clinic[s:s + 128])
+              for s in (0, 128, 256)]
+    joined = [np.concatenate([c[h] for c in chunks]) for h in range(8)]
+    same = all(np.array_equal(a, b) for a, b in zip(out300, joined))
+    log(f"  300 cases against their chunks of 128, 128 and 44: identical "
+        f"bits {same}")
+    if not same:
+        raise AssertionError("a chunked request differs from its chunks")
+
+    # copies of a dispatch under the profiler, over three dispatches
+    derm, clinic, _ = results[5]
+    predictor.predict(derm, clinic)
+    n_prof = 3
+    prof, _ = _profile(lambda _: predictor.predict(derm, clinic), n_prof)
+    rows, _field = device_events(prof)
+    d2h = sum(e.count for e in rows if "memcpy dtoh" in e.key.lower())
+    h2d = sum(e.count for e in rows if "memcpy htod" in e.key.lower())
+    kernels = sum(e.count for e in rows if "memcpy" not in e.key.lower()
+                  and "memset" not in e.key.lower())
+    log(f"  {n_prof} dispatches of 5 cases under torch.profiler: {d2h} "
+        f"device-to-host copies (one a dispatch), {h2d} host-to-device "
+        f"copies (four a dispatch queued; the profiler does not always "
+        f"report the first ones of its window), {kernels / n_prof:.0f} "
+        f"kernels a graph")
+    if d2h != n_prof or h2d > 4 * n_prof:
+        raise AssertionError(f"{n_prof} dispatches made {d2h} device-to-host "
+                             f"and {h2d} host-to-device copies, expected "
+                             f"{n_prof} and at most {4 * n_prof}")
+
+    # latency: the whole predict call, the replay alone, the eager forward
+    serve_ms = {}
+    for n in (1, 8, 32, 128):
+        derm, clinic = raw_images(n, 300 + n), raw_images(n, 400 + n)
+        dc, dhw = predictor._canvases(derm)
+        cc, chw = predictor._canvases(clinic)
+        arrays = (dc, dhw, cc, chw)
+        on_card = [torch.from_numpy(a).cuda() for a in arrays]
+
+        def eager():
+            d = eval_resize_batch(on_card[0], on_card[1], MEAN, STD,
+                                  (224, 224))
+            c = eval_resize_batch(on_card[2], on_card[3], MEAN, STD,
+                                  (224, 224))
+            with torch.inference_mode():
+                preds = predictor.model(d, c)[1]
+                return torch.cat([torch.softmax(p.float(), dim=-1)
+                                  for p in preds], dim=-1).cpu()
+
+        whole = host_ms(lambda: predictor.predict(derm, clinic))
+        replay = host_ms(lambda: predictor._call(n, *arrays))
+        plain = host_ms(eager)
+        busy_g = profile_device(lambda _: predictor._call(n, *arrays), 5)
+        busy_e = profile_device(lambda _: eager(), 5)
+        serve_ms[n] = dict(predict_ms=whole[0], predict_ms_min=whole[1],
+                           replay_ms=replay[0], replay_ms_min=replay[1],
+                           eager_ms=plain[0], eager_ms_min=plain[1],
+                           replay_busy_ms=busy_g["busy_ms"],
+                           eager_busy_ms=busy_e["busy_ms"],
+                           replay_launches=busy_g["launches"],
+                           eager_launches=busy_e["launches"])
+        log(f"  {n} cases, latency a call on the host clock (median of 20, "
+            f"min): predict {whole[0]:.2f} / {whole[1]:.2f} ms (crop and "
+            f"letterbox on the host included); upload + graph replay + fetch "
+            f"{replay[0]:.2f} / {replay[1]:.2f} ms, device busy "
+            f"{busy_g['busy_ms']:.2f} ms in {busy_g['launches']:.0f} kernels "
+            f"and copies; eager forward + fetch, canvases already on the "
+            f"card, {plain[0]:.2f} / {plain[1]:.2f} ms, device busy "
+            f"{busy_e['busy_ms']:.2f} ms in {busy_e['launches']:.0f}")
+
+    # the HTTP server
+    decoder = image_decoder()
+    log(f"  image decoder on this machine: {decoder or 'neither PIL nor cv2'}")
+    dispatched = []
+    direct_predict = predictor.predict
+
+    def counting(derm, clinic):
+        dispatched.append(len(derm))
+        return direct_predict(derm, clinic)
+
+    predictor.predict = counting
+    server = PredictionServer(predictor, "127.0.0.1", 0, max_batch=128,
+                              max_wait_ms=100.0).start()
+    capped = PredictionServer(predictor, "127.0.0.1", 0, batching=False,
+                              max_body_mb=0.001).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def status(url, data=None):
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, _json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, _json.load(e)
+
+    try:
+        health = status(f"{base}/healthz")
+        labels = status(f"{base}/labels")
+        bad = status(f"{base}/predict", b'{"cases": [{"derm": "!!"}]}')
+        missing = status(f"{base}/nowhere")
+        big = status(f"http://127.0.0.1:{capped.port}/predict",
+                     _json.dumps({"cases": [{"derm": "x" * 4096,
+                                             "clinic": "x" * 4096}]}).encode())
+        log(f"  server on 127.0.0.1:{server.port}: /healthz {health}, /labels "
+            f"{labels[0]}, a malformed body {bad[0]}, an unknown path "
+            f"{missing[0]}, a body over a 1 KiB cap {big[0]}")
+        if (health != (200, {"status": "ok", "labels": 8})
+                or labels != (200, {"labels": list(CLASSES_NAME),
+                                    "num_classes": list(NUM_CLASSES)})
+                or (bad[0], missing[0], big[0]) != (400, 404, 413)):
+            raise AssertionError("the server's answers are not as documented")
+
+        # 16 callers at once through the batcher, one case each
+        n_callers = 16
+        derm, clinic = raw_images(n_callers, 500), raw_images(n_callers, 600)
+        want = [direct_predict(derm[i:i + 1], clinic[i:i + 1])
+                for i in range(n_callers)]
+        got, errors = [None] * n_callers, []
+        barrier = threading.Barrier(n_callers)
+        dispatched.clear()
+
+        def caller(i):
+            try:
+                barrier.wait(30)
+                got[i] = server._batcher.predict(derm[i:i + 1],
+                                                 clinic[i:i + 1])
+            except Exception as e:  # reported below, by every caller's row
+                errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(n_callers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if errors or any(g is None for g in got):
+            raise AssertionError(f"batched callers failed: {errors[:3]}")
+        worst = 0.0
+        for i in range(n_callers):
+            a = np.concatenate(got[i], -1)
+            b = np.concatenate(want[i], -1)
+            if a.shape != b.shape:
+                raise AssertionError(f"caller {i} got {a.shape}")
+            bound_ = SERVE_BATCH_TOL["atol"] + SERVE_BATCH_TOL["rtol"] * np.abs(b)
+            worst = max(worst, float((np.abs(a - b) / bound_).max()))
+        log(f"  {n_callers} threads through the batcher at once: "
+            f"{len(dispatched)} dispatches of {dispatched} cases; each "
+            f"caller's rows against a direct predict of its case, worst "
+            f"err/bound {worst:.3f} (rtol {SERVE_BATCH_TOL['rtol']:g}, atol "
+            f"{SERVE_BATCH_TOL['atol']:g})")
+        if worst > 1.0 or sum(dispatched) != n_callers \
+                or not len(dispatched) < n_callers:
+            raise AssertionError("the batcher must give every caller its own "
+                                 "rows in fewer dispatches than callers")
+
+        if decoder:
+            import base64
+
+            cases = [{"derm": base64.b64encode(encode_image(
+                          derm[i], fmt, decoder)).decode(),
+                      "clinic": base64.b64encode(encode_image(
+                          clinic[i], fmt, decoder)).decode()}
+                     for i, fmt in ((0, "PNG"), (1, "JPEG"))]
+            code, body = status(f"{base}/predict",
+                                _json.dumps({"cases": cases}).encode())
+            if code != 200 or len(body["predictions"]) != 2:
+                raise AssertionError(f"POST /predict: {code} {body}")
+            png = np.concatenate([body["predictions"][0][name]
+                                  for name in CLASSES_NAME])
+            check_close("POST /predict, the PNG case against a direct "
+                        "predict (lossless)", torch.from_numpy(png),
+                        torch.from_numpy(np.concatenate(want[0], -1)[0]),
+                        **SERVE_BATCH_TOL)
+            jpg = body["predictions"][1]
+            if set(jpg) != set(CLASSES_NAME) or not all(
+                    abs(sum(v) - 1) < 1e-4 for v in jpg.values()):
+                raise AssertionError("POST /predict: the JPEG case's rows")
+            log("  POST /predict with a PNG and a JPEG case: 200, eight named "
+                "rows a case, each summing to 1")
+        else:
+            log("  POST /predict with encoded images: not run here (no "
+                "encoder to make the bodies); the CPU tests hold the round "
+                "trip (tests/test_torch_serve.py)")
+    finally:
+        server.stop()
+        capped.stop()
+        del predictor.predict
+    batcher = server._batcher
+    if batcher._thread.is_alive() or not batcher.q.empty():
+        raise AssertionError("stop() left the batcher's thread or a request")
+    try:
+        batcher.predict(derm[:1], clinic[:1])
+        raise AssertionError("a stopped batcher took a request")
+    except RuntimeError as e:
+        log(f"  stop() returned, no handler left waiting; a later request "
+            f"is refused: {e}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  kernel launches while serving: {launches} (no view is made)")
+    if any(launches.values()):
+        raise AssertionError("serving launches none of the kernels")
+    del predictor, server, capped
+    torch.cuda.empty_cache()
+    return dict(launches=launches, latency=serve_ms)
+
+
+FEED_CASES, FEED_STEPS = 1024, 8
+FEEDS = ("host", "resident", "prefetch")
+
+
+def phase_feed() -> dict:
+    """[main]'s recipe under each --device-feed from one seed: the batches,
+    the losses and the K1 launches must not depend on the feed."""
+    import threading
+
+    from sm3x_torch.core import prng
+    from sm3x_torch.core.config import DataConfig
+    from sm3x_torch.data.device_data import DeviceData
+    from sm3x_torch.data.prefetch import (PrefetchData, resident_nbytes,
+                                          to_device, wrap_from_config)
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.train import common
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    batch = MAIN_BATCH
+    data = synthetic_paired_data(FEED_CASES, canvas=320, seed=0)
+    fields = ("derm", "derm_hw", "clinic", "clinic_hw")
+    per_step = sum(getattr(next(data.batches(batch)), f).nbytes
+                   for f in fields)
+    log(f"[feed] [main]'s recipe (resnet50/v32, batch {batch}, bf16 autocast, "
+        f"224x224) over {FEED_CASES} synthetic cases, {FEED_STEPS} steps "
+        f"under each --device-feed from the same seed and initial weights; "
+        f"a batch's canvases and sizes are {per_step / 1e6:.1f} MB")
+
+    def prefetch_threads():
+        return [t for t in threading.enumerate()
+                if t.name == "sm3x-torch-prefetch" and t.is_alive()]
+
+    # the losses can only be compared bit for bit where the arithmetic is
+    # repeatable: cuDNN is held to its deterministic algorithms for the
+    # three runs (the step times below are taken under that setting)
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    log("  cuDNN held to deterministic algorithms for this phase")
+    counters, _ = kernel_counters()
+    out, losses, trainer = {}, {}, None
+    for feed in FEEDS:
+        del trainer
+        torch.cuda.empty_cache()
+        cfg = stage1_cfg(f"feed_{feed}", "resnet50", batch)
+        cfg.data.device_feed = feed
+        trainer = SSLTrainer(cfg)
+        seed = cfg.run.seed
+        wrapped = wrap_from_config(data, trainer.device, cfg.data)
+        kind = {"host": type(data), "resident": DeviceData,
+                "prefetch": PrefetchData}[feed]
+        if type(wrapped) is not kind:
+            raise AssertionError(f"--device-feed {feed} gave "
+                                 f"{type(wrapped).__name__}")
+
+        # the batches, bit for bit against the host data's
+        it = wrapped.batches(batch, 0, seed)
+        for k, want in zip(range(FEED_STEPS), data.batches(batch, 0, seed)):
+            got = next(it)
+            for f in fields:
+                a = to_device(getattr(got, f), "cuda")
+                b = torch.from_numpy(getattr(want, f)).cuda()
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"{feed}: step {k}, {f} differs")
+            if not (np.array_equal(got.index, want.index)
+                    and np.array_equal(got.label, want.label)
+                    and np.array_equal(got.mask, want.mask)):
+                raise AssertionError(f"{feed}: step {k}, index differs")
+        it.close()   # an early break out of the epoch
+        if prefetch_threads():
+            raise AssertionError("an early break left a prefetch thread")
+
+        # the steps: from asking for the batch to the end of the step
+        reset_counters()
+        it = wrapped.batches(batch, 0, seed)
+        times, step_losses = [], []
+        for k in range(FEED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = next(it)
+            metrics = trainer.train_step(
+                *(trainer._upload(getattr(b, f)) for f in fields),
+                prng.step_seed(seed, 0, k))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            step_losses.append(float(metrics["loss"]))
+        launches = {fn.__name__: fn.launches for fn in counters}
+        k1 = dict(K.photometric_cuda.variants)
+        want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) * FEED_STEPS
+                for fn in counters}
+        if launches != want or k1 != {"band": 4 * FEED_STEPS, "scratch": 0}:
+            raise AssertionError(f"{feed}: launches {launches}, K1 {k1}, "
+                                 f"expected {want}, all band")
+        if not all(math.isfinite(x) for x in step_losses):
+            raise AssertionError(f"{feed}: losses {step_losses}")
+        # the device's busy share over three more steps of the same epoch
+        res = profile_device(
+            lambda k: trainer.train_step(
+                *(trainer._upload(getattr(b, f))
+                  for b in [next(it)] for f in fields),
+                prng.step_seed(seed, 0, FEED_STEPS + k)), 3)
+        it.close()
+        if prefetch_threads():
+            raise AssertionError("an early break left a prefetch thread")
+        losses[feed] = step_losses
+        out[feed] = dict(step_ms=statistics.median(times),
+                         step_ms_min=min(times), busy_ms=res["busy_ms"],
+                         busy_share=res["busy_ms"] / res["wall_ms"],
+                         launches=launches)
+        log(f"  --device-feed {feed} ({type(wrapped).__name__}): batches "
+            f"bit-identical to the host data's; losses {step_losses}")
+        log(f"    step, batch fetch included: median {out[feed]['step_ms']:.1f}"
+            f" ms, min {min(times):.1f} over {FEED_STEPS} steps (host clock, "
+            f"synchronised); device busy {res['busy_ms']:.1f} ms a step of "
+            f"{res['wall_ms']:.1f} ms ({100 * out[feed]['busy_share']:.1f}% "
+            f"busy, torch.profiler, 3 steps); K1 launches {launches['photometric_cuda']}"
+            f" ({k1}), K2f {launches['ntxent_forward_cuda']}, K2b "
+            f"{launches['ntxent_backward_cuda']}")
+        if feed == "resident":
+            pinned = resident_nbytes(wrapped)
+            log(f"    the resident feed pins {pinned} bytes "
+                f"({pinned / 1e6:.0f} MB) of the "
+                f"{cfg.data.hbm_data_budget_mb} MB budget")
+            if pinned != FEED_CASES * 2 * 320 * 320 * 3:
+                raise AssertionError("resident bytes are not the canvases'")
+        del wrapped, it
+    for feed in FEEDS[1:]:
+        if losses[feed] != losses["host"]:
+            raise AssertionError(f"losses under {feed} differ from host's: "
+                                 f"{losses[feed]} vs {losses['host']}")
+    log(f"  losses equal bit for bit under {', '.join(FEEDS)}: True")
+    torch.backends.cudnn.deterministic = was_deterministic
+
+    # what the upload costs under `host`: the four arrays of a batch from
+    # pageable memory, as the trainer uploads them
+    uploads = []
+    for _, b in zip(range(FEED_STEPS), data.batches(batch, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        held = [trainer._upload(getattr(b, f)) for f in fields]
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t0) * 1e3)
+    del held
+    out["host"]["upload_ms"] = statistics.median(uploads)
+    log(f"  the upload under host: median {statistics.median(uploads):.2f} "
+        f"ms, min {min(uploads):.2f} a batch of {per_step / 1e6:.1f} MB from "
+        f"pageable memory ({per_step / 1e6 / statistics.median(uploads):.1f} "
+        f"GB/s); slicing the batch on the host is in the step times above, "
+        f"not here")
+
+    # what `auto` picks
+    auto = wrap_from_config(data, trainer.device, DataConfig())
+    small = wrap_from_config(data, trainer.device,
+                             DataConfig(hbm_data_budget_mb=256))
+    log(f"  --device-feed auto: {type(auto).__name__} under the default "
+        f"budget, {type(small).__name__} under --hbm-data-budget-mb 256")
+    if type(auto) is not DeviceData or type(small) is not PrefetchData:
+        raise AssertionError("auto must take resident when the canvases fit "
+                             "the budget, else prefetch")
+    del auto, small
+
+    # one save_async of the full stage-1 state against a synchronous save
+    log_path = trainer.cfg.run.log_path
+    os.makedirs(log_path, exist_ok=True)
+    sync_path = os.path.join(log_path, "sync.pth")
+    async_path = os.path.join(log_path, "async.pth")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(sync_path, 0)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    want = common.map_tensors(lambda t: t.detach().cpu().clone(),
+                              trainer.live_state(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_async(async_path, 0)
+    held_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    held_sync_ms = (time.perf_counter() - t0) * 1e3
+    it = data.batches(batch, 2)
+    for k in range(2):   # the live weights move on while the file is written
+        b = next(it)
+        trainer.train_step(*(trainer._upload(getattr(b, f)) for f in fields),
+                           prng.step_seed(0, 2, k))
+    t0 = time.perf_counter()
+    trainer.finish_checkpoints()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    from sm3x_torch.utils.checkpoint import load_checkpoint_file
+
+    def flat(tree):
+        leaves = []
+        common.map_tensors(leaves.append, tree)
+        return leaves
+
+    got = flat(load_checkpoint_file(async_path))
+    snap, sync_file = flat(want), flat(load_checkpoint_file(sync_path))
+    live = flat(common.map_tensors(lambda t: t.detach().cpu(),
+                                   trainer.live_state(0)))
+    equal = len(got) == len(snap) and all(
+        torch.equal(a, b) for a, b in zip(got, snap))
+    as_sync = len(got) == len(sync_file) and all(
+        torch.equal(a, b) for a, b in zip(got, sync_file))
+    moved = sum(not torch.equal(a, b) for a, b in zip(got, live))
+    size = os.path.getsize(async_path)
+    log(f"  save_async of the full stage-1 state ({size / 1e6:.0f} MB file, "
+        f"{len(got)} tensors): the loop is held {held_ms:.1f} ms on the host "
+        f"clock ({held_sync_ms:.1f} ms until the device has made the "
+        f"clones) against {sync_ms:.1f} ms of a synchronous save; the "
+        f"write then ran beside 2 steps, finish_checkpoints waited "
+        f"{wait_ms:.1f} ms")
+    log(f"  the file equals the state at the snapshot {equal} and the "
+        f"synchronous save's file {as_sync}; {moved} of its tensors differ "
+        f"from the live state two steps later")
+    if not (equal and as_sync and moved > 0):
+        raise AssertionError("the asynchronous save must write the snapshot")
+    out["save"] = dict(held_ms=held_ms, held_synchronised_ms=held_sync_ms,
+                       sync_ms=sync_ms, file_mb=size / 1e6)
+    del trainer
+    torch.cuda.empty_cache()
+    out["streaming"] = feed_streaming()
+    return out
+
+
+def feed_streaming():
+    """Streaming and the libjpeg loader on JPEGs written here, where an
+    encoder is present: streamed batches through the prefetch feed against
+    the cached ones, bit for bit."""
+    from sm3x_torch.data.pipeline import PairedImageData
+    from sm3x_torch.data.prefetch import PrefetchData, wrap_for_device
+    from sm3x_torch.data.streaming import StreamingPairedData
+    from sm3x_torch.native.loader import native_loader_available
+
+    decoder = image_decoder()
+    native = native_loader_available()
+    try:
+        import cv2  # noqa: F401  the decode path of what the loader leaves
+        opencv = True
+    except ImportError:
+        opencv = False
+    log(f"  streaming: image encoder {decoder or 'neither PIL nor cv2'}; the "
+        f"libjpeg loader builds here (g++ and libjpeg's headers): {native}; "
+        f"OpenCV to decode what it does not take: {opencv}")
+    if decoder is None:
+        log("  streaming and the native loader: not run here (no encoder to "
+            "write the JPEGs); the CPU tests hold them "
+            "(tests/test_torch_streaming.py)")
+        return None
+    if not (native or opencv):
+        log("  streaming: not run here (no libjpeg loader and no OpenCV to "
+            "decode with)")
+        return None
+    n, root = 48, os.path.join(LOGS, "feed_jpegs")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(7)
+    paths = {"derm": [], "clinic": []}
+    for kind in paths:
+        for i in range(n):
+            # smooth images: noise would not survive a JPEG
+            small = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
+            img = np.kron(small, np.ones((60, 60, 1), np.uint8))  # 360 x 480
+            p = os.path.join(root, f"{kind}{i:03d}.jpg")
+            with open(p, "wb") as f:
+                f.write(encode_image(img, "JPEG", decoder))
+            paths[kind].append(p)
+    labels = rng.integers(0, 2, (n, 8)).astype(np.int32)
+    t0 = time.perf_counter()
+    cached = PairedImageData(paths["derm"], paths["clinic"], labels)
+    decode_s = time.perf_counter() - t0
+    stream = StreamingPairedData(paths["derm"], paths["clinic"], labels)
+    wrapped = wrap_for_device(stream, torch.device("cuda"))
+    if type(wrapped) is not PrefetchData:
+        raise AssertionError("a streaming dataset goes with the prefetch feed")
+    steps = 0
+    for got, want in zip(wrapped.batches(16, 1), cached.batches(16, 1)):
+        for f in ("derm", "derm_hw", "clinic", "clinic_hw"):
+            if not torch.equal(getattr(got, f).cpu(),
+                               torch.from_numpy(getattr(want, f))):
+                raise AssertionError(f"streamed {f} differs at step {steps}")
+        if not np.array_equal(got.index, want.index):
+            raise AssertionError("streamed index differs")
+        steps += 1
+    hw = tuple(int(x) for x in cached.derm.valid_hw[0])
+    scale = min(320 / 310, 320 / 430)   # 360 x 480 less the 25-pixel border
+    want_hw = (round(310 * scale), round(430 * scale))
+    log(f"  {2 * n} JPEGs of 360x480 decoded into canvas 320 in "
+        f"{decode_s * 1e3:.0f} ms (valid size {hw} after the crop and "
+        f"the area resize); {steps} streamed batches of 16 through the "
+        f"prefetch feed bit-identical to the cached ones")
+    if steps != 3 or hw != want_hw:
+        raise AssertionError(f"streaming: 3 batches of valid size {want_hw}")
+    return dict(native=native, decode_ms=decode_s * 1e3)
+
+
 def phase_copy() -> dict:
     """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
     import importlib.util
@@ -1385,10 +2083,12 @@ def main(argv=None) -> int:
     kernels, floor = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
+    feed = phase_feed()
     stage2_launches = phase_stage2(args.profile)
     eval_launches, eval_reference = phase_eval(args.profile)
     probe_launches = phase_probe(args.profile)
     phase_infer(eval_reference)
+    serve = phase_serve(eval_reference)
     del eval_reference
     torch.cuda.empty_cache()
     vit_launches = phase_vit(args.profile)
@@ -1427,12 +2127,16 @@ def main(argv=None) -> int:
                  launches_stage2=stage2_launches[counter],
                  launches_eval=eval_launches[counter],
                  launches_probe=probe_launches[counter],
+                 launches_serve=serve["launches"][counter],
+                 launches_feed={f: feed[f]["launches"][counter]
+                                for f in FEEDS},
                  launches_per_step={
                      "main": MAIN_PER_STEP.get(counter, 0),
                      "vit": VIT_PER_STEP.get(counter, 0),
                      "stage2": STAGE2_PER_STEP.get(counter, 0),
                      "eval": SUPERVISED_PER_STEP.get(counter, 0),
-                     "probe": SUPERVISED_PER_STEP.get(counter, 0)},
+                     "probe": SUPERVISED_PER_STEP.get(counter, 0),
+                     "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))

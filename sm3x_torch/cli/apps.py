@@ -22,7 +22,7 @@ def _setup(args, cfg, logger_name: str):
     configs.txt, the logger and the host seeds."""
     if args.coordinator:
         raise SystemExit("--coordinator (multi-process) is not in the PyTorch "
-                         "port yet (ROADMAP.md, slice D)")
+                         "port yet (ROADMAP.md, item 15)")
     args.log_path = str(increment_path(args.log_path))
     cfg.run.log_path = args.log_path
     save_args(asdict_flat(cfg), os.path.join(args.log_path, "configs.txt"))
@@ -47,7 +47,8 @@ def _split(cfg, mode: str):
 
     return build_dataset(cfg.data.data_name, cfg.data.data_path, mode,
                          cache_size=cfg.data.cache_size,
-                         workers=cfg.run.workers)
+                         workers=cfg.run.workers,
+                         streaming=not cfg.data.cache_images)
 
 
 def _train_data(cfg, logger):

@@ -9,8 +9,9 @@ into batches; all random augmentation runs on the device
 records the valid (h, w), so RandomResizedCrop samples the geometry of
 full-resolution crops.
 
-Decoding is the OpenCV path of the reference. Its multi-threaded libjpeg
-loader (sm3x/native/) is not ported yet (ROADMAP.md, item 14).
+JPEGs are decoded by the multi-threaded libjpeg loader
+(sm3x_torch/native/loader.cpp); every file it does not take (a PNG, or all
+of them where the loader cannot be built) goes through OpenCV.
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ def decode_image(path: str) -> np.ndarray:
 
 def letterbox(img: np.ndarray, size: int) -> Tuple[np.ndarray, Tuple[int, int]]:
     """Fit `img` into a (size, size) canvas top-left, preserving aspect.
-    Returns (canvas uint8, valid (h, w))."""
-    import cv2
-
+    Returns (canvas uint8, valid (h, w)). Only an image larger than the
+    canvas is resized, and only that needs OpenCV."""
     h, w = img.shape[:2]
     scale = min(size / h, size / w)
     if scale < 1.0:
+        import cv2
+
         nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
         img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)
     else:
@@ -50,25 +52,43 @@ def letterbox(img: np.ndarray, size: int) -> Tuple[np.ndarray, Tuple[int, int]]:
 
 
 def decode_canvas_batch(paths: Sequence[str], cache_size: int,
-                        crop_amount: int = 25, workers: int = 8
+                        crop_amount: int = 25, workers: int = 8,
+                        use_native: bool = True
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode `paths` into ((N, S, S, 3) uint8 canvases, (N, 2) int32 valid
-    hw) on a pool of `workers` threads."""
+    hw) on `workers` threads. JPEGs go through the native libjpeg loader;
+    whatever it does not take (a PNG, a missing toolchain) goes through the
+    OpenCV path, file by file."""
     n = len(paths)
     canvases = np.zeros((n, cache_size, cache_size, 3), dtype=np.uint8)
     valid_hw = np.zeros((n, 2), dtype=np.int32)
 
+    todo = list(range(n))
+    if use_native and n:
+        try:
+            from sm3x_torch.native.loader import decode_letterbox_batch
+
+            canv, hw, ok = decode_letterbox_batch(
+                list(paths), cache_size, crop_amount, workers)
+            done = np.nonzero(ok)[0]
+            canvases[done] = canv[done]
+            valid_hw[done] = hw[done]
+            todo = [i for i in range(n) if not ok[i]]
+        except Exception:
+            todo = list(range(n))
+
     def load(i):
         img = decode_image(paths[i])[:, :, :3]
-        # only crop when a non-empty interior remains
+        # only crop when a non-empty interior remains (the native loader's
+        # rule too)
         if (crop_amount > 0 and img.shape[0] > 2 * crop_amount
                 and img.shape[1] > 2 * crop_amount):
             img = img[crop_amount:-crop_amount, crop_amount:-crop_amount]
         canvases[i], valid_hw[i] = letterbox(img, cache_size)
 
-    if n:
+    if todo:
         with cf.ThreadPoolExecutor(max_workers=workers) as ex:
-            list(ex.map(load, range(n)))
+            list(ex.map(load, todo))
     return canvases, valid_hw
 
 
@@ -76,11 +96,20 @@ class ImageStore:
     """Decode-once uint8 canvas cache for a list of image paths."""
 
     def __init__(self, paths: Sequence[str], cache_size: int = 320,
-                 crop_amount: int = 25, workers: int = 8):
+                 crop_amount: int = 25, workers: int = 8,
+                 use_native: bool = True):
         self.cache_size = cache_size
         self.crop_amount = crop_amount
         self.canvases, self.valid_hw = decode_canvas_batch(
-            paths, cache_size, crop_amount, workers)
+            paths, cache_size, crop_amount, workers, use_native)
+
+    @classmethod
+    def from_arrays(cls, canvases: np.ndarray, valid_hw: np.ndarray):
+        """A store over canvases that are already in memory."""
+        store = cls([], canvases.shape[1], crop_amount=0)
+        store.canvases = np.ascontiguousarray(canvases, dtype=np.uint8)
+        store.valid_hw = np.ascontiguousarray(valid_hw, dtype=np.int32)
+        return store
 
 
 @dataclasses.dataclass
@@ -126,6 +155,16 @@ class PairedImageData:
         self.meta_codes = (None if meta_codes is None
                            else np.asarray(meta_codes, dtype=np.int32))
         self.meta_vocab_sizes = meta_vocab_sizes
+
+    @classmethod
+    def from_canvases(cls, derm, derm_hw, clinic, clinic_hw, labels):
+        """A split over canvases that are already in memory (synthetic
+        data): nothing is decoded."""
+        data = cls([], [], labels, cache_size=derm.shape[1], crop_amount=0)
+        data.derm = ImageStore.from_arrays(derm, derm_hw)
+        data.clinic = ImageStore.from_arrays(clinic, clinic_hw)
+        data.n = len(derm)
+        return data
 
     @classmethod
     def from_meta(cls, meta, split: str, cache_size: int = 320, workers: int = 8):

@@ -8,13 +8,17 @@ are the derm draw's) behind the interface the trainers read from a dataset
 (`n`, `steps_per_epoch`, `batches`; sm3x_torch/data/pipeline.py): batches
 of a fixed size with labels, the last one padded by wrapping and masked,
 in a per-epoch permutation or, with `shuffle=False`, in order.
+`synthetic_paired_data` gives the same canvases, labels and epoch orders as
+a `PairedImageData`, which the device feeds (sm3x_torch.data.prefetch) take
+like a decoded split.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from sm3x_torch.data.pipeline import Batch, iter_batch_selections
+from sm3x_torch.data.pipeline import (Batch, PairedImageData,
+                                      iter_batch_selections)
 
 PairedBatch = Batch  # the batches' type, under its first name
 
@@ -60,3 +64,12 @@ class SyntheticPairedData:
                         clinic=self.clinic[sel], clinic_hw=self.clinic_hw[sel],
                         label=self.labels[sel], index=sel.astype(np.int32),
                         mask=mask)
+
+
+def synthetic_paired_data(n: int, canvas: int = 320,
+                          seed: int = 0) -> PairedImageData:
+    """`SyntheticPairedData(n, canvas, seed)`'s cases as a
+    `PairedImageData`."""
+    s = SyntheticPairedData(n, canvas, seed)
+    return PairedImageData.from_canvases(s.derm, s.derm_hw, s.clinic,
+                                         s.clinic_hw, s.labels)

@@ -21,11 +21,7 @@ def build_backbone(arch: str, num_classes: Optional[int] = None,
             raise ValueError(
                 f"--use-checkpoint={remat} is an attention-memory mode for "
                 f"ViT backbones; {arch} supports bare --use-checkpoint only")
-        if remat is True:
-            raise NotImplementedError(
-                f"{arch}: per-block remat (bare --use-checkpoint) of a ResNet "
-                f"is not in the PyTorch port yet (ROADMAP.md)")
-        return resnet_lib.build_resnet(arch, num_classes)
+        return resnet_lib.build_resnet(arch, num_classes, remat=bool(remat))
     if arch in vit_lib.VIT_SPECS:
         return vit_lib.build_vit(arch, num_classes, remat, img_size)
     raise ValueError(f"unknown backbone {arch!r}; have "

@@ -18,12 +18,31 @@ dict keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 MOMENTUM = 0.1  # torch convention; Flax momentum 0.9
 EPS = 1e-5
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside the block a train-mode `BatchNorm` normalises with the batch
+    statistics as always and leaves its running statistics and its step
+    count alone: for the second forward of a checkpointed block, which the
+    backward runs on a batch the statistics have already taken in."""
+    before = getattr(_state, "recomputing", False)
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = before
 
 
 class BatchNorm(nn.Module):
@@ -53,6 +72,11 @@ class BatchNorm(nn.Module):
             raise ValueError(f"BatchNorm in train mode needs more than one "
                              f"value per channel, got input {tuple(x.shape)}")
         var_before = self.running_var.clone()
+        if getattr(_state, "recomputing", False):
+            # the same call on copies: the same tensors saved for the
+            # backward, nothing moved
+            return F.batch_norm(x, self.running_mean.clone(), var_before,
+                                self.weight, self.bias, True, MOMENTUM, EPS)
         y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                          self.bias, True, MOMENTUM, EPS)
         # `.data`: autograd keeps running_var for the backward (which reads it

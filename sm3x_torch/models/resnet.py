@@ -9,6 +9,11 @@ The public input is NHWC, as in the JAX package: `forward` takes
 tensor without a copy. The output is the float32 pooled feature (B, C), or
 logits when `num_classes` is set. Batch norm follows the JAX package's
 running-variance convention (sm3x_torch.models.layers.BatchNorm).
+
+`remat=True` (bare --use-checkpoint) keeps only each residual block's input
+for the backward and runs the block again there, as the JAX package remats
+a block (sm3x/models/resnet.py:150-152). The second run leaves the batch-norm
+running statistics alone.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from sm3x_torch.models.layers import BatchNorm
+from sm3x_torch.models.layers import BatchNorm, recomputing
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
@@ -86,8 +92,9 @@ class ResNet(nn.Module):
 
     def __init__(self, block, layers: Sequence[int],
                  num_classes: Optional[int] = None, groups: int = 1,
-                 width_per_group: int = 64):
+                 width_per_group: int = 64, remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         self.relu = nn.ReLU(inplace=True)
@@ -121,11 +128,27 @@ class ResNet(nn.Module):
                 self.fc.in_features))
             nn.init.zeros_(self.fc.bias)
 
+    def _run_block(self, blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(x)
+        ran = []
+
+        def run(x):
+            if not ran:
+                ran.append(True)
+                return blk(x)
+            with recomputing():  # the backward's second forward
+                return blk(x)
+
+        return checkpoint(run, x, use_reentrant=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) NHWC."""
         x = x.permute(0, 3, 1, 2)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for blk in stage:
+                x = self._run_block(blk, x)
         x = x.mean(dim=(2, 3))
         x = x.to(torch.promote_types(x.dtype, torch.float32))  # bf16 -> f32
         if self.fc is not None:
@@ -153,9 +176,10 @@ FEAT_DIMS = {arch: 512 if spec[0] is BasicBlock else 2048
              for arch, spec in _SPECS.items()}
 
 
-def build_resnet(arch: str, num_classes: Optional[int] = None) -> ResNet:
+def build_resnet(arch: str, num_classes: Optional[int] = None,
+                 remat: bool = False) -> ResNet:
     block, layers, extra = _SPECS[arch]
-    return ResNet(block, layers, num_classes, **extra)
+    return ResNet(block, layers, num_classes, remat=remat, **extra)
 
 
 def feat_dim(arch: str) -> int:

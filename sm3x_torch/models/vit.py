@@ -169,6 +169,21 @@ class ViT(nn.Module):
             lecun_normal_(self.fc.weight, dim)
             nn.init.zeros_(self.fc.bias)
 
+    def pos_embed_for(self, grid) -> torch.Tensor:
+        """`pos_embed` on a (gh, gw) patch grid: as stored on the grid it was
+        made for, else its grid part resized bilinearly with half-pixel
+        centres, antialiased where it shrinks, the class token's row kept
+        (`jax.image.resize(..., "bilinear")` in sm3x/models/vit.py:197-211)."""
+        if tuple(grid) == self.grid:
+            return self.pos_embed
+        h0, w0 = self.grid
+        pos = self.pos_embed[:, 1:].reshape(1, h0, w0, self.dim)
+        pos = F.interpolate(pos.permute(0, 3, 1, 2), size=tuple(grid),
+                            mode="bilinear", align_corners=False,
+                            antialias=True)
+        pos = pos.permute(0, 2, 3, 1).reshape(1, grid[0] * grid[1], self.dim)
+        return torch.cat([self.pos_embed[:, :1], pos], dim=1)
+
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
@@ -184,14 +199,9 @@ class ViT(nn.Module):
         b = x.shape[0]
         x = self.patch_embed(x.permute(0, 3, 1, 2))  # NHWC in, NCHW view
         grid = tuple(x.shape[2:])
-        if grid != self.grid:
-            raise NotImplementedError(
-                f"a {grid} patch grid on a ViT made for {self.grid}: the "
-                f"bilinear pos_embed resize of sm3x/models/vit.py is not in "
-                f"the PyTorch port yet (ROADMAP.md)")
         x = x.flatten(2).transpose(1, 2)  # (B, gh * gw, dim), row-major grid
         cls = self.cls.expand(b, 1, self.dim).to(x.dtype)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed_for(grid).to(x.dtype)
         for blk in self.blocks():
             x = self._run_block(blk, x)
         feat = self.ln_final(x)[:, 0]

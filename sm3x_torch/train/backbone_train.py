@@ -18,10 +18,10 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from sm3x_torch.core import prng
+from sm3x_torch.data.prefetch import to_device, wrap_from_config
 from sm3x_torch.losses.ssl import ssl_loss
 from sm3x_torch.models.backbones import is_vit
 from sm3x_torch.models.simclr import build_ssl_model
@@ -34,32 +34,40 @@ from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 DATASETS = ("SevenPCBaseDataset", "SevenPCBaseDataset2")
 
 
+LATER = "is not in the PyTorch port yet (ROADMAP.md)"
+NOT_PORTED = "is not ported (ROADMAP.md, \"Do not port\")"
+
+
 def unsupported(cfg) -> list:
     """Settings of `cfg` outside what the port's stage 1 does yet, each with
     where it stands; an empty list when the run is within the slice."""
-    m, o, r, d = cfg.model, cfg.optim, cfg.run, cfg.data
-    later = "is not in the PyTorch port yet (ROADMAP.md)"
+    m, d = cfg.model, cfg.data
     checks = [
-        (m.arch_version == "trimodal", f"--arch-version trimodal {later}"),
+        (m.arch_version == "trimodal", f"--arch-version trimodal {LATER}"),
         (d.data_name not in DATASETS,
          f"--data-name {d.data_name}: the port's stage 1 takes "
-         f"{' or '.join(DATASETS)} (multi-crop SevenPCSwavDataset {later})"),
+         f"{' or '.join(DATASETS)} (multi-crop SevenPCSwavDataset {LATER})"),
         (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} is not ported "
          f"(measured harmful to feature quality, BENCH.md r4)"),
-        (bool(m.arch_weights), f"--arch-weights {later}"),
-        (o.use_lr_schedule, f"--use-lr-schedule {later}"),
-        (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
-         f"a device mesh (--mesh-data/--mesh-model) {later}; the port's "
-         f"stage 1 runs on one device (--world-size only groups negatives)"),
-        (r.ckpt_backend != "msgpack", f"--ckpt-backend {r.ckpt_backend} "
-         f"{later}"),
-        (r.save_on_preempt, f"--save-on-preempt {later}"),
-        (not d.cache_images, f"--no-cache-images (streaming) {later}"),
-        (d.device_feed not in ("auto", "host"),
-         f"--device-feed {d.device_feed} {later}; batches are uploaded "
-         f"each step"),
         (m.negatives not in ("local", "global"),
          f"--negatives {m.negatives}"),
+    ]
+    return [msg for bad, msg in checks if bad] + unsupported_run(
+        cfg, "stage 1 runs on one device (--world-size only groups "
+             "negatives)")
+
+
+def unsupported_run(cfg, one_device: str) -> list:
+    """The run settings that no stage of the port takes: a device mesh
+    (multi-GPU is queued) and the Orbax checkpoint backend (not ported)."""
+    r = cfg.run
+    checks = [
+        (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
+         f"a device mesh (--mesh-data/--mesh-model) {LATER}; the port's "
+         f"{one_device}"),
+        (r.ckpt_backend != "msgpack",
+         f"--ckpt-backend {r.ckpt_backend} {NOT_PORTED}; the port writes "
+         f".pth files"),
     ]
     return [msg for bad, msg in checks if bad]
 
@@ -125,6 +133,8 @@ class SSLTrainer(common.CheckpointableTrainer):
     """Owns the model, the optimizer and the epoch loop on one device; its
     checkpoints have `export_simclr_skin`'s key layout."""
 
+    scheduler = None
+
     def __init__(self, cfg, logger=None):
         problems = unsupported(cfg)
         if problems:
@@ -144,6 +154,8 @@ class SSLTrainer(common.CheckpointableTrainer):
             self.model, self.style = build_ssl_model(
                 m.arch_version, m.arch, m.proj_dim, amp=cfg.optim.amp,
                 remat=self.remat, img_size=tuple(cfg.data.img_sz))
+        if m.arch_weights:
+            self._load_arch_weights(str(m.arch_weights), m.arch)
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
@@ -161,8 +173,44 @@ class SSLTrainer(common.CheckpointableTrainer):
             modality_weights=tuple(cfg.modality_weights),
             joint_aug=cfg.data.data_name == "SevenPCBaseDataset2")
 
+    def _load_arch_weights(self, value: str, arch: str) -> None:
+        """--arch-weights: both encoders start from a torchvision-layout
+        ResNet state dict, a `.pth` path or an enum name ('IMAGENET1K_V1',
+        the reference's run.sh syntax) resolved against staged local files
+        with a sha256 check (sm3x_torch.utils.weight_registry). The port's
+        ResNet has torchvision's keys, so the load is strict and converts
+        nothing; the classifier's `fc.*` keys are dropped."""
+        from sm3x_torch.utils.checkpoint import load_state_dict_file
+        from sm3x_torch.utils.weight_registry import resolve_arch_weights
+
+        path = resolve_arch_weights(value, arch)
+        state = {k: v for k, v in load_state_dict_file(path).items()
+                 if not k.startswith("fc.")}
+        for branch in (self.model.derm_backbone, self.model.clinic_backbone):
+            branch.encoder.load_state_dict(state, strict=True)
+        self.logger.info(f"initialized encoders from '{path}' "
+                         f"(--arch-weights {value})")
+
+    def _apply_lr_schedule(self, steps_per_epoch: int) -> None:
+        """--use-lr-schedule: warm-up and cosine over the whole run, stepped
+        every iteration. Fresh runs only: the schedule's count starts at 0,
+        so a resumed run is refused."""
+        o = self.cfg.optim
+        if self.start_epoch > 0:
+            raise ValueError(
+                "--use-lr-schedule cannot resume mid-run: the schedule "
+                "count restarts at 0; rerun from scratch or drop the flag")
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, common.warmup_cosine_factor(
+                o.base_lr, o.final_lr, o.warmup_epochs, o.epochs,
+                steps_per_epoch, o.start_warmup))
+        self.logger.info(
+            f"lr schedule: warmup {o.warmup_epochs} epochs "
+            f"({o.start_warmup} -> {o.base_lr}), cosine to {o.final_lr} "
+            f"over {o.epochs} epochs x {steps_per_epoch} steps")
+
     def _upload(self, x) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return to_device(x, self.device)
 
     def train_epoch(self, data, epoch: int) -> dict:
         """One pass over `data` (any object with `steps_per_epoch(b)` and
@@ -182,6 +230,8 @@ class SSLTrainer(common.CheckpointableTrainer):
                 self._upload(batch.derm), self._upload(batch.derm_hw),
                 self._upload(batch.clinic), self._upload(batch.clinic_hw),
                 prng.step_seed(cfg.run.seed, epoch, it))
+            if self.scheduler is not None:
+                self.scheduler.step()
             pending.append((metrics["loss"], batch.derm.shape[0]))
             batch_time.update(time.time() - end)
             end = time.time()
@@ -193,9 +243,16 @@ class SSLTrainer(common.CheckpointableTrainer):
 
     def fit(self, data) -> list:
         """Train up to `cfg.optim.epochs` epochs, from `start_epoch` (0
-        unless resumed); returns each epoch's stats. Rank 0 writes `ckp_{epoch}.pth` every `save_freq` epochs and at the
-        end, and `checkpoint.pth` every `ckpt_freq` epochs."""
+        unless resumed); returns each epoch's stats. The data goes through
+        the feed that --device-feed names (sm3x_torch.data.prefetch). Rank 0
+        writes `ckp_{epoch}.pth` every `save_freq` epochs and at the end,
+        and `checkpoint.pth` every `ckpt_freq` epochs, off the loop's
+        thread; every file is whole when this returns."""
         cfg = self.cfg
+        data = wrap_from_config(data, self.device, cfg.data)
+        self.install_preemption_handler()
+        if cfg.optim.use_lr_schedule:
+            self._apply_lr_schedule(data.steps_per_epoch(cfg.optim.batch_size))
         history = []
         for epoch in range(self.start_epoch, cfg.optim.epochs):
             t0 = time.time()
@@ -206,4 +263,7 @@ class SSLTrainer(common.CheckpointableTrainer):
             self.logger.info(f"Epoch {epoch}: loss {stat['loss']:.4f} "
                              f"({(time.time() - t0) / 60:.2f} min)")
             self.epoch_checkpoint(epoch)
+            if self.preemption_break(epoch):
+                break
+        self.finish_checkpoints()
         return history

@@ -10,8 +10,12 @@ from __future__ import annotations
 
 import math
 import os
+import signal
+import threading
 
 import torch
+
+from sm3x_torch.data.prefetch import indexed
 
 
 def make_adamw(params, lr: float, wd: float = 5e-2,
@@ -81,6 +85,69 @@ def drain_losses(pending: list, meter, out: list) -> None:
     pending.clear()
 
 
+def warmup_cosine_factor(base_lr: float, final_lr: float, warmup_epochs: int,
+                         total_epochs: int, steps_per_epoch: int,
+                         start_warmup: float = 0.0):
+    """--use-lr-schedule as a `LambdaLR` factor: step -> lr(step) / base_lr
+    of the JAX package's `warmup_cosine_schedule` (sm3x/train/common.py:
+    105-130, optax's schedules). With warm-up the lr rises linearly from
+    `start_warmup` to `base_lr` over `warmup_epochs * steps_per_epoch` steps
+    and falls on a half cosine to `final_lr` at the last step;
+    `warmup_epochs=0` is the plain cosine from `base_lr` to `final_lr`,
+    with no first step at `start_warmup`."""
+    warm = warmup_epochs * steps_per_epoch
+    total = total_epochs * steps_per_epoch
+    if not base_lr:
+        return lambda step: 1.0
+    if warm == 0:
+        decay, alpha = max(total, 1), final_lr / base_lr
+
+        def plain(step: int) -> float:
+            cos = 0.5 * (1.0 + math.cos(math.pi * min(step, decay) / decay))
+            return (1.0 - alpha) * cos + alpha
+
+        return plain
+    decay = max(total, 2) - warm
+    if decay <= 0:
+        raise ValueError(f"the cosine needs steps after the warm-up: "
+                         f"{warm} warm-up steps of {total}")
+
+    def warm_then_cosine(step: int) -> float:
+        if step < warm:
+            lr = start_warmup + (base_lr - start_warmup) * step / warm
+        else:
+            cos = 0.5 * (1.0 + math.cos(
+                math.pi * min(step - warm, decay) / decay))
+            lr = final_lr + (base_lr - final_lr) * cos
+        return lr / base_lr
+
+    return warm_then_cosine
+
+
+def map_tensors(fn, obj):
+    """`obj` with `fn` applied to every tensor inside its dicts, lists and
+    tuples; anything else as it is."""
+    if torch.is_tensor(obj):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(fn, v) for v in obj)
+    return obj
+
+
+def write_checkpoint(paths, state: dict) -> None:
+    """Fetch `state` to the host once and write it to every path, each
+    through a temporary file beside it, so that a reader finds the old file
+    or the new one and never a part of one."""
+    host = map_tensors(lambda t: t.detach().cpu(), state)
+    for path in paths:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(host, tmp)
+        os.replace(tmp, path)
+
+
 def is_main_process() -> bool:
     """Rank 0, or no process group at all."""
     dist = torch.distributed
@@ -95,26 +162,144 @@ class CheckpointableTrainer:
     model's keys in the layout of the exported checkpoints, the optimizer's
     state beside them, and whatever else the trainer needs to go on
     (`extra_state`). `resume` reads one back, and every `fit` loop starts
-    at `start_epoch`."""
+    at `start_epoch`.
+
+    The epoch loop does not wait for a checkpoint: `save_async` clones the
+    state on the device and a background thread fetches, serialises and
+    writes it (one save in flight). Every `fit` ends in
+    `finish_checkpoints`, so `resume` and the end of the process find whole
+    files. With --save-on-preempt SIGTERM / SIGINT become a checkpoint and
+    a clean end of the loop at the next epoch boundary."""
 
     start_epoch: int = 0
     _best = None
+    _save_thread = None
+    _save_error = None
+    _preempt_signal = None
+    _orig_handlers = None
 
     def extra_state(self) -> dict:
-        """What a trainer keeps beside the model and the optimizer."""
+        """What a trainer keeps beside the model and the optimizer; tensors
+        as they are, on their device."""
         return {}
 
     def restore_extra_state(self, ckpt: dict) -> None:
         pass
 
-    def state_dict(self, epoch: int) -> dict:
+    def live_state(self, epoch: int) -> dict:
+        """The checkpoint's content with the tensors the run is using."""
         return {
             "epoch": epoch + 1,
-            "state_dict": {k: v.detach().cpu()
+            "state_dict": {k: v.detach()
                            for k, v in self.model.state_dict().items()},
             "optimizer": self.optimizer.state_dict(),
             **self.extra_state(),
         }
+
+    def state_dict(self, epoch: int) -> dict:
+        """The checkpoint's content on the host."""
+        return map_tensors(lambda t: t.detach().cpu(), self.live_state(epoch))
+
+    def save_async(self, paths, epoch: int) -> None:
+        """Write the state as it stands to `paths` (one path or several;
+        several share one fetch) without holding the loop for the transfer
+        and the disk: every tensor is cloned on its device first, so the
+        next step cannot change what is written, then a background thread
+        fetches, serialises and writes. One save is in flight at a time:
+        the one before is waited for here, which bounds the extra device
+        memory to one state."""
+        if isinstance(paths, str):
+            paths = [paths]
+        snap = map_tensors(lambda t: t.detach().clone(),
+                           self.live_state(epoch))
+        cloned, device = None, indexed(self.device)
+        if device.type == "cuda":
+            # the clones are queued on the loop's stream; the thread copies
+            # them out on a stream of its own, beside the next steps
+            cloned = torch.cuda.Event()
+            cloned.record(torch.cuda.current_stream(device))
+        self.flush_saves()
+        pending = [snap]   # the thread takes it out, and frees it when done
+        del snap
+
+        def work():
+            try:
+                state = pending.pop()
+                if cloned is None:
+                    write_checkpoint(paths, state)
+                    return
+                torch.cuda.set_device(device)
+                side = torch.cuda.Stream(device)
+                side.wait_event(cloned)
+                with torch.cuda.stream(side):
+                    write_checkpoint(paths, state)
+            except BaseException as e:  # raised again by flush_saves
+                self._save_error = e
+
+        self._save_thread = threading.Thread(
+            target=work, name="sm3x-torch-save", daemon=False)
+        self._save_thread.start()
+
+    def flush_saves(self) -> None:
+        """Wait for the save in flight; an error of its thread is raised
+        here."""
+        t, self._save_thread = self._save_thread, None
+        if t is not None:
+            t.join()
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise err
+
+    def finish_checkpoints(self) -> None:
+        """The end of every `fit`: the last write has landed, and the
+        signals have their earlier handlers back (nothing polls the flag
+        after the loop)."""
+        self.flush_saves()
+        self.uninstall_preemption_handler()
+
+    def install_preemption_handler(self) -> None:
+        """--save-on-preempt: SIGTERM / SIGINT set a flag that the epoch
+        loop polls through `preemption_break`. A second signal finds the
+        default disposition again, which ends the process at once."""
+        if not self.cfg.run.save_on_preempt:
+            return
+        if threading.current_thread() is not threading.main_thread():
+            self.logger.warning(
+                "--save-on-preempt ignored: trainer not in the main thread")
+            return
+        self._preempt_signal = None
+
+        def handler(signum, frame):
+            self._preempt_signal = signum
+            signal.signal(signum, signal.SIG_DFL)
+
+        self._orig_handlers = {
+            sig: signal.signal(sig, handler)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def uninstall_preemption_handler(self) -> None:
+        for sig, orig in (self._orig_handlers or {}).items():
+            signal.signal(sig, orig)
+        self._orig_handlers = {}
+
+    def preemption_break(self, epoch: int) -> bool:
+        """Polled at each epoch boundary. After a signal: the save in
+        flight is settled, rank 0 writes `checkpoint.pth` whatever
+        `ckpt_freq` says and logs how to resume, and the caller leaves the
+        loop. (Several processes would have to agree first; the port runs
+        one: ROADMAP.md, item 15.)"""
+        signum = self._preempt_signal
+        if signum is None:
+            return False
+        if not is_main_process():
+            return True
+        self.flush_saves()
+        where = os.path.join(self.cfg.run.log_path, "checkpoint.pth")
+        self.save(where, epoch)
+        self.logger.warning(
+            f"preemption signal {signum} caught: epoch {epoch} state saved; "
+            f"resume with --resume-path {where}")
+        return True
 
     def resume(self, path=None) -> bool:
         """--resume-path: load a `checkpoint.pth` or `ckp_*.pth` this
@@ -172,7 +357,9 @@ class CheckpointableTrainer:
                 "constant lr")
 
     def save(self, path: str, epoch: int):
-        torch.save(self.state_dict(epoch), path)
+        """Write the state now and return when the file is whole; the epoch
+        loop uses `save_async`."""
+        write_checkpoint([path], self.live_state(epoch))
 
     def guard_loss(self, epoch: int, loss: float):
         """--nan-guard: dump the state and stop on a non-finite epoch loss."""
@@ -186,13 +373,17 @@ class CheckpointableTrainer:
 
     def epoch_checkpoint(self, epoch: int):
         """Rank 0 writes `ckp_{epoch}.pth` every `save_freq` epochs and at
-        the end, and `checkpoint.pth` every `ckpt_freq` epochs."""
+        the end, and `checkpoint.pth` every `ckpt_freq` epochs, through
+        `save_async`: where both fall on one epoch they share one snapshot
+        and one fetch."""
         cfg = self.cfg
         if not is_main_process():
             return
+        paths = []
         if ((epoch + 1) % cfg.run.save_freq == 0
                 or epoch + 1 == cfg.optim.epochs):
-            self.save(os.path.join(cfg.run.log_path, f"ckp_{epoch}.pth"),
-                      epoch)
+            paths.append(os.path.join(cfg.run.log_path, f"ckp_{epoch}.pth"))
         if (epoch + 1) % max(cfg.run.ckpt_freq, 1) == 0:
-            self.save(os.path.join(cfg.run.log_path, "checkpoint.pth"), epoch)
+            paths.append(os.path.join(cfg.run.log_path, "checkpoint.pth"))
+        if paths:
+            self.save_async(paths, epoch)

@@ -28,10 +28,10 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from sm3x_torch.core import prng
+from sm3x_torch.data.prefetch import to_device, wrap_from_config
 from sm3x_torch.losses import cluster_ce
 from sm3x_torch.models.mlc import MLCModel
 from sm3x_torch.ops.augment import (MLC_TRAIN_AUG, modality_keys,
@@ -39,7 +39,7 @@ from sm3x_torch.ops.augment import (MLC_TRAIN_AUG, modality_keys,
 from sm3x_torch.ops.kmeans import spherical_kmeans
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
-from sm3x_torch.train.backbone_train import DATASETS
+from sm3x_torch.train.backbone_train import DATASETS, unsupported_run
 # a stage-1 file's two encoders; kept importable under its first name
 from sm3x_torch.utils.checkpoint import (  # noqa: F401
     load_encoder_state as load_extractor_state)
@@ -51,26 +51,14 @@ INIT_STREAM, KMEANS_STREAM = 999, 1000
 def unsupported(cfg) -> list:
     """Settings of `cfg` outside what the port's stage 2 does yet, each with
     where it stands; an empty list when the run is within the slice."""
-    o, r, d = cfg.optim, cfg.run, cfg.data
-    later = "is not in the PyTorch port yet (ROADMAP.md)"
+    d = cfg.data
     checks = [
         (d.data_name not in DATASETS,
          f"--data-name {d.data_name}: the port's stage 2 takes "
          f"{' or '.join(DATASETS)}"),
-        (o.use_lr_schedule, f"--use-lr-schedule {later}; stage 2 trains at "
-         f"a constant lr"),
-        (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
-         f"a device mesh (--mesh-data/--mesh-model) {later}; the port's "
-         f"stage 2 runs on one device"),
-        (r.ckpt_backend != "msgpack", f"--ckpt-backend {r.ckpt_backend} "
-         f"{later}"),
-        (r.save_on_preempt, f"--save-on-preempt {later}"),
-        (not d.cache_images, f"--no-cache-images (streaming) {later}"),
-        (d.device_feed not in ("auto", "host"),
-         f"--device-feed {d.device_feed} {later}; batches are uploaded "
-         f"each step"),
     ]
-    return [msg for bad, msg in checks if bad]
+    return [msg for bad, msg in checks if bad] + unsupported_run(
+        cfg, "stage 2 runs on one device")
 
 
 def augment_pair(seed: int, derm, derm_hw, clinic, clinic_hw, mean, std,
@@ -219,14 +207,14 @@ class MLCTrainer(common.CheckpointableTrainer):
         """The memory bank goes into every checkpoint, so a resumed run
         clusters from the rows the run before it left and skips the init
         pass."""
-        return {} if self.bank is None else {"bank": self.bank.cpu()}
+        return {} if self.bank is None else {"bank": self.bank}
 
     def restore_extra_state(self, ckpt: dict) -> None:
         if "bank" in ckpt:
             self.bank = ckpt["bank"].to(self.device)
 
     def _upload(self, x) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return to_device(x, self.device)
 
     def _upload_batch(self, batch):
         return (self._upload(batch.derm), self._upload(batch.derm_hw),
@@ -283,10 +271,15 @@ class MLCTrainer(common.CheckpointableTrainer):
     def fit(self, data) -> list:
         """Fill the bank if it is empty (a resumed run brings its own),
         then train up to `cfg.optim.epochs` epochs from `start_epoch`;
-        returns each epoch's stats. Rank 0 writes `ckp_{epoch}.pth`
-        every `save_freq` epochs and at the end, and `checkpoint.pth` every
-        `ckpt_freq` epochs."""
+        returns each epoch's stats. The init pass and the epochs read the
+        data through the feed that --device-feed names. Rank 0 writes
+        `ckp_{epoch}.pth` every `save_freq` epochs and at the end, and
+        `checkpoint.pth` every `ckpt_freq` epochs, off the loop's thread;
+        every file is whole when this returns."""
         cfg = self.cfg
+        self.warn_unconsumed_lr_schedule()
+        data = wrap_from_config(data, self.device, cfg.data)
+        self.install_preemption_handler()
         if self.bank is None:
             self.init_memory(data)
         history = []
@@ -299,4 +292,7 @@ class MLCTrainer(common.CheckpointableTrainer):
             self.logger.info(f"Epoch {epoch}: loss {stat['loss']:.4f} "
                              f"({(time.time() - t0) / 60:.2f} min)")
             self.epoch_checkpoint(epoch)
+            if self.preemption_break(epoch):
+                break
+        self.finish_checkpoints()
         return history

@@ -28,12 +28,14 @@ import torch
 
 from sm3x_torch import CLASSES_NAME, METRICS_NAME
 from sm3x_torch.core import prng
+from sm3x_torch.data.prefetch import (resident_nbytes, to_device,
+                                      wrap_from_config)
 from sm3x_torch.losses import weighted_multilabel_ce
 from sm3x_torch.metrics import (compute_stage_metrics,
                                 mean_average_precision, write_results_csv)
 from sm3x_torch.ops.augment import eval_resize_batch
 from sm3x_torch.train import common
-from sm3x_torch.train.backbone_train import DATASETS
+from sm3x_torch.train.backbone_train import DATASETS, unsupported_run
 from sm3x_torch.train.mlc_train import augment_pair
 from sm3x_torch.utils.logging import generate_stat_text
 from sm3x_torch.utils.misc import (AverageMeter, BestRecorder,
@@ -43,25 +45,14 @@ from sm3x_torch.utils.misc import (AverageMeter, BestRecorder,
 def unsupported(cfg) -> list:
     """Settings of `cfg` outside what the port's eval stages do yet, each
     with where it stands; an empty list when the run is within the slice."""
-    r, d = cfg.run, cfg.data
-    later = "is not in the PyTorch port yet (ROADMAP.md)"
+    d = cfg.data
     checks = [
         (d.data_name not in DATASETS,
          f"--data-name {d.data_name}: the port's eval stages take "
          f"{' or '.join(DATASETS)}"),
-        (bool(cfg.model.arch_weights), f"--arch-weights {later}"),
-        (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
-         f"a device mesh (--mesh-data/--mesh-model) {later}; the port's "
-         f"eval stages run on one device"),
-        (r.ckpt_backend != "msgpack", f"--ckpt-backend {r.ckpt_backend} "
-         f"{later}"),
-        (r.save_on_preempt, f"--save-on-preempt {later}"),
-        (not d.cache_images, f"--no-cache-images (streaming) {later}"),
-        (d.device_feed not in ("auto", "host"),
-         f"--device-feed {d.device_feed} {later}; batches are uploaded "
-         f"each step"),
     ]
-    return [msg for bad, msg in checks if bad]
+    return [msg for bad, msg in checks if bad] + unsupported_run(
+        cfg, "eval stages run on one device")
 
 
 def supervised_update(forward_train: Callable, optimizer, derm_view,
@@ -128,8 +119,9 @@ def full_float32(*autocast_modules):
 
 
 def upload_batch(batch, device) -> tuple:
-    """(derm, derm_hw, clinic, clinic_hw) of a host batch on `device`."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    """(derm, derm_hw, clinic, clinic_hw) of a batch on `device`: uploaded
+    now from a host batch, taken as they are where a feed put them there."""
+    return tuple(to_device(x, device)
                  for x in (batch.derm, batch.derm_hw, batch.clinic,
                            batch.clinic_hw))
 
@@ -225,9 +217,16 @@ class SupervisedTrainer(common.CheckpointableTrainer):
 
     def fit(self, train_data, val_data) -> float:
         """Train up to `cfg.optim.epochs` epochs from `start_epoch`;
-        returns the best val AUC_AVG."""
+        returns the best val AUC_AVG. Both splits go through the feed that
+        --device-feed names, under one memory budget: the validation split
+        is charged what the training split pinned."""
         cfg = self.cfg
         self.warn_unconsumed_lr_schedule()
+        train_data = wrap_from_config(train_data, self.device, cfg.data)
+        val_data = wrap_from_config(
+            val_data, self.device, cfg.data,
+            reserved_bytes=resident_nbytes(train_data))
+        self.install_preemption_handler()
         summary = {}
         if self.per_label_summary:
             for prefix in ("train", "val"):
@@ -260,7 +259,10 @@ class SupervisedTrainer(common.CheckpointableTrainer):
                     "--------------------- Summary Statistics "
                     "----------------\n" + generate_stat_text(
                         tr, va, summary, METRICS_NAME, CLASSES_NAME))
+            if self.preemption_break(epoch):
+                break
         self.write_best()
+        self.finish_checkpoints()
         return best_auc
 
     def write_results(self, data, path: str) -> str:

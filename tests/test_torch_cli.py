@@ -7,6 +7,7 @@ outside the slice are refused with a message."""
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -65,11 +66,12 @@ LATER = "not in the PyTorch port yet"
     (["--data-name", "SevenPCSwavDataset"], LATER),
     # not to be ported at all: K = 4 hurt the features
     (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
-    (["--arch-weights", "w.pth"], LATER),
-    (["--save-on-preempt"], LATER),
-    (["--use-lr-schedule"], LATER),
+    (["--mesh-data", "2"], LATER),
+    (["--coordinator", "localhost:1234"], LATER),
+    (["--data-name", "ISIC17Dataset"], LATER),
     (["--mesh-model", "2"], LATER),
-    (["--use-checkpoint"], LATER)])
+    (["--data-name", "ISIC18Dataset"], LATER),
+    (["--ckpt-backend", "orbax"], "is not ported")])
 def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag, said):
     res = _run(COMMON + ["--data-path", dataset, "--log-path",
                          str(tmp_path / "bk")] + flag, str(tmp_path))
@@ -124,3 +126,77 @@ def test_vit_trainer_resolves_use_checkpoint(tmp_path, flag, mode):
     said = any("defaulting --use-checkpoint to 'attn'" in r.getMessage()
                for r in records)
     assert said == (flag is False)
+
+
+# ---------------------------------------------------------------------------
+# The feeds: the same samples at every step, whatever brings them
+# ---------------------------------------------------------------------------
+
+def _train_in_process(dataset, log, extra):
+    from sm3x_torch.cli.apps import backbone_train_main
+
+    argv = [a for a in COMMON] + ["--data-path", dataset, "--log-path", log]
+    argv[argv.index("--epochs") + 1] = "2"
+    argv[argv.index("--save-freq") + 1] = "2"
+    backbone_train_main(argv + extra)
+    return torch.load(os.path.join(log, "ckp_1.pth"), weights_only=True)
+
+
+@pytest.fixture(scope="module")
+def host_run(dataset, tmp_path_factory):
+    root = tmp_path_factory.mktemp("feeds")
+    state = _train_in_process(dataset, str(root / "host"),
+                              ["--device-feed", "host"])
+    shutil.rmtree(root, ignore_errors=True)   # ~0.3 GB a checkpoint
+    return state
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("resident", ["--device-feed", "resident"]),
+    ("prefetch", ["--device-feed", "prefetch", "--prefetch-depth", "1"]),
+    ("auto", []),
+    ("streaming", ["--no-cache-images"]),
+    ("streaming_host", ["--no-cache-images", "--device-feed", "host"])])
+def test_every_feed_writes_a_bit_identical_checkpoint(dataset, tmp_path,
+                                                      host_run, name, flags):
+    """Two epochs of stage 1 (16 train cases at batch 8) under each feed
+    against `--device-feed host`: model and optimizer state bit for bit."""
+    got = _train_in_process(dataset, str(tmp_path / name), flags)
+    assert got["epoch"] == host_run["epoch"] == 2
+    assert list(got["state_dict"]) == list(host_run["state_dict"])
+    for k, v in host_run["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], v), k
+    a, b = got["optimizer"]["state"], host_run["optimizer"]["state"]
+    assert list(a) == list(b) and len(a) > 0
+    for i in a:
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(a[i][key], b[i][key]), (i, key)
+    with open(os.path.join(tmp_path, name, "configs.txt")) as f:
+        text = f.read()
+    assert ("cache_images: False" in text) == name.startswith("streaming")
+    shutil.rmtree(tmp_path / name, ignore_errors=True)
+
+
+def test_cli_takes_the_flags_this_slice_ported(dataset, tmp_path):
+    """--arch-weights <file>, --use-lr-schedule, --save-on-preempt and bare
+    --use-checkpoint on a ResNet in one run."""
+    from sm3x_torch.models.resnet import build_resnet
+
+    weights = str(tmp_path / "r18.pth")
+    torch.manual_seed(3)
+    torch.save(build_resnet("resnet18", num_classes=10).state_dict(), weights)
+    log = str(tmp_path / "flags")
+    res = _run(COMMON + ["--data-path", dataset, "--log-path", log,
+                         "--arch-weights", weights, "--use-lr-schedule",
+                         "--warmup-epochs", "0", "--save-on-preempt",
+                         "--use-checkpoint", "--ckpt-keep", "5"],
+               str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    out = res.stdout + res.stderr
+    assert "not in the PyTorch port yet" not in out
+    assert f"initialized encoders from '{weights}'" in out
+    assert "lr schedule: warmup 0 epochs" in out
+    m = re.search(r"Epoch 0: loss (\S+)", out)
+    assert m and math.isfinite(float(m.group(1)))
+    assert os.path.exists(os.path.join(log, "ckp_0.pth"))
+    shutil.rmtree(log, ignore_errors=True)   # ~0.3 GB

@@ -73,7 +73,10 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.train.linear_probe", "sm3x_torch.api",
               "sm3x_torch.reproduce", "inference_torch",
               "tools/mlc_eval_torch", "tools/backbone_eval_torch",
-              "tools/reproduce_results_torch"):
+              "tools/reproduce_results_torch", "sm3x_torch.serve",
+              "sm3x_torch.serve_http", "sm3x_torch.data.prefetch",
+              "sm3x_torch.data.device_data", "sm3x_torch.data.streaming",
+              "sm3x_torch.native.loader", "sm3x_torch.utils.weight_registry"):
         assert m in res["modules"]
     assert res["loaded"] == [], (
         f"modules of the JAX package or of JAX loaded: {res['loaded']}")
@@ -115,6 +118,36 @@ def test_metrics_need_numpy_alone():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["0.875", "[]"]
+
+
+def test_serving_arrays_needs_no_image_decoder():
+    """Importing the server and predicting from numpy images that fit the
+    canvas loads neither OpenCV nor PIL: the serving machine may have
+    neither."""
+    probe = ("import sys, numpy as np; "
+             "import sm3x_torch.serve_http; "
+             "from sm3x_torch.serve import BucketedPredictor; "
+             "p = BucketedPredictor(); p.buckets, p.canvas = [4], 64; "
+             "p._call = lambda b, d, dh, c, ch: "
+             "[np.zeros((b, k), np.float32) for k in p.num_classes]; "
+             "img = [np.zeros((60, 64, 3), np.uint8)] * 3; "
+             "print(len(p.predict(img, img)), p.predict(img, img)[0].shape); "
+             "print(sorted(k for k in sys.modules "
+             "if k.split('.')[0] in ('cv2', 'PIL', 'sm3x', 'jax')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines() == ["8 (3, 5)", "[]"]
+
+
+def test_packaging_names_the_port_s_server_and_loader():
+    text = open(os.path.join(ROOT, "pyproject.toml")).read()
+    assert 'sm3x-torch-serve = "sm3x_torch.serve_http:main"' in text
+    assert '"sm3x_torch.native" = ["loader.cpp"]' in text
+    a = open(os.path.join(ROOT, "sm3x", "native", "loader.cpp"), "rb").read()
+    b = open(os.path.join(ROOT, "sm3x_torch", "native", "loader.cpp"),
+             "rb").read()
+    assert a == b
 
 
 def test_run_torch_sh_names_the_port_s_tools():

@@ -729,3 +729,165 @@ def test_supervised_train_step_on_card_matches_cpu(card, finetune):
     assert frozen and all(
         torch.equal(gpu_model.state_dict()[n].cpu(),
                     cpu_model.state_dict()[n]) for n in frozen)
+
+
+# ---------------------------------------------------------------------------
+# Serving and the data feed on the card (no kernel of the port runs in
+# them; the CUDA graphs, the pinned ring and the side stream exist only here)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_predictor(card):
+    from sm3x_torch.api import build_evaluator
+    from sm3x_torch.serve import Predictor
+
+    torch.manual_seed(0)
+    model = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16)
+    model.to(card).to(memory_format=torch.channels_last)
+    return Predictor(model, MEAN, STD, test_sz=64, buckets=(1, 4, 16),
+                     canvas=96)
+
+
+def _raw(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (int(rng.integers(60, 140)),
+                                  int(rng.integers(60, 140)), 3),
+                         dtype=np.uint8) for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 16, 21])
+def test_graph_replay_equals_the_eager_forward(small_predictor, n):
+    """Every bucket's graph against the eager forward on the same padded
+    canvases (rtol / atol 1e-5), rows summing to 1; 21 cases take bucket 16
+    twice."""
+    p = small_predictor
+    assert sorted(p._graphs) == [1, 4, 16]
+    seen = []
+    call = p._call
+
+    def spy(b, *arrays):
+        out = call(b, *arrays)
+        seen.append((b, arrays, np.concatenate(out, -1)))
+        return out
+
+    p._call = spy
+    try:
+        out = p.predict(_raw(n, n), _raw(n, 50 + n))
+    finally:
+        del p._call
+    assert [b for b, _, _ in seen] == {1: [1], 3: [4], 4: [4], 16: [16],
+                                       21: [16, 16]}[n]
+    assert out[0].shape == (n, 5)
+    for head in out:
+        np.testing.assert_allclose(head.sum(-1), 1.0, rtol=1e-5)
+    for b, arrays, packed in seen:
+        eager = p._forward(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                             for a in arrays))
+        _close(torch.from_numpy(packed), eager, rtol=1e-5, atol=1e-5)
+
+
+def test_graph_replay_is_safe_from_another_thread(small_predictor):
+    import threading
+
+    p = small_predictor
+    derm, clinic = _raw(3, 7), _raw(3, 8)
+    want = p.predict(derm, clinic)
+    got = []
+    t = threading.Thread(target=lambda: got.append(p.predict(derm, clinic)))
+    t.start()
+    t.join(60)
+    assert got and all(np.array_equal(a, b) for a, b in zip(got[0], want))
+
+
+@pytest.fixture(scope="module")
+def paired(card):
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+
+    return synthetic_paired_data(20, canvas=96, seed=2)
+
+
+def _same_batches(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for f in ("derm", "derm_hw", "clinic", "clinic_hw"):
+            a = getattr(g, f)
+            assert a.is_cuda and torch.equal(
+                a.cpu(), torch.from_numpy(getattr(w, f))), f
+        assert np.array_equal(g.index, w.index)
+        assert np.array_equal(g.mask, w.mask)
+        assert np.array_equal(g.label, w.label)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_under_a_side_stream_equals_host_batches(card, paired,
+                                                          depth):
+    """Two epochs, the wrap-padded last batch included, with work queued
+    on the consumer's stream between the batches."""
+    import threading
+
+    from sm3x_torch.data.prefetch import PrefetchData
+
+    feed = PrefetchData(paired, card, depth=depth)
+    busy = torch.randn(2048, 2048, device=card)
+    for epoch in (0, 1):
+        got = []
+        for b in feed.batches(8, epoch, 5):
+            busy = busy @ busy.T * 1e-4      # keep the device at work
+            got.append(b)
+        _same_batches(got, paired.batches(8, epoch, 5))
+    assert len(feed._ring.slots) == depth + 1
+    assert all(s["bufs"][0].is_pinned() for s in feed._ring.slots if s)
+    it = feed.batches(8, 0, 5)
+    next(it)
+    it.close()
+    assert not [t for t in threading.enumerate()
+                if t.name == "sm3x-torch-prefetch" and t.is_alive()]
+
+
+def test_resident_feed_equals_host_batches(card, paired):
+    from sm3x_torch.data.device_data import DeviceData
+    from sm3x_torch.data.prefetch import resident_nbytes, wrap_for_device
+
+    feed = wrap_for_device(paired, card)
+    assert isinstance(feed, DeviceData)
+    assert resident_nbytes(feed) == 20 * 2 * 96 * 96 * 3
+    for epoch, shuffle in ((0, True), (1, True), (0, False)):
+        _same_batches(feed.batches(8, epoch, 5, shuffle),
+                      paired.batches(8, epoch, 5, shuffle))
+
+
+def test_async_save_on_the_card_writes_the_snapshot(card, tmp_path):
+    from sm3x_torch.core.config import SSLConfig
+    from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.train import common
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    cfg = SSLConfig()
+    cfg.model.arch, cfg.model.proj_dim = "resnet18", 16
+    cfg.data.img_sz = (64, 64)
+    cfg.optim.batch_size, cfg.optim.amp = 8, False
+    cfg.run.device, cfg.run.log_path, cfg.run.world_size = "cuda", str(
+        tmp_path), 2
+    trainer = SSLTrainer(cfg)
+    data = SyntheticPairedData(8, canvas=96, seed=0)
+    batch = next(data.batches(8))
+    args = [trainer._upload(x) for x in (batch.derm, batch.derm_hw,
+                                         batch.clinic, batch.clinic_hw)]
+    trainer.train_step(*args, 1)
+    want = common.map_tensors(lambda t: t.detach().cpu().clone(),
+                              trainer.live_state(0))
+    path = str(tmp_path / "ckp_0.pth")
+    trainer.save_async(path, 0)
+    for it in (2, 3):
+        trainer.train_step(*args, it)
+    trainer.finish_checkpoints()
+    got = torch.load(path, map_location="cpu", weights_only=True)
+    a, b = [], []
+    common.map_tensors(a.append, got)
+    common.map_tensors(b.append, want)
+    assert len(a) == len(b) > 0
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    live = []
+    common.map_tensors(live.append, trainer.state_dict(0))
+    assert any(not torch.equal(x, y) for x, y in zip(a, live))

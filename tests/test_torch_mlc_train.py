@@ -312,9 +312,9 @@ def test_trainer_clusters_then_trains(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("run.save_on_preempt", True), ("run.mesh_model", 2),
-    ("run.ckpt_backend", "orbax"), ("data.cache_images", False),
-    ("data.device_feed", "resident"), ("optim.use_lr_schedule", True),
+    ("run.mesh_data", 2), ("run.mesh_model", 2),
+    ("run.ckpt_backend", "orbax"), ("data.data_name", "ISIC17Dataset"),
+    ("data.data_name", "ISIC18Dataset"), ("run.mesh_model", 4),
     ("data.data_name", "SevenPCSwavDataset")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
     cfg = _cfg(tmp_path)
@@ -322,6 +322,18 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
     setattr(getattr(cfg, part), name, value)
     with pytest.raises(ValueError):
         mlc_train.MLCTrainer(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("run.save_on_preempt", True), ("data.cache_images", False),
+    ("data.device_feed", "resident"), ("data.device_feed", "prefetch"),
+    ("optim.use_lr_schedule", True), ("run.ckpt_keep", 7)])
+def test_trainer_takes_the_feed_and_loop_settings(tmp_path, field, value):
+    cfg = _cfg(tmp_path)
+    part, name = field.split(".")
+    setattr(getattr(cfg, part), name, value)
+    assert mlc_train.unsupported(cfg) == []
+    mlc_train.MLCTrainer(cfg)
 
 
 def test_joint_aug_shares_the_pair_parameters():
@@ -395,7 +407,7 @@ def test_cli_trains_two_epochs_from_a_stage1_checkpoint(tmp_path):
 
 
 def test_cli_refuses_a_flag_outside_the_slice(tmp_path):
-    res = _run("mlc_train_torch.py", ["--device", "cpu", "--use-lr-schedule",
+    res = _run("mlc_train_torch.py", ["--device", "cpu", "--mesh-model", "2",
                                       "--log-path", str(tmp_path / "m")],
                str(tmp_path))
     assert res.returncode != 0

@@ -151,15 +151,15 @@ def test_batchnorm_running_var_is_biased():
 
 
 def test_vit_backbones_point_at_the_roadmap():
-    """The ViTs are ported; what of them is not yet points at the roadmap:
-    a patch grid other than the one pos_embed was made for, and per-block
-    remat of a ResNet."""
+    """The ViTs are ported, and what once pointed at the roadmap runs: a
+    patch grid other than the one pos_embed was made for (resized,
+    tests/test_torch_trainer_leftovers.py) and per-block remat of a
+    ResNet."""
     vit = backbones.build_backbone("vit_t16", img_size=32)
     with torch.no_grad():
         assert vit(torch.zeros(1, 32, 32, 3)).shape == (1, 192)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vit(torch.zeros(1, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbones.build_backbone("resnet18", remat=True)
+        assert vit(torch.zeros(1, 64, 64, 3)).shape == (1, 192)
+    assert backbones.build_backbone("resnet18", remat=True).remat is True
+    assert backbones.build_backbone("resnet18").remat is False
     with pytest.raises(ValueError):
         backbones.build_backbone("resnet51")
