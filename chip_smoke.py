@@ -96,11 +96,31 @@ Phases, each printing its lines:
            --use-checkpoint flash): attention through K3 forward and
            backward, 48 launches of each a step, every one the tensor-core
            kernel; losses, launch counts, step time, images/s, peak memory
+  dist     [main]'s recipe under torch.distributed, cuDNN deterministic:
+           leg A, a world-size-1 NCCL group through the port's
+           distributed_initialize, SSLTrainer.fit over 3 steps under DDP
+           with the global-batch BatchNorm, in bf16 against one process on
+           the same BatchNorm kernels (losses within 1e-3 relative) and in
+           float32 against the plain trainer (within 1e-4), parameters
+           within Adam's step bound (6.34 x lr a step plus rounding);
+           launches K1 4, K2f 1, K2b 1 a step; the bf16 step time against
+           the plain trainer's (in turns), the device's busy time, the
+           all-reduce bytes a step and one BatchNorm against F.batch_norm;
+           leg B, two
+           processes on the one card over gloo with CUDA tensors, one
+           float32 step each at 48 rows against the one-process step, both
+           ranks' states identical; leg C, two NCCL ranks where two cards
+           are there
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--profile DIR`, the main, stage2, eval, probe and vit phases also
-write the device-time tables of three traced steps to DIR/profile_step.txt,
-profile_stage2.txt, profile_eval.txt, profile_probe.txt and profile_vit.txt.
+With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy)
+only those phases run after device and build, and no result is printed.
+
+With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
+also write the device-time tables of three traced steps to
+DIR/profile_step.txt, profile_stage2.txt, profile_eval.txt,
+profile_probe.txt, profile_vit.txt and profile_dist_plain.txt /
+profile_dist_dist.txt.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Any
@@ -111,6 +131,7 @@ The script imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -668,9 +689,10 @@ def phase_step() -> None:
         raise AssertionError("parameters after one step disagree")
 
 
-def profile_steps(step, n: int, out_dir: str, name: str) -> None:
+def profile_steps(step, n: int, out_dir: str, name: str) -> dict:
     """torch.profiler over step(0) .. step(n - 1): device time by kernel,
-    per step, and the device's busy share of the host-clock window."""
+    per step, and the device's busy share of the host-clock window; returns
+    `profile_device`'s result."""
     res = profile_device(step, n)
     rows, key = res["rows"], res["field"]
     busy_us = res["busy_ms"] * 1e3 * n
@@ -689,6 +711,7 @@ def profile_steps(step, n: int, out_dir: str, name: str) -> None:
         f.write(res["prof"].key_averages().table(
             sort_by=key, row_limit=80, max_name_column_width=100))
     log(f"  full table: {path}")
+    return res
 
 
 def kernel_counters():
@@ -2049,6 +2072,415 @@ def feed_streaming():
     return dict(native=native, decode_ms=decode_s * 1e3)
 
 
+# [dist]: the stage-1 step at [main]'s recipe under torch.distributed
+DIST_STEPS = 3
+# the distributed run against the plain one-process trainer, a loss limit
+# relative a step. float32 (TF32 off): measured <= 1.7e-5 on an H100. bf16:
+# the global-batch BatchNorm's kernels round otherwise than F.batch_norm's,
+# and bf16 carries that through the network: the swap alone, in one
+# process, moves the losses by 1.8e-3, 9.2e-3 and 5.1e-3 at these batches
+# (float32: 1e-6 to 1.7e-5), so the limit sits above that and below what
+# a BatchNorm normalising with half the batch's statistics reads
+# (tools/dist_controls_torch.py)
+DIST_LOSS_RTOL = {"float32": 1e-4, "bf16": 1.5e-2}
+# the update against the plain trainer's: the share of parameters more
+# than 0.1 x lr apart. Adam's first step is about lr x sign(g) an entry,
+# so a wrong gradient moves tens of percent of them by ~2 lr; rounding
+# moves 0.5% after one float32 step and 8.2% after three (H100). In bf16
+# rounding alone moves 88%, so only the loss holds bf16
+DIST_SHARE_MAX = {1: 0.02, DIST_STEPS: 0.2}
+BN_SHAPE = (96, 256, 56, 56)   # a ResNet-50 layer1 output at batch 96
+# the global-batch BatchNorm at world size 2 against F.batch_norm on the
+# whole batch: relative Frobenius error of y, dx, the ranks' summed dw and
+# db, and the running statistics. float32: summation order only (the
+# gradient's parts along 1 and x cancel, which magnifies it); bf16
+# against float32 arithmetic on the same bf16 inputs: bf16's rounding of y
+# and dx (2^-9 relative an entry)
+BN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def params_diff(a, b, far: float):
+    """(max abs difference, share of entries beyond `far`) of two models'
+    parameters."""
+    worst, beyond, total = 0.0, 0, 0
+    for p, q in zip(a.parameters(), b.parameters()):
+        d = (p.detach().float() - q.detach().float()).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > far).sum())
+        total += d.numel()
+    return worst, beyond / total
+
+
+def state_digest(module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in module.state_dict().values():
+        h.update(t.detach().contiguous().view(-1).cpu().numpy().view(
+            np.uint8).data)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def plain_batch_norm():
+    """Under a process group: the port's BatchNorm as it runs without one
+    (F.batch_norm), for the plain trainer's steps timed in turns with the
+    distributed trainer's."""
+    from sm3x_torch.models import layers
+
+    real = layers.is_distributed
+    layers.is_distributed = lambda: False
+    try:
+        yield
+    finally:
+        layers.is_distributed = real
+
+
+def bn_ms() -> float:
+    """Forward and backward of the port's BatchNorm(256) in train mode on
+    BN_SHAPE, bf16 channels_last, the kernels alone (torch.profiler, 20
+    calls): F.batch_norm without a process group, the global-batch path
+    under one."""
+    from sm3x_torch.models.layers import BatchNorm
+
+    bn = BatchNorm(BN_SHAPE[1]).cuda().train()
+    x = torch.randn(BN_SHAPE, device="cuda", dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last).requires_grad_(True)
+    g = torch.randn_like(x)
+
+    def call():
+        x.grad = None
+        bn(x).backward(g)
+
+    return kernel_ms(call, reps=20)
+
+
+def all_reduce_bytes(fn):
+    """(fn's result, bytes and calls through torch.distributed.all_reduce
+    while it ran): the BatchNorm backward's sums and the reported loss;
+    DDP's gradient buckets go through its reducer and are counted apart."""
+    import torch.distributed as dist
+
+    real, seen = dist.all_reduce, [0, 0]
+
+    def counting(t, *a, **k):
+        seen[0] += t.numel() * t.element_size()
+        seen[1] += 1
+        return real(t, *a, **k)
+
+    dist.all_reduce = counting
+    try:
+        out = fn()
+    finally:
+        dist.all_reduce = real
+    return out, seen[0], seen[1]
+
+
+def dist_check(tag: str, ref, ref_losses, trainer, losses, arith: str,
+               say=log) -> bool:
+    """Losses and parameters of a distributed run against a one-process
+    run from the same initial weights and batches; True where they hold:
+    each loss within DIST_LOSS_RTOL, and in float32 the share of entries
+    more than 0.1 x lr apart within DIST_SHARE_MAX."""
+    lr = trainer.cfg.optim.base_lr
+    rtol = DIST_LOSS_RTOL[arith]
+    ok = len(losses) == len(ref_losses)
+    for i, (a, b) in enumerate(zip(losses, ref_losses)):
+        rel = abs(a - b) / abs(b)
+        say(f"  {tag} step {i}: loss {a:.6f} against {b:.6f}, relative "
+            f"{rel:.2e} (tolerance {rtol:g})")
+        ok &= math.isfinite(a) and rel <= rtol
+    worst, share = params_diff(trainer.model, ref.model, 0.1 * lr)
+    # Adam's step is at most lr (1 - b1) / sqrt(1 - b2) = 3.17 lr an entry
+    # whatever the gradient (Kingma and Ba, 2.1), so two runs from one start
+    # differ by at most twice that a step, plus float32 rounding of
+    # parameters up to 2 in magnitude
+    tol = len(losses) * (2 * 3.17 * lr + 2.5e-7)
+    share_max = DIST_SHARE_MAX[len(losses)] if arith == "float32" else None
+    say(f"  {tag} parameters after {len(losses)} step(s): max abs diff "
+        f"{worst:.3e} (tolerance {tol:.2e}), {100 * share:.3f}% of entries "
+        f"beyond 0.1 x lr ("
+        + (f"tolerance {100 * share_max:g}%)" if share_max else
+           "not held in bf16)"))
+    return ok and worst <= tol and (share_max is None or share <= share_max)
+
+
+def bn_world_check(say) -> bool:
+    """The port's BatchNorm in train mode on this rank's rows of a global
+    batch, on the card, against F.batch_norm on the whole batch in float32:
+    y and dx of the rank's rows, dw and db summed over the ranks, the
+    running statistics. (N, C, H, W) channels_last in float32 and bf16, and
+    (N, C) as the projectors give it; a seeded batch with means and a
+    gradient that has a part along x, so that each of the global sums
+    matters. True where every error is within BN_RTOL."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from sm3x_torch.models.layers import EPS, MOMENTUM, BatchNorm
+    from sm3x_torch.parallel import process_info
+
+    rank, world = process_info()
+    ok = True
+    cases = ((torch.float32, BN_SHAPE), (torch.bfloat16, BN_SHAPE),
+             (torch.float32, (2 * MAIN_BATCH, 512)))
+    for dtype, shape in cases:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        c = shape[1]
+        cs = (1, c) + (1,) * (len(shape) - 2)
+
+        def draw(*size):
+            return torch.randn(size, generator=gen, device="cuda")
+
+        x = (draw(*shape) * (0.5 + draw(c).abs()).view(cs)
+             + draw(c).view(cs) * 3)
+        g = draw(*shape) + draw(c).view(cs) + 0.5 * x
+        fmt = (torch.channels_last if len(shape) == 4
+               else torch.contiguous_format)
+        x = x.to(dtype).contiguous(memory_format=fmt)
+        g = g.to(dtype).contiguous(memory_format=fmt)
+        bn = BatchNorm(c).cuda().train()
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.5 * draw(c))
+            bn.bias.copy_(draw(c))
+            bn.running_mean.copy_(draw(c))
+            bn.running_var.copy_(1 + draw(c).abs())
+        w0, b0 = bn.weight.detach().clone(), bn.bias.detach().clone()
+        rm0, rv0 = bn.running_mean.clone(), bn.running_var.clone()
+        rows = slice(rank * shape[0] // world, (rank + 1) * shape[0] // world)
+        xr = x[rows].detach().clone(memory_format=fmt).requires_grad_(True)
+        y = bn(xr)
+        y.backward(g[rows])
+        dw, db = bn.weight.grad.clone(), bn.bias.grad.clone()
+        dist.all_reduce(dw)
+        dist.all_reduce(db)
+        # the reference: float32 arithmetic on the same inputs
+        xf = x.float().requires_grad_(True)
+        wf, bf = w0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        yf = F.batch_norm(xf, rm0.clone(), rv0.clone(), wf, bf, True,
+                          MOMENTUM, EPS)
+        yf.backward(g.float())
+        dims = [0] + list(range(2, len(shape)))
+        x64 = x.double()
+        pairs = {
+            "y": (y, yf[rows]), "dx": (xr.grad, xf.grad[rows]),
+            "dw": (dw, wf.grad), "db": (db, bf.grad),
+            "running_mean": (bn.running_mean, (1 - MOMENTUM) * rm0
+                             + MOMENTUM * x64.mean(dims)),
+            "running_var": (bn.running_var, (1 - MOMENTUM) * rv0
+                            + MOMENTUM * x64.var(dims, unbiased=False))}
+        errs = {k: float((a.detach().double() - b.detach().double()).norm()
+                         / b.detach().double().norm())
+                for k, (a, b) in pairs.items()}
+        rtol = BN_RTOL[dtype]
+        good = all(math.isfinite(e) and e <= rtol for e in errs.values())
+        say(f"BatchNorm({c}) on {shape[0] // world} of {shape} rows, "
+            f"{str(dtype).split('.')[-1]}, world {world}: relative error "
+            + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+            + f" (tolerance {rtol:g}) {'ok' if good else 'OFF'}")
+        ok &= good
+        del x, g, xr, xf, y, yf
+    torch.cuda.empty_cache()
+    return ok
+
+
+def dist_cfg(tag: str, amp: bool):
+    cfg = stage1_cfg(tag, "resnet50", MAIN_BATCH)
+    cfg.optim.amp = amp
+    return cfg
+
+
+def phase_dist(profile_dir=None) -> dict:
+    """[main]'s stage-1 recipe (resnet50, 224x224, v32, proj 128, global
+    batch 96, --world-size 2) under torch.distributed, with cuDNN held to
+    its deterministic algorithms. Leg A: a world-size-1 NCCL group through
+    distributed_initialize; SSLTrainer.fit over 3 steps under DDP with the
+    global-batch BatchNorm, every kernel count set to 0 just before, in
+    bf16 autocast (the recipe) and in float32 (TF32 off), each against the
+    plain trainer. Then the bf16 step's time against the plain trainer's,
+    the device's busy time, the all-reduce bytes a step and one BatchNorm
+    against F.batch_norm. Leg B: two processes on this one card over gloo
+    with CUDA tensors, one float32 step each at 48 rows against the
+    one-process step, and the global-batch BatchNorm at world size 2
+    against F.batch_norm on the whole batch (bn_world_check). Leg C: the
+    same over two NCCL ranks, where there are two cards."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.parallel import collectives as C
+    from sm3x_torch.parallel.launch import free_port, launch_local
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    data = synthetic_paired_data(MAIN_BATCH * DIST_STEPS, canvas=320, seed=0)
+    one = {}     # (arithmetic, BatchNorm) -> (trainer, losses)
+    for arith, amp in (("bf16", True), ("float32", False)):
+        tr = SSLTrainer(dist_cfg(f"dist_plain_{arith}", amp))
+        one[arith, "plain"] = tr, tr.fit(data)[0]["step_losses"]
+    bn_plain = bn_ms()
+    C.distributed_initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend="nccl")
+    counters, _ = kernel_counters()
+    ok = True
+    try:
+        log(f"[dist] leg A: world-size-1 NCCL group "
+            f"({torch.distributed.get_backend()}), SSLTrainer.fit under DDP "
+            f"with the global-batch BatchNorm, resnet50/v32, proj 128, "
+            f"batch {MAIN_BATCH}, --world-size 2, 224x224, {DIST_STEPS} "
+            f"steps through ProcessShardedData; cuDNN deterministic")
+        ddp = {}
+        for arith, amp in (("bf16", True), ("float32", False)):
+            tr = SSLTrainer(dist_cfg(f"dist_ddp_{arith}", amp))
+            if not isinstance(tr.net, DistributedDataParallel):
+                raise AssertionError("the trainer is not under DDP")
+            reset_counters()
+            hist, nbytes, calls = all_reduce_bytes(lambda: tr.fit(data))
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            k1 = dict(K.photometric_cuda.variants)
+            log(f"  {arith}: kernel launches in fit: {launches}; K1 by "
+                f"kernel {k1}")
+            want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) *
+                    DIST_STEPS for fn in counters}
+            if launches != want or k1["scratch"]:
+                raise AssertionError(f"launch counts {launches}, expected "
+                                     f"{want}")
+            ddp[arith] = tr, hist[0]["step_losses"]
+        for arith in ("bf16", "float32"):
+            ok &= dist_check(f"leg A {arith} against the plain trainer",
+                             *one[arith, "plain"], *ddp[arith], arith)
+        if not ok:
+            raise AssertionError("leg A: off the one-process run")
+        grads = sum(p.numel() * p.element_size()
+                    for p in ddp["bf16"][0].model.parameters()
+                    if p.requires_grad)
+        log(f"  all-reduce a step: DDP's gradient buckets {grads / 1e6:.1f} "
+            f"MB; torch.distributed.all_reduce {nbytes / DIST_STEPS / 1e3:.1f}"
+            f" kB in {calls / DIST_STEPS:.0f} calls (the BatchNorm backward's "
+            f"sums; float32 fit)")
+
+        batches = [[torch.from_numpy(x).cuda() for x in
+                    (b.derm, b.derm_hw, b.clinic, b.clinic_hw)]
+                   for b in data.batches(MAIN_BATCH, 1, 3407)]
+        # the plain trainer's steps with the BatchNorm of no group
+        runs = {"plain": (one["bf16", "plain"][0], plain_batch_norm),
+                "dist": (ddp["bf16"][0], contextlib.nullcontext)}
+        times = {k: [] for k in runs}
+        for _ in range(2):      # in turns, so that drift falls on both
+            for k, (tr, mode) in runs.items():
+                with mode():
+                    times[k] += timed_steps([
+                        lambda it=it, a=a, tr=tr: tr.train_step(*a, it)["loss"]
+                        for it, a in enumerate(batches)])
+        busy = {}
+        for k, (tr, mode) in runs.items():
+            step = lambda it, tr=tr: tr.train_step(*batches[it], it)
+            with mode():
+                busy[k] = (profile_steps(step, len(batches), profile_dir,
+                                         f"profile_dist_{k}.txt")
+                           if profile_dir else
+                           profile_device(step, len(batches)))
+        for k in runs:
+            log(f"  {k} bf16 step: median "
+                f"{statistics.median(times[k]) * 1e3:.1f} ms, min "
+                f"{min(times[k]) * 1e3:.1f} over {len(times[k])} steps "
+                f"(host clock, synchronised); device busy "
+                f"{busy[k]['busy_ms']:.1f} ms a step of "
+                f"{busy[k]['wall_ms']:.1f} "
+                f"({100 * busy[k]['busy_ms'] / busy[k]['wall_ms']:.1f}%), "
+                f"{busy[k]['launches']:.0f} kernels and copies")
+        bn_global = bn_ms()
+        log(f"  BatchNorm(256) forward + backward on {BN_SHAPE} bf16 "
+            f"channels_last, the kernels alone: F.batch_norm "
+            f"{ms_or_not(bn_plain)}, global-batch {ms_or_not(bn_global)}")
+    finally:
+        C.shutdown()
+        torch.backends.cudnn.deterministic = False
+    del one, ddp, runs
+    torch.cuda.empty_cache()
+
+    def worker_results(res, leg):
+        out = []
+        for r, (rc, text) in enumerate(res):
+            line = [ln for ln in text.splitlines()
+                    if ln.startswith("DIST_WORKER ")]
+            if rc != 0 or not line:
+                raise AssertionError(f"{leg}: rank {r} exited {rc}:\n"
+                                     + text[-4000:])
+            out.append(json.loads(line[-1].split(" ", 1)[1]))
+        for got in out:
+            for ln in got["lines"]:
+                log(f"  rank {got['rank']}: {ln}")
+        if not all(got["ok"] for got in out):
+            raise AssertionError(f"{leg}: off the one-process step")
+        if len({got["digest"] for got in out}) != 1:
+            raise AssertionError(f"{leg}: the ranks' states differ")
+        log(f"  {leg}: both ranks' states identical bit for bit")
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker"]
+    t = time.perf_counter()
+    log("[dist] leg B: two processes on this card over gloo with CUDA "
+        f"tensors, one float32 step of the same recipe at "
+        f"{MAIN_BATCH // 2} rows a rank against the one-process step; the "
+        f"global-batch BatchNorm against F.batch_norm on the whole batch")
+    worker_results(launch_local(cmd + ["gloo"], 2, 400, env=env, cwd=ROOT),
+                   "leg B")
+    log(f"  leg B: {time.perf_counter() - t:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        log("[dist] leg C: two NCCL ranks, a card each")
+        worker_results(launch_local(cmd + ["nccl"], 2, 400, env=env,
+                                    cwd=ROOT), "leg C")
+    else:
+        log(f"[dist] leg C: needs two cards, this machine has "
+            f"{torch.cuda.device_count()}; not run")
+    log(f"  [dist] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def dist_worker(backend: str) -> int:
+    """A rank of [dist]'s leg B (gloo, both ranks on card 0) or leg C
+    (NCCL, a card each): one float32 step in one process first, then the
+    same step as this rank of two, then bn_world_check; one DIST_WORKER
+    line with the results."""
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.parallel import collectives as C
+    from sm3x_torch.train.backbone_train import SSLTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank = int(os.environ["RANK"])
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    data = synthetic_paired_data(MAIN_BATCH, canvas=320, seed=0)
+    one = SSLTrainer(dist_cfg(f"dist_one_{backend}_r{rank}", False))
+    one_losses = one.fit(data)[0]["step_losses"]
+    C.distributed_initialize(backend=backend)
+    trainer = SSLTrainer(dist_cfg(f"dist_two_{backend}_r{rank}", False))
+    counters, _ = kernel_counters()
+    reset_counters()
+    t = time.perf_counter()
+    hist = trainer.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    lines = []
+    ok = dist_check(f"{backend} rank {rank}", one, one_losses, trainer,
+                    hist[0]["step_losses"], "float32", say=lines.append)
+    want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) for fn in counters}
+    lines.append(f"kernel launches in the step at {MAIN_BATCH // 2} rows: "
+                 f"{launches}; fit {wall:.2f} s")
+    del one
+    ok &= bn_world_check(lines.append)
+    print("DIST_WORKER " + json.dumps({
+        "rank": rank, "lines": lines, "ok": bool(ok and launches == want),
+        "digest": state_digest(trainer.model)}), flush=True)
+    C.shutdown()
+    return 0
+
+
 def phase_copy() -> dict:
     """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
     import importlib.util
@@ -2072,14 +2504,32 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="also write the device-time tables of three steps "
-                   "of the main, stage2, eval, probe and vit phases to DIR")
+                   "of the main, stage2, eval, probe, vit and dist phases to "
+                   "DIR")
+    p.add_argument("--only", metavar="PHASES", default=None,
+                   help="comma-separated phases to run after device and "
+                   "build (a quick check; the full run takes every phase)")
+    p.add_argument("--dist-worker", metavar="BACKEND", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
+
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
 
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if args.only:
+        alone = {"kernels": phase_kernels, "step": phase_step,
+                 "main": lambda: phase_main(args.profile), "feed": phase_feed,
+                 "dist": lambda: phase_dist(args.profile),
+                 "vit": lambda: phase_vit(args.profile), "copy": phase_copy}
+        for name in args.only.split(","):
+            alone[name]()
+        log(f"[only] {args.only}: done (a partial run prints no result)")
+        return 0
     kernels, floor = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
@@ -2092,6 +2542,8 @@ def main(argv=None) -> int:
     del eval_reference
     torch.cuda.empty_cache()
     vit_launches = phase_vit(args.profile)
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(args.profile)
     copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
         if mod in sys.modules:
@@ -2128,6 +2580,7 @@ def main(argv=None) -> int:
                  launches_eval=eval_launches[counter],
                  launches_probe=probe_launches[counter],
                  launches_serve=serve["launches"][counter],
+                 launches_dist=dist_launches[counter],
                  launches_feed={f: feed[f]["launches"][counter]
                                 for f in FEEDS},
                  launches_per_step={
@@ -2136,7 +2589,8 @@ def main(argv=None) -> int:
                      "stage2": STAGE2_PER_STEP.get(counter, 0),
                      "eval": SUPERVISED_PER_STEP.get(counter, 0),
                      "probe": SUPERVISED_PER_STEP.get(counter, 0),
-                     "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0},
+                     "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0,
+                     "dist": MAIN_PER_STEP.get(counter, 0)},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))

@@ -1,7 +1,12 @@
 """CLI applications of the port's four stages (counterpart of
 sm3x/cli/apps.py `backbone_train_main`, `mlc_train_main`, `mlc_eval_main`
 and `backbone_eval_main`). Tracebacks are appended to
-`<log_path>/error.log`, the reference's convention."""
+`<log_path>/error.log`, the reference's convention.
+
+Every app runs on one process or on several: `--coordinator host:port
+--num-processes N --process-id i` on each, or one `torchrun
+--nproc-per-node N` (one process a GPU). `-b` is then the global batch.
+"""
 
 from __future__ import annotations
 
@@ -13,25 +18,39 @@ from sm3x_torch.cli.parser import (add_backbone_eval_args, add_mlc_eval_args,
                                    eval_config, get_parser, mlc_train_config,
                                    ssl_config)
 from sm3x_torch.core.config import asdict_flat
+from sm3x_torch.parallel.collectives import (broadcast_string,
+                                             distributed_initialize,
+                                             process_info, shutdown)
 from sm3x_torch.utils.misc import (fix_random_seeds, increment_path,
                                    save_args, setup_logger)
 
 
 def _setup(args, cfg, logger_name: str):
-    """The run directory (a fresh one beside an existing name), its
-    configs.txt, the logger and the host seeds."""
-    if args.coordinator:
-        raise SystemExit("--coordinator (multi-process) is not in the PyTorch "
-                         "port yet (ROADMAP.md, item 15)")
-    args.log_path = str(increment_path(args.log_path))
+    """The process group first (--coordinator, or torchrun's environment;
+    NCCL on the card, gloo for --device cpu), before anything touches a
+    device; then the run directory, which rank 0 resolves (a fresh one
+    beside an existing name) and every rank takes from it, its configs.txt
+    from rank 0, the rank's logger and the host seeds."""
+    distributed_initialize(args.coordinator, args.num_processes,
+                           args.process_id,
+                           backend="gloo" if cfg.run.device == "cpu" else None)
+    rank, world = process_info()
+    if rank == 0:
+        args.log_path = str(increment_path(args.log_path))
+    if world > 1:
+        args.log_path = broadcast_string(args.log_path)
+        os.makedirs(args.log_path, exist_ok=True)
     cfg.run.log_path = args.log_path
-    save_args(asdict_flat(cfg), os.path.join(args.log_path, "configs.txt"))
-    logger = setup_logger(args.log_path, logger_name)
+    if rank == 0:
+        save_args(asdict_flat(cfg), os.path.join(args.log_path, "configs.txt"))
+    logger = setup_logger(args.log_path, logger_name, rank=rank)
     fix_random_seeds(cfg.run.seed)
     return logger
 
 
 def _capture_errors(log_path: str, fn):
+    """Run the stage; a traceback goes to `<log_path>/error.log`, and the
+    process group, where there is one, is left at the end."""
     try:
         return fn()
     except Exception as e:
@@ -40,6 +59,8 @@ def _capture_errors(log_path: str, fn):
             traceback.print_exc(file=f)
             f.write("\n")
         raise
+    finally:
+        shutdown()
 
 
 def _split(cfg, mode: str):

@@ -12,6 +12,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from sm3x_torch.core.mesh import local_rows
 from sm3x_torch.data.pipeline import (Batch, PairedImageData,
                                       iter_batch_selections)
 
@@ -20,9 +21,12 @@ class DeviceData:
     """Wraps a PairedImageData with its canvases and sizes on `device`.
     `batches` yields Batch objects whose derm / clinic fields are device
     tensors gathered by index; the order and the wrap-padding are those of
-    the host data. Labels, index, mask and meta stay on the host."""
+    the host data. Labels, index, mask and meta stay on the host. With
+    `local`, the gather takes this process's rows of each global batch
+    (sm3x_torch.data.multihost); label, index and mask stay global."""
 
-    def __init__(self, data: PairedImageData, device):
+    def __init__(self, data: PairedImageData, device, local: bool = False):
+        self.local = local
         self.device = torch.device(device)
         self.n = data.n
         self.labels = data.labels
@@ -44,9 +48,13 @@ class DeviceData:
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
                 shuffle: bool = True) -> Iterator[Batch]:
         order = self.epoch_order(epoch, seed, shuffle)
+        rows = slice(None)
+        if self.local:
+            mine = local_rows(batch_size)
+            rows = slice(mine.start, mine.stop)
         for sel, mask in iter_batch_selections(order, batch_size):
-            idx = torch.from_numpy(np.ascontiguousarray(sel, np.int64)).to(
-                self.device)
+            idx = torch.from_numpy(np.ascontiguousarray(sel[rows], np.int64)
+                                   ).to(self.device)
             yield Batch(derm=self._derm[idx], derm_hw=self._derm_hw[idx],
                         clinic=self._clinic[idx],
                         clinic_hw=self._clinic_hw[idx],

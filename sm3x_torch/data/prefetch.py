@@ -14,6 +14,9 @@ Three ways for a host dataset's canvases to reach the device:
 
 `wrap_for_device` picks one (`--device-feed`); under `auto` the resident
 feed is taken when the canvases fit `--hbm-data-budget-mb`, else prefetch.
+Under a process group each feed yields this rank's rows of every global
+batch (sm3x_torch.data.multihost), and `auto` is the process-sharded
+prefetch.
 Under every feed a step sees the same samples: the order and the
 wrap-padding come from `iter_batch_selections`, and the copies are exact.
 
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from sm3x_torch.data.pipeline import Batch
+from sm3x_torch.parallel.collectives import is_distributed
 
 DEVICE_FIELDS = ("derm", "derm_hw", "clinic", "clinic_hw")
 
@@ -223,12 +227,6 @@ def resident_nbytes(wrapped) -> int:
     return 0
 
 
-def _multi_process() -> bool:
-    dist = torch.distributed
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
-
-
 def wrap_for_device(data, device, hbm_budget_bytes: int | None = None,
                     depth: int = 2, strategy: str = "auto",
                     reserved_bytes: int = 0):
@@ -251,14 +249,8 @@ def wrap_for_device(data, device, hbm_budget_bytes: int | None = None,
     if strategy not in ("auto", "resident", "prefetch", "host"):
         raise ValueError(f"unknown device-feed strategy {strategy!r} "
                          "(auto|resident|prefetch|host)")
-    if (strategy == "auto" and _multi_process()
-            and isinstance(data, (PairedImageData, StreamingPairedData))):
-        # the reference gives each process the batch rows of its own
-        # devices (sm3x/data/multihost.py)
-        raise NotImplementedError(
-            "--device-feed auto in a multi-process run needs the "
-            "process-sharded feed, which is not in the PyTorch port yet "
-            "(multi-GPU, ROADMAP item 15)")
+    if is_distributed():
+        return _wrap_for_rank(data, device, depth, strategy)
     if isinstance(data, StreamingPairedData):
         # decoded just in time: nothing to make resident; overlap the
         # upload with compute unless the caller wants the host path
@@ -293,6 +285,29 @@ def wrap_for_device(data, device, hbm_budget_bytes: int | None = None,
         except Exception:
             pass
     return PrefetchData(data, device, depth=depth)
+
+
+def _wrap_for_rank(data, device, depth: int, strategy: str):
+    """Under a process group every feed yields this rank's rows of each
+    global batch (sm3x_torch.data.multihost): `auto` and `prefetch` take
+    the process-sharded feed, `resident` uploads the canvas cache and
+    gathers this rank's rows on the device, `host` cuts the host batches.
+    A feed that is already wrapped passes through."""
+    from sm3x_torch.data.device_data import DeviceData
+    from sm3x_torch.data.multihost import LocalRows, ProcessShardedData
+    from sm3x_torch.data.pipeline import PairedImageData
+
+    if isinstance(data, (DeviceData, PrefetchData, LocalRows)):
+        return data
+    if strategy == "host":
+        return LocalRows(data)
+    if strategy == "resident":
+        if not isinstance(data, PairedImageData):
+            raise ValueError(
+                "--device-feed resident needs the decoded canvas cache of a "
+                f"paired dataset, not {type(data).__name__}")
+        return DeviceData(data, device, local=True)
+    return ProcessShardedData(data, device, depth=depth)
 
 
 def wrap_from_config(data, device, data_cfg, reserved_bytes: int = 0):

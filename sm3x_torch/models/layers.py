@@ -14,6 +14,19 @@ biased variance; Flax wants (1 - m) v + m s = (1 - m) v / n + v' (n - 1) / n.
 Both terms are positive, so the correction loses no precision. The state
 dict keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), as the exported checkpoints name them.
+
+Under a process group (sm3x_torch.parallel) a train-mode `BatchNorm`
+normalises with the statistics of the global batch, as the JAX package's
+GSPMD step does over its data axis, and the running statistics move
+toward the global mean and the biased global variance, the same on every
+rank (`torch.nn.SyncBatchNorm` would move `running_var` toward the
+unbiased variance). On CUDA tensors it runs PyTorch's own batch-norm
+kernels: each rank's mean and inverse deviation (`batch_norm_stats`,
+float32), one all-gather of them with the counts, their combination, the
+normalisation; the backward's two per-channel sums go through one
+all-reduce (as in SyncBatchNorm). On the CPU, its plain twin: each rank's
+mean, one all-reduce of the counted means, then one of the counted
+variances about the global mean, both differentiable.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ import threading
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sm3x_torch.parallel.collectives import (all_reduce_sum, gather_rows,
+                                             is_distributed)
 
 MOMENTUM = 0.1  # torch convention; Flax momentum 0.9
 EPS = 1e-5
@@ -67,6 +83,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, MOMENTUM, EPS)
+        if is_distributed():
+            return self._global_batch_forward(x)
         n = x.numel() // x.shape[1]
         if n < 2:
             raise ValueError(f"BatchNorm in train mode needs more than one "
@@ -87,5 +105,94 @@ class BatchNorm(nn.Module):
         self.num_batches_tracked.add_(1)
         return y
 
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode under a process group: normalise with the global
+        batch's mean and biased variance; move the running statistics
+        toward them (not inside `recomputing()`)."""
+        if x.is_cuda:
+            y, mean, invstd = _GlobalBatchNormCuda.apply(x, self.weight,
+                                                         self.bias)
+            var = invstd.pow(-2) - EPS
+        else:
+            y, mean, var = _global_batch_norm_plain(x, self.weight, self.bias)
+        if not getattr(_state, "recomputing", False):
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - MOMENTUM).add_(
+                    mean.detach(), alpha=MOMENTUM)
+                self.running_var.mul_(1.0 - MOMENTUM).add_(
+                    var.detach(), alpha=MOMENTUM)
+                self.num_batches_tracked.add_(1)
+        return y
+
     def extra_repr(self) -> str:
         return f"{self.num_features}, affine={self.affine}"
+
+
+def _global_batch_norm_plain(x, weight, bias):
+    """(y, global mean, global biased variance) from this rank's rows:
+    one all-reduce of the counted means, one of the counted variances
+    about the global mean (float32, or float64 for a float64 input)."""
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = x.numel() // c
+    counted = all_reduce_sum(torch.cat([xf.mean(dims) * n,
+                                        xf.new_full((1,), n)]))
+    total = counted[c]
+    mean = counted[:c] / total
+    centred = xf - mean.view(shape)
+    var = all_reduce_sum((centred * centred).sum(dims)) / total
+    y = centred * torch.rsqrt(var + EPS).view(shape)
+    if weight is not None:
+        y = y * weight.view(shape) + bias.view(shape)
+    return y.to(x.dtype), mean, var
+
+
+class _GlobalBatchNormCuda(torch.autograd.Function):
+    """SyncBatchNorm's arithmetic on PyTorch's batch-norm kernels, without
+    its running-statistics update: forward (y, mean, invstd) of the
+    global batch, backward through one all-reduce of the two sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        if not (x.is_contiguous()
+                or x.is_contiguous(memory_format=torch.channels_last)):
+            x = x.contiguous()
+        c = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, EPS)
+        count = mean.new_full((1,), x.numel() // c)
+        every = gather_rows(torch.cat([mean, invstd, count])[None])
+        counts = every[:, 2 * c].contiguous()
+        # running statistics of its own that the kernel moves by momentum 0
+        # (without them it wants the counts in the input's dtype, which
+        # bf16 cannot hold exactly)
+        scratch = mean.new_zeros(2, c)
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, every[:, :c].contiguous(), every[:, c:2 * c].contiguous(),
+            scratch[0], scratch[1], 0.0, EPS, counts)
+        y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, EPS)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        ctx.mark_non_differentiable(mean, invstd)
+        return y, mean, invstd
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _invstd):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        fmt = (torch.channels_last
+               if x.dim() == 4 and x.is_contiguous(
+                   memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        gy = gy.contiguous(memory_format=fmt)
+        need_x, need_w, need_b = ctx.needs_input_grad
+        sum_dy, sum_dy_xmu, gw, gb = torch.batch_norm_backward_reduce(
+            gy, x, mean, invstd, weight, need_x,
+            weight is not None and need_w, weight is not None and need_b)
+        gx = None
+        if need_x:
+            c = x.shape[1]
+            sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]))
+            gx = torch.batch_norm_backward_elemt(
+                gy, x, mean, invstd, weight, sums[:c], sums[c:], counts)
+        return gx, gw if need_w else None, gb if need_b else None

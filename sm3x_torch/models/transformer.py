@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sm3x_torch.core.mesh import current_rows
+
 
 def torch_linear_init_(tensor: torch.Tensor, fan_in: int) -> torch.Tensor:
     """torch.nn.Linear's default: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
@@ -35,12 +37,23 @@ def torch_linear_init_(tensor: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout with the mask drawn from `generator`."""
+            generator: Optional[torch.Generator] = None,
+            batch_dim: int = 0) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from `generator`. Inside
+    `sm3x_torch.core.mesh.batch_rows(rows)` the mask is drawn for the
+    global batch along `batch_dim` and cut to this rank's rows, so that
+    every row gets the mask it gets on one process."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
+    rows = current_rows()
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        shape = list(x.shape)
+        shape[batch_dim] = rows.total
+        keep = rows.take(torch.rand(shape, generator=generator,
+                                    device=x.device), batch_dim)
+    return x * (keep >= p).to(x.dtype) / (1.0 - p)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -93,7 +106,9 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        drop = lambda t: dropout(t, self.dropout, self.training, generator)
+        # (S, B, D): the batch is dim 1
+        drop = lambda t: dropout(t, self.dropout, self.training, generator,
+                                 batch_dim=1)
         x = self.norm1(x + drop(self.self_attn(x, generator)))
         f = self.linear2(drop(torch.relu(self.linear1(x))))
         return self.norm2(x + drop(f))

@@ -15,6 +15,9 @@ pipeline runs K1 instead. Their formulas are the Pallas kernel's
 
 Randomness comes from an explicit `torch.Generator` on the images' device.
 Its numbers differ from `jax.random`'s; the distributions are the same.
+With `rows` (sm3x_torch.core.mesh.Rows: this process's rows of a global
+batch) every random tensor is drawn at the global batch's shape and cut to
+the rows, so each image gets the parameters it gets on one process.
 """
 
 from __future__ import annotations
@@ -58,21 +61,35 @@ def uniform(gen: torch.Generator, shape, low: float, high: float,
                                            device=device)
 
 
+def batch_draws(batch: int, rows=None):
+    """(rows to draw, cut): a batch of `batch` images draws for the whole
+    global batch of `rows` and keeps its own rows; without `rows` it draws
+    for itself."""
+    if rows is None:
+        return batch, lambda t: t
+    if rows.size != batch:
+        raise ValueError(f"{batch} images, but rows {rows.start}:{rows.stop}")
+    return rows.total, rows.take
+
+
 # ----------------------------------------------------------------------------
 # RandomResizedCrop
 # ----------------------------------------------------------------------------
 
 def sample_rrc_boxes(gen: torch.Generator, h: torch.Tensor, w: torch.Tensor,
-                     cfg: AugConfig):
+                     cfg: AugConfig, rows=None):
     """torchvision RandomResizedCrop.get_params, vectorised over the batch
     (sm3x/ops/augment.py:70-111): 10 attempts over (area scale, log aspect);
     the first that fits wins; otherwise a centre crop at the clamped aspect.
     h, w: (B,) float valid sizes. Returns (y0, x0, ch, cw), each (B,)."""
-    b, dev = h.shape[0], h.device
+    n, cut = batch_draws(h.shape[0], rows)
+    dev = h.device
     area = (h * w)[:, None]
     lo, hi = cfg.rrc_ratio
-    scales = uniform(gen, (b, 10), cfg.rrc_scale[0], cfg.rrc_scale[1], dev)
-    ratios = torch.exp(uniform(gen, (b, 10), math.log(lo), math.log(hi), dev))
+    scales = cut(uniform(gen, (n, 10), cfg.rrc_scale[0], cfg.rrc_scale[1],
+                         dev))
+    ratios = torch.exp(cut(uniform(gen, (n, 10), math.log(lo), math.log(hi),
+                                   dev)))
     target = area * scales
     cw = torch.round(torch.sqrt(target * ratios))
     ch = torch.round(torch.sqrt(target / ratios))
@@ -86,8 +103,8 @@ def sample_rrc_boxes(gen: torch.Generator, h: torch.Tensor, w: torch.Tensor,
     ch_sel = torch.where(any_ok, ch.gather(1, first)[:, 0], fh)
     cw_sel = torch.where(any_ok, cw.gather(1, first)[:, 0], fw)
 
-    u_i = torch.rand(b, generator=gen, device=dev)
-    u_j = torch.rand(b, generator=gen, device=dev)
+    u_i = cut(torch.rand(n, generator=gen, device=dev))
+    u_j = cut(torch.rand(n, generator=gen, device=dev))
     y0 = torch.where(any_ok, torch.floor(u_i * (h - ch_sel + 1.0)),
                      torch.round((h - ch_sel) / 2.0))
     x0 = torch.where(any_ok, torch.floor(u_j * (w - cw_sel + 1.0)),
@@ -132,13 +149,14 @@ def crop_resize(img: torch.Tensor, y0, x0, ch, cw, out_size,
 
 
 def batch_crop_resize(gen: torch.Generator, canvases: torch.Tensor,
-                      valid_hw: torch.Tensor, cfg: AugConfig) -> torch.Tensor:
+                      valid_hw: torch.Tensor, cfg: AugConfig,
+                      rows=None) -> torch.Tensor:
     """uint8 canvases (B, S, S, 3) + valid (B, 2) -> RRC views in [0, 1]."""
     img = canvases.float() / 255.0
     h = valid_hw[:, 0].float()
     w = valid_hw[:, 1].float()
     if cfg.rrc:
-        y0, x0, ch, cw = sample_rrc_boxes(gen, h, w, cfg)
+        y0, x0, ch, cw = sample_rrc_boxes(gen, h, w, cfg, rows)
     else:
         y0, x0, ch, cw = torch.zeros_like(h), torch.zeros_like(w), h, w
     out = crop_resize(img, y0, x0, ch, cw, cfg.out_size, cfg.antialias)
@@ -231,21 +249,23 @@ def normalize_images(img: torch.Tensor, mean, std) -> torch.Tensor:
 
 def ssl_augment_batch(gen: torch.Generator, canvases: torch.Tensor,
                       valid_hw: torch.Tensor, mean, std,
-                      cfg: AugConfig = SSL_AUG) -> torch.Tensor:
+                      cfg: AugConfig = SSL_AUG, rows=None) -> torch.Tensor:
     """One augmented view per canvas: (B, oh, ow, 3) f32, normalised. The
     photometric chain is kernel K1 on CUDA tensors and its plain twin on CPU
     tensors (see sm3x_torch.ops.augment_cuda.ssl_augment_batch_fused)."""
     from sm3x_torch.ops.augment_cuda import ssl_augment_batch_fused
 
-    return ssl_augment_batch_fused(gen, canvases, valid_hw, mean, std, cfg)
+    return ssl_augment_batch_fused(gen, canvases, valid_hw, mean, std, cfg,
+                                   rows)
 
 
 def supervised_augment_batch(gen: torch.Generator, canvases: torch.Tensor,
                              valid_hw: torch.Tensor, mean, std,
-                             cfg: AugConfig = FINETUNE_AUG) -> torch.Tensor:
+                             cfg: AugConfig = FINETUNE_AUG,
+                             rows=None) -> torch.Tensor:
     """A supervised train view per canvas: the same pipeline under the
     finetune preset (crop, flip and normalise; K1 on CUDA tensors)."""
-    return ssl_augment_batch(gen, canvases, valid_hw, mean, std, cfg)
+    return ssl_augment_batch(gen, canvases, valid_hw, mean, std, cfg, rows)
 
 
 def modality_keys(kd: int, kc: int, joint_aug: bool = False):

@@ -62,18 +62,20 @@ def photometric_plan(h: int, w: int, aligned: bool = True) -> dict:
 
 
 def build_params(gen: torch.Generator, batch: int, cfg: A.AugConfig,
-                 device) -> torch.Tensor:
+                 device, rows=None) -> torch.Tensor:
     """Sample the (B, 16) per-image parameter matrix with the XLA chain's
-    distributions (augment_pallas.py:223-245)."""
+    distributions (augment_pallas.py:223-245); with `rows`, drawn for the
+    global batch and cut to them (`augment.batch_draws`)."""
     bj, cj, sj, hj = cfg.jitter
+    n, cut = A.batch_draws(batch, rows)
 
     def u(low=0.0, high=1.0):
-        return A.uniform(gen, (batch,), low, high, device)
+        return cut(A.uniform(gen, (n,), low, high, device))
 
     cols = [u(max(0.0, 1 - bj), 1 + bj), u(max(0.0, 1 - cj), 1 + cj),
             u(max(0.0, 1 - sj), 1 + sj), u(-hj, hj)]
-    order = torch.argsort(torch.rand((batch, 4), generator=gen,
-                                     device=device), dim=1)
+    order = torch.argsort(cut(torch.rand((n, 4), generator=gen,
+                                         device=device)), dim=1)
     cols += [order[:, i].float() for i in range(4)]
     for p in (cfg.jitter_p, cfg.grayscale_p, cfg.flip_p, cfg.blur_p):
         cols.append((u() < p).float())
@@ -164,11 +166,12 @@ def photometric(images: torch.Tensor, params: torch.Tensor, mean,
 
 def ssl_augment_batch_fused(gen: torch.Generator, canvases: torch.Tensor,
                             valid_hw: torch.Tensor, mean, std,
-                            cfg: A.AugConfig = A.SSL_AUG) -> torch.Tensor:
+                            cfg: A.AugConfig = A.SSL_AUG,
+                            rows=None) -> torch.Tensor:
     """One augmented view per canvas: RRC crop-resize (torch.bmm), then the
     photometric chain under one (B, 16) parameter matrix. `gen` lives on the
     canvases' device and is drawn from in a fixed order (boxes, then
-    parameters)."""
-    x = A.batch_crop_resize(gen, canvases, valid_hw, cfg)
-    params = build_params(gen, x.shape[0], cfg, x.device)
+    parameters), for the global batch where `rows` are given."""
+    x = A.batch_crop_resize(gen, canvases, valid_hw, cfg, rows)
+    params = build_params(gen, x.shape[0], cfg, x.device, rows)
     return photometric(x, params, mean, std)

@@ -66,17 +66,20 @@ class BackboneEvalTrainer(supervised.SupervisedTrainer):
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
-        self.optimizer = common.make_adamw(
-            common.trainable_parameters(
-                self.model, lambda name: common.backbone_eval_trainable(
-                    name, m.finetune)),
-            cfg.optim.base_lr, cfg.optim.wd, eps=cfg.optim.adam_eps)
+        self.rows = common.data_axis(cfg, self.logger)
+        params = common.trainable_parameters(
+            self.model, lambda name: common.backbone_eval_trainable(
+                name, m.finetune))
+        self.net = common.data_parallel(self.model, self.device)
+        self.optimizer = common.make_adamw(params, cfg.optim.base_lr,
+                                           cfg.optim.wd,
+                                           eps=cfg.optim.adam_eps)
         self.autocast_modules = (self.model,)
         backbone_train_mode = m.finetune != "fc"
-        model = self.model
+        model, net = self.model, self.net
 
         def forward_train(d, c, generator):
-            return model(d, c, train=backbone_train_mode,
+            return net(d, c, train=backbone_train_mode,
                          stop_backbone_grad=m.finetune == "fc",
                          generator=generator)
 
@@ -88,4 +91,5 @@ class BackboneEvalTrainer(supervised.SupervisedTrainer):
             forward_train, forward_eval, self.optimizer,
             cfg.optim.label_weights, tuple(cfg.data.mean),
             tuple(cfg.data.std), aug, tuple(cfg.data.img_sz),
-            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2")
+            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2",
+            rows=self.rows)

@@ -11,6 +11,13 @@ One step, after the uint8 canvases reach the device:
 Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
 each view draws from its own `torch.Generator` on the device.
+
+Under a process group (one process a GPU, sm3x_torch.parallel) `-b` is the
+global batch: each rank augments its rows of it with the draws of the
+whole batch, runs the model under DDP with the global-batch BatchNorm, and
+computes its NT-Xent groups, or all of them from the gathered projections
+(sm3x_torch.losses.ssl). A run on N processes is then the one-process run
+up to the order of float reductions.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import torch
 
 from sm3x_torch.core import prng
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
-from sm3x_torch.losses.ssl import ssl_loss
+from sm3x_torch.core.mesh import TP_LATER
+from sm3x_torch.losses.ssl import local_groups, ssl_loss
 from sm3x_torch.models.backbones import is_vit
 from sm3x_torch.models.simclr import build_ssl_model
 from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
@@ -52,19 +60,17 @@ def unsupported(cfg) -> list:
         (m.negatives not in ("local", "global"),
          f"--negatives {m.negatives}"),
     ]
-    return [msg for bad, msg in checks if bad] + unsupported_run(
-        cfg, "stage 1 runs on one device (--world-size only groups "
-             "negatives)")
+    return [msg for bad, msg in checks if bad] + unsupported_run(cfg)
 
 
-def unsupported_run(cfg, one_device: str) -> list:
-    """The run settings that no stage of the port takes: a device mesh
-    (multi-GPU is queued) and the Orbax checkpoint backend (not ported)."""
+def unsupported_run(cfg) -> list:
+    """The run settings that no stage of the port takes: a model axis
+    (tensor parallelism, queued) and the Orbax checkpoint backend (not
+    ported). --mesh-data is taken and, as in the JAX package, the data axis
+    is the run's processes whatever it says."""
     r = cfg.run
     checks = [
-        (r.mesh_model != 1 or (r.mesh_data or 1) != 1,
-         f"a device mesh (--mesh-data/--mesh-model) {LATER}; the port's "
-         f"{one_device}"),
+        (r.mesh_model != 1, TP_LATER),
         (r.ckpt_backend != "msgpack",
          f"--ckpt-backend {r.ckpt_backend} {NOT_PORTED}; the port writes "
          f".pth files"),
@@ -84,54 +90,68 @@ def resolve_remat(use_checkpoint, arch: str, logger=None):
     return False if use_checkpoint == "off" else use_checkpoint
 
 
-def augment_views(seed: int, canvases, valid_hw, mean, std, cfg):
-    """Two views of one modality, each from its own generator."""
+def augment_views(seed: int, canvases, valid_hw, mean, std, cfg,
+                  rows=None):
+    """Two views of one modality, each from its own generator; `rows`:
+    these canvases are those rows of the global batch."""
     dev = canvases.device
     return tuple(ssl_augment_batch(prng.generator(prng.fold_in(seed, v), dev),
-                                   canvases, valid_hw, mean, std, cfg)
+                                   canvases, valid_hw, mean, std, cfg, rows)
                  for v in range(2))
 
 
 def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
                temperature: float, groups: int,
-               modality_weights=(1.0, 1.0)) -> dict:
-    """Forward, loss, backward and AdamW step on augmented views. Returns
-    detached device scalars (read them back when needed)."""
+               modality_weights=(1.0, 1.0), world: int = 1) -> dict:
+    """Forward, loss, backward and AdamW step on augmented views (this
+    rank's rows of them across `world` processes, `model` under DDP).
+    Returns the global loss and its parts as detached device scalars (read
+    them back when needed)."""
     optimizer.zero_grad(set_to_none=True)
     outs = model(derm_views, clinic_views)
     total, parts = ssl_loss(outs, style, temperature, groups,
-                            modality_weights=modality_weights)
+                            modality_weights=modality_weights, world=world)
     total.backward()
     optimizer.step()
-    return {"loss": total.detach(),
-            **{k: v.detach() for k, v in parts.items()}}
+    metrics = {"loss": total.detach(),
+               **{k: v.detach() for k, v in parts.items()}}
+    if world > 1 and local_groups(groups, world):
+        # each rank's share of its own groups: the mean is the loss
+        mean = common.global_mean(torch.stack(list(metrics.values())))
+        metrics = dict(zip(metrics, mean.unbind()))
+    return metrics
 
 
 def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                         groups: int, mean, std, aug_cfg=SSL_AUG,
-                        modality_weights=(1.0, 1.0), joint_aug: bool = False):
+                        modality_weights=(1.0, 1.0), joint_aug: bool = False,
+                        rows=None):
     """Returns step(derm, derm_hw, clinic, clinic_hw, seed) -> metrics, with
-    the canvases (B, S, S, 3) uint8 and valid sizes (B, 2) on the device.
-    `joint_aug` (SevenPCBaseDataset2) gives the derm/clinic pair the same
-    augmentation parameters within their common valid region. On the card
-    the photometric chain and the loss always run kernels K1 and K2, so
-    --use-pallas-augment / --use-pallas-ntxent change nothing here."""
+    the canvases (B, S, S, 3) uint8 and valid sizes (B, 2) on the device:
+    the `rows` of the global batch where given (sm3x_torch.core.mesh.Rows,
+    with `model` under DDP). `joint_aug` (SevenPCBaseDataset2) gives the
+    derm/clinic pair the same augmentation parameters within their common
+    valid region. On the card the photometric chain and the loss always
+    run kernels K1 and K2, so --use-pallas-augment / --use-pallas-ntxent
+    change nothing here."""
+    world = 1 if rows is None else rows.world
 
     def train_step(derm, derm_hw, clinic, clinic_hw, seed: int) -> dict:
         kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
                                joint_aug)
         d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
-        d = augment_views(kd, derm, d_hw, mean, std, aug_cfg)
-        c = augment_views(kc, clinic, c_hw, mean, std, aug_cfg)
+        d = augment_views(kd, derm, d_hw, mean, std, aug_cfg, rows)
+        c = augment_views(kc, clinic, c_hw, mean, std, aug_cfg, rows)
         return ssl_update(model, optimizer, d, c, style, temperature, groups,
-                          modality_weights)
+                          modality_weights, world)
 
     return train_step
 
 
 class SSLTrainer(common.CheckpointableTrainer):
-    """Owns the model, the optimizer and the epoch loop on one device; its
-    checkpoints have `export_simclr_skin`'s key layout."""
+    """Owns the model, the optimizer and the epoch loop on this process's
+    device; its checkpoints have `export_simclr_skin`'s key layout, from
+    the model without its DDP wrapper."""
 
     scheduler = None
 
@@ -160,18 +180,23 @@ class SSLTrainer(common.CheckpointableTrainer):
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
         self.model.train()
-        # per-device-negatives parity: world_size groups
+        self.rows = common.data_axis(cfg, self.logger)
+        world = self.rows.world
+        # per-device-negatives parity: world_size groups, by default one a
+        # process (sm3x/train/backbone_train.py:249-253)
         self.groups = 1 if m.negatives == "global" else (
-            cfg.run.world_size or 1)
+            cfg.run.world_size or world)
         self.optimizer = common.make_adamw(
             self.model.parameters(), cfg.optim.base_lr, cfg.optim.wd,
             eps=cfg.optim.adam_eps)
         aug_cfg = dataclasses.replace(SSL_AUG, out_size=tuple(cfg.data.img_sz))
+        self.net = common.data_parallel(self.model, self.device)
         self.train_step = make_ssl_train_step(
-            self.model, self.optimizer, self.style, m.temperature,
+            self.net, self.optimizer, self.style, m.temperature,
             self.groups, tuple(cfg.data.mean), tuple(cfg.data.std), aug_cfg,
             modality_weights=tuple(cfg.modality_weights),
-            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2")
+            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2",
+            rows=self.rows)
 
     def _load_arch_weights(self, value: str, arch: str) -> None:
         """--arch-weights: both encoders start from a torchvision-layout
@@ -232,7 +257,7 @@ class SSLTrainer(common.CheckpointableTrainer):
                 prng.step_seed(cfg.run.seed, epoch, it))
             if self.scheduler is not None:
                 self.scheduler.step()
-            pending.append((metrics["loss"], batch.derm.shape[0]))
+            pending.append((metrics["loss"], len(batch.index)))
             batch_time.update(time.time() - end)
             end = time.time()
             if it % cfg.run.print_freq == 0 and it > 0:

@@ -15,7 +15,10 @@ import threading
 
 import torch
 
+from sm3x_torch.core.mesh import local_rows, make_mesh
 from sm3x_torch.data.prefetch import indexed
+from sm3x_torch.parallel.collectives import (  # noqa: F401  (re-exported)
+    is_distributed, is_main_process, max_over_ranks, process_info)
 
 
 def make_adamw(params, lr: float, wd: float = 5e-2,
@@ -148,11 +151,41 @@ def write_checkpoint(paths, state: dict) -> None:
         os.replace(tmp, path)
 
 
-def is_main_process() -> bool:
-    """Rank 0, or no process group at all."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) or \
-        dist.get_rank() == 0
+def data_axis(cfg, logger):
+    """This process's rows of every global batch of `-b` (all of them on
+    one process), after a word where --mesh-data names another data axis
+    than the run's processes: the JAX package builds its mesh from the
+    devices and never reads the flag, and the port follows it."""
+    mesh = make_mesh(cfg.run.mesh_model)
+    if cfg.run.mesh_data not in (None, mesh.data):
+        logger.warning(f"--mesh-data {cfg.run.mesh_data} ignored: the data "
+                       f"axis is the run's {mesh.data} process(es)")
+    return local_rows(cfg.optim.batch_size)
+
+
+def data_parallel(model: torch.nn.Module, device) -> torch.nn.Module:
+    """What a train step calls: `model` itself on one process, under
+    DistributedDataParallel where a process group is up (world size 1
+    included). The running statistics need no broadcast (the global-batch
+    BatchNorm keeps them equal on every rank) and the gradients live in
+    DDP's buckets. Checkpoints come from `model`, with the keys of a
+    single-process run."""
+    if not is_distributed():
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+
+    device = indexed(device)
+    return DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == "cuda" else None,
+        broadcast_buffers=False, gradient_as_bucket_view=True)
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over ranks of a detached device value (a loss); one
+    all-reduce on the device, read back when the caller reads it."""
+    from sm3x_torch.parallel.collectives import cross_replica_mean
+
+    return cross_replica_mean(x.detach())
 
 
 class CheckpointableTrainer:
@@ -286,9 +319,12 @@ class CheckpointableTrainer:
         """Polled at each epoch boundary. After a signal: the save in
         flight is settled, rank 0 writes `checkpoint.pth` whatever
         `ckpt_freq` says and logs how to resume, and the caller leaves the
-        loop. (Several processes would have to agree first; the port runs
-        one: ROADMAP.md, item 15.)"""
+        loop. Several processes agree first (an all-reduce MAX of the
+        signal number): a signal to any rank breaks every rank, where a
+        lone breaker would leave the others waiting in a collective."""
         signum = self._preempt_signal
+        if self._orig_handlers and process_info()[1] > 1:
+            signum = max_over_ranks(signum or 0) or None
         if signum is None:
             return False
         if not is_main_process():

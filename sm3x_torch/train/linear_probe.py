@@ -6,6 +6,11 @@ The extractor is frozen, so only its forward runs, in eval mode and without
 a graph. The train transform (crop and flip) changes the features every
 epoch, so they are recomputed every epoch. The heads start from the seed's
 stream 3.
+
+Under a process group each rank extracts the features of its rows of
+every batch (the train views drawn for the whole batch); the train
+features of all ranks are gathered, so the probe takes the same steps on
+every rank, and the eval predictions come together at the epoch's end.
 """
 
 from __future__ import annotations
@@ -17,13 +22,16 @@ import torch
 
 from sm3x_torch import CLASSES_NAME, CLS_WEIGHTS, NUM_CLASSES
 from sm3x_torch.core import prng
+from sm3x_torch.core.mesh import local_rows
+from sm3x_torch.data.prefetch import to_device
 from sm3x_torch.losses import weighted_multilabel_ce
 from sm3x_torch.metrics import compute_stage_metrics
 from sm3x_torch.models.baseline import MultiHeadClassifier
 from sm3x_torch.ops.augment import (PROBE_AUG, eval_resize_batch,
                                     ssl_augment_batch)
+from sm3x_torch.parallel.collectives import gather_rows
 from sm3x_torch.train import common
-from sm3x_torch.train.supervised import _concat_masked, upload_batch
+from sm3x_torch.train.supervised import _concat_masked
 from sm3x_torch.utils.misc import setup_logger
 
 
@@ -66,16 +74,18 @@ class LinearProbe:
     def run(self, extract_feats, train_data, val_data, batch_size: int,
             epochs: int = 50, label_weights=(1.0,) * 8, seed: int = 3407,
             logger=None) -> dict:
-        """`extract_feats(batch, seed, train)` -> (B, feat_dim) frozen
-        features on the probe's device. Returns the best val stats."""
+        """`extract_feats(batch, seed, train)` -> (b, feat_dim) frozen
+        features of this rank's rows of the batch (all B on one process)
+        on the probe's device. Returns the best val stats."""
         logger = logger or setup_logger(None, "sm3x_torch.probe")
+        rows = local_rows(batch_size)
         best = None
         for epoch in range(epochs):
             losses = []
             for it, batch in enumerate(
                     train_data.batches(batch_size, epoch, seed)):
-                feats = extract_feats(batch, prng.step_seed(self.seed, epoch,
-                                                            it), True)
+                feats = gather_rows(extract_feats(
+                    batch, prng.step_seed(self.seed, epoch, it), True))
                 labels = torch.from_numpy(np.ascontiguousarray(
                     batch.label)).to(self.device).long()
                 losses.append(self.train_step(feats, labels,
@@ -84,8 +94,8 @@ class LinearProbe:
             for batch in val_data.batches(batch_size, 0, seed, shuffle=False):
                 preds_all.append(self.eval_step(extract_feats(batch, 0,
                                                               False)))
-                targets_all.append(batch.label)
-                masks.append(batch.mask)
+                targets_all.append(rows.take(batch.label))
+                masks.append(rows.take(batch.mask))
             preds, targets = _concat_masked(preds_all, targets_all, masks)
             stats = compute_stage_metrics(
                 preds, targets, num_classes=self.num_classes,
@@ -102,20 +112,24 @@ class LinearProbe:
 def make_ssl_extract_fn(ssl_model, device, mean, std, img_sz=(224, 224),
                         train_aug=PROBE_AUG):
     """The frozen-extractor feature function over a stage-1 model: its two
-    encoders in eval mode, no graph; train views from the seed's streams 0
-    and 1, eval views from the deterministic resize."""
+    encoders in eval mode, no graph, on this rank's rows of a host batch;
+    train views from the seed's streams 0 and 1 (drawn for the whole
+    batch), eval views from the deterministic resize."""
     aug = dataclasses.replace(train_aug, out_size=tuple(img_sz))
 
     @torch.no_grad()
     def extract(batch, seed: int, train: bool) -> torch.Tensor:
-        derm, derm_hw, clinic, clinic_hw = upload_batch(batch, device)
+        rows = local_rows(len(batch.index))
+        derm, derm_hw, clinic, clinic_hw = (
+            to_device(rows.take(x), device) for x in
+            (batch.derm, batch.derm_hw, batch.clinic, batch.clinic_hw))
         if train:
             d = ssl_augment_batch(
                 prng.generator(prng.fold_in(seed, 0), device), derm, derm_hw,
-                mean, std, aug)
+                mean, std, aug, rows)
             c = ssl_augment_batch(
                 prng.generator(prng.fold_in(seed, 1), device), clinic,
-                clinic_hw, mean, std, aug)
+                clinic_hw, mean, std, aug, rows)
         else:
             d = eval_resize_batch(derm, derm_hw, mean, std, tuple(img_sz))
             c = eval_resize_batch(clinic, clinic_hw, mean, std, tuple(img_sz))

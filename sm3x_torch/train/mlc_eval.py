@@ -91,16 +91,18 @@ class MLCEvalTrainer(supervised.SupervisedTrainer):
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
-        self.optimizer = common.make_adamw(
-            common.trainable_parameters(
-                self.model, lambda name: common.mlc_eval_trainable(
-                    name, m.finetune)),
-            cfg.optim.base_lr, cfg.optim.wd)
+        self.rows = common.data_axis(cfg, self.logger)
+        params = common.trainable_parameters(
+            self.model, lambda name: common.mlc_eval_trainable(
+                name, m.finetune))
+        self.net = common.data_parallel(self.model, self.device)
+        self.optimizer = common.make_adamw(params, cfg.optim.base_lr,
+                                           cfg.optim.wd)
         self.autocast_modules = (self.model.extractor,)
-        model = self.model
+        model, net = self.model, self.net
 
         def forward_train(d, c, generator):
-            return model(d, c, extractor_train=ext_train,
+            return net(d, c, extractor_train=ext_train,
                          head_train=head_train,
                          stop_extractor_grad=m.finetune != "all",
                          generator=generator)[1]
@@ -114,4 +116,5 @@ class MLCEvalTrainer(supervised.SupervisedTrainer):
             forward_train, forward_eval, self.optimizer,
             cfg.optim.label_weights, tuple(cfg.data.mean),
             tuple(cfg.data.std), aug, (cfg.test_sz, cfg.test_sz),
-            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2")
+            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2",
+            rows=self.rows)

@@ -21,6 +21,13 @@ Randomness: a step's seed is `prng.step_seed(seed, epoch, step)` and folds
 in 0, 1 and 2 for the derm view, the clinic view and dropout, each with
 its own `torch.Generator`; the init pass starts from `fold_in(seed, 999)`;
 k-means folds in the epoch, its stream's number and the label's index.
+
+Under a process group each rank holds its rows of every global batch:
+views and dropout masks are drawn for the whole batch and cut to them, the
+head trains under DDP, and the rows `sa` of all ranks are gathered and
+written into every rank's bank at the batch's global index. k-means runs
+on every rank from the same bank and the same generator, so the
+assignments are the same bits everywhere.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ import time
 import torch
 
 from sm3x_torch.core import prng
+from sm3x_torch.core.mesh import batch_rows
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
 from sm3x_torch.losses import cluster_ce
 from sm3x_torch.models.mlc import MLCModel
 from sm3x_torch.ops.augment import (MLC_TRAIN_AUG, modality_keys,
                                     modality_valid_hw, ssl_augment_batch)
 from sm3x_torch.ops.kmeans import spherical_kmeans
+from sm3x_torch.parallel.collectives import gather_rows, process_info
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
 from sm3x_torch.train.backbone_train import DATASETS, unsupported_run
@@ -57,78 +66,93 @@ def unsupported(cfg) -> list:
          f"--data-name {d.data_name}: the port's stage 2 takes "
          f"{' or '.join(DATASETS)}"),
     ]
-    return [msg for bad, msg in checks if bad] + unsupported_run(
-        cfg, "stage 2 runs on one device")
+    return [msg for bad, msg in checks if bad] + unsupported_run(cfg)
 
 
 def augment_pair(seed: int, derm, derm_hw, clinic, clinic_hw, mean, std,
-                 aug_cfg, joint_aug: bool):
-    """One augmented view a modality, from the seed's streams 0 and 1."""
+                 aug_cfg, joint_aug: bool, rows=None):
+    """One augmented view a modality, from the seed's streams 0 and 1;
+    `rows`: these canvases are those rows of the global batch."""
     kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
                            joint_aug)
     d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
     dev = derm.device
     d = ssl_augment_batch(prng.generator(kd, dev), derm, d_hw, mean, std,
-                          aug_cfg)
+                          aug_cfg, rows)
     c = ssl_augment_batch(prng.generator(kc, dev), clinic, c_hw, mean, std,
-                          aug_cfg)
+                          aug_cfg, rows)
     return d, c
+
+
+def gather_tokens(sa: torch.Tensor) -> torch.Tensor:
+    """(heads, b, P) of this rank's rows -> (heads, B, P) of the global
+    batch, in one gather (`sa` itself on one process)."""
+    if process_info()[1] == 1:
+        return sa
+    return gather_rows(sa.transpose(0, 1).contiguous()).transpose(0, 1)
 
 
 def mlc_update(model, optimizer, bank, derm_view, clinic_view, index,
                assignments, temperature: float,
                finetune_backbone: bool = False,
-               generator=None) -> torch.Tensor:
+               generator=None, rows=None) -> torch.Tensor:
     """Forward, the mean cluster cross-entropy over the labels, backward,
     the AdamW step and the bank write, on given views. `index` (B,) are the
-    batch's rows of the bank and `assignments` (labels, N) the epoch's
-    targets. Returns the detached loss on the device."""
+    global batch's rows of the bank, `assignments` (labels, N) the epoch's
+    targets, and the views `rows` of the batch where given (`model` under
+    DDP). Returns the detached global loss on the device."""
     optimizer.zero_grad(set_to_none=True)
-    sa, preds = model(derm_view, clinic_view,
-                      extractor_train=finetune_backbone, head_train=True,
-                      stop_extractor_grad=not finetune_backbone,
-                      generator=generator)
+    with batch_rows(rows):
+        sa, preds = model(derm_view, clinic_view,
+                          extractor_train=finetune_backbone, head_train=True,
+                          stop_extractor_grad=not finetune_backbone,
+                          generator=generator)
+    mine = index if rows is None else rows.take(index)
     loss = torch.stack([
-        cluster_ce(pred, assignments[i, index], temperature)
+        cluster_ce(pred, assignments[i, mine], temperature)
         for i, pred in enumerate(preds)]).mean()
     loss.backward()
     optimizer.step()
-    bank[:, index] = sa.detach()   # the batch's slots, in place
-    return loss.detach()
+    bank[:, index] = gather_tokens(sa.detach())   # the batch's slots
+    return common.global_mean(loss)
 
 
 def make_mlc_train_step(model, optimizer, temperature: float, mean, std,
                         aug_cfg, finetune_backbone: bool,
-                        joint_aug: bool = False):
+                        joint_aug: bool = False, rows=None):
     """Returns step(bank, derm, derm_hw, clinic, clinic_hw, index,
     assignments, seed) -> loss, with the canvases (B, S, S, 3) uint8, the
-    valid sizes (B, 2) and the index (B,) int64 on the device."""
+    valid sizes (B, 2) on the device, `rows` of the global batch where
+    given, and the global batch's index (B,) int64."""
 
     def train_step(bank, derm, derm_hw, clinic, clinic_hw, index,
                    assignments, seed: int) -> torch.Tensor:
         d, c = augment_pair(seed, derm, derm_hw, clinic, clinic_hw, mean, std,
-                            aug_cfg, joint_aug)
+                            aug_cfg, joint_aug, rows)
         drop = prng.generator(prng.fold_in(seed, 2), derm.device)
         return mlc_update(model, optimizer, bank, d, c, index, assignments,
-                          temperature, finetune_backbone, drop)
+                          temperature, finetune_backbone, drop, rows)
 
     return train_step
 
 
-def make_embed_step(model, mean, std, aug_cfg, joint_aug: bool = False):
+def make_embed_step(model, mean, std, aug_cfg, joint_aug: bool = False,
+                    rows=None):
     """The init-memory pass of one batch: every module in train mode (the
     reference never switches to eval before it), no gradient. Returns
-    embed(derm, derm_hw, clinic, clinic_hw, seed) -> sa (heads, B, P); the
-    batch-norm running statistics move as a side effect."""
+    embed(derm, derm_hw, clinic, clinic_hw, seed) -> sa (heads, B, P) of
+    the global batch (gathered from every rank); the batch-norm running
+    statistics move as a side effect."""
 
     @torch.no_grad()
     def embed(derm, derm_hw, clinic, clinic_hw, seed: int) -> torch.Tensor:
         d, c = augment_pair(seed, derm, derm_hw, clinic, clinic_hw, mean, std,
-                            aug_cfg, joint_aug)
+                            aug_cfg, joint_aug, rows)
         drop = prng.generator(prng.fold_in(seed, 2), derm.device)
-        sa, _ = model(d, c, extractor_train=True, head_train=True,
-                      stop_extractor_grad=True, generator=drop)
-        return sa
+        with batch_rows(rows):
+            sa, _ = model(d, c, extractor_train=True, head_train=True,
+                          stop_extractor_grad=True, generator=drop)
+        return gather_tokens(sa)
 
     return embed
 
@@ -157,8 +181,8 @@ def cluster_and_update(seed: int, bank: torch.Tensor, model,
 
 class MLCTrainer(common.CheckpointableTrainer):
     """Owns the model, the optimizer, the memory bank and the DeepCluster
-    loop on one device; its checkpoints have `export_mlc_model`'s key
-    layout, which the eval stage reads."""
+    loop on this process's device; its checkpoints have
+    `export_mlc_model`'s key layout, which the eval stage reads."""
 
     def __init__(self, cfg, logger=None, extractor_state=None):
         problems = unsupported(cfg)
@@ -186,20 +210,23 @@ class MLCTrainer(common.CheckpointableTrainer):
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
-        self.optimizer = common.make_adamw(
-            common.trainable_parameters(
-                self.model, lambda name: common.mlc_train_trainable(
-                    name, m.finetune_backbone)),
-            cfg.optim.base_lr, cfg.optim.wd)
+        self.rows = common.data_axis(cfg, self.logger)
+        params = common.trainable_parameters(
+            self.model, lambda name: common.mlc_train_trainable(
+                name, m.finetune_backbone))
+        # after the freeze: DDP takes the tensors that train
+        self.net = common.data_parallel(self.model, self.device)
+        self.optimizer = common.make_adamw(params, cfg.optim.base_lr,
+                                           cfg.optim.wd)
         aug_cfg = dataclasses.replace(MLC_TRAIN_AUG,
                                       out_size=tuple(cfg.data.img_sz))
         mean, std = tuple(cfg.data.mean), tuple(cfg.data.std)
         joint_aug = cfg.data.data_name == "SevenPCBaseDataset2"
         self.train_step = make_mlc_train_step(
-            self.model, self.optimizer, m.temperature, mean, std, aug_cfg,
-            m.finetune_backbone, joint_aug)
+            self.net, self.optimizer, m.temperature, mean, std, aug_cfg,
+            m.finetune_backbone, joint_aug, self.rows)
         self.embed_step = make_embed_step(self.model, mean, std, aug_cfg,
-                                          joint_aug)
+                                          joint_aug, self.rows)
         self.bank = None
         self.assignments = None
 
@@ -261,7 +288,7 @@ class MLCTrainer(common.CheckpointableTrainer):
                 self.bank, *self._upload_batch(batch),
                 self._upload(batch.index).long(), self.assignments,
                 prng.step_seed(cfg.run.seed, epoch, it))
-            pending.append((loss, batch.derm.shape[0]))
+            pending.append((loss, len(batch.index)))
             if it % cfg.run.print_freq == 0 and it > 0:
                 common.drain_losses(pending, losses, step_losses)
                 self.logger.info(progress.display(it))

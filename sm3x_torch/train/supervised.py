@@ -6,7 +6,13 @@ and normalise as kernel K1 on the card) -> forward -> per-label weighted
 cross-entropy -> backward -> AdamW over the trainable tensors. An eval
 step: deterministic resize -> forward, without a graph. The epoch's metrics
 run on the host over the collected logits, with wrap-padded rows masked
-out; the whole split is evaluated in one process.
+out.
+
+Under a process group each rank runs its rows of every global batch (the
+views' draws made for the whole batch, the model under DDP); the epoch's
+predictions, targets and masks come to every rank in one gather, so the
+metrics are those of the whole split, the same on every rank, and rank 0
+writes `results.csv` and `best_eval.pth`.
 
 Nothing in a step loop reads the device back: losses and predictions stay
 device tensors until the last step is queued, then come over in one
@@ -30,10 +36,12 @@ from sm3x_torch import CLASSES_NAME, METRICS_NAME
 from sm3x_torch.core import prng
 from sm3x_torch.data.prefetch import (resident_nbytes, to_device,
                                       wrap_from_config)
+from sm3x_torch.core.mesh import batch_rows
 from sm3x_torch.losses import weighted_multilabel_ce
 from sm3x_torch.metrics import (compute_stage_metrics,
                                 mean_average_precision, write_results_csv)
 from sm3x_torch.ops.augment import eval_resize_batch
+from sm3x_torch.parallel.collectives import host_gather_tree
 from sm3x_torch.train import common
 from sm3x_torch.train.backbone_train import DATASETS, unsupported_run
 from sm3x_torch.train.mlc_train import augment_pair
@@ -51,19 +59,20 @@ def unsupported(cfg) -> list:
          f"--data-name {d.data_name}: the port's eval stages take "
          f"{' or '.join(DATASETS)}"),
     ]
-    return [msg for bad, msg in checks if bad] + unsupported_run(
-        cfg, "eval stages run on one device")
+    return [msg for bad, msg in checks if bad] + unsupported_run(cfg)
 
 
 def supervised_update(forward_train: Callable, optimizer, derm_view,
                       clinic_view, labels: torch.Tensor, label_weights,
-                      generator=None):
+                      generator=None, rows=None):
     """Forward, the weighted multi-label cross-entropy, backward and the
-    optimizer step on given views. `forward_train(d, c, generator)` returns
-    the list of logits; `labels` is (B, num_labels) integer. Returns the
-    detached loss and predictions, on the device."""
+    optimizer step on given views (`rows` of the global batch where
+    given). `forward_train(d, c, generator)` returns the list of logits;
+    `labels` is (B, num_labels) integer. Returns the detached loss (this
+    rank's) and predictions, on the device."""
     optimizer.zero_grad(set_to_none=True)
-    preds = forward_train(derm_view, clinic_view, generator)
+    with batch_rows(rows):
+        preds = forward_train(derm_view, clinic_view, generator)
     loss = weighted_multilabel_ce(preds, labels, label_weights)
     loss.backward()
     optimizer.step()
@@ -73,21 +82,22 @@ def supervised_update(forward_train: Callable, optimizer, derm_view,
 def make_supervised_steps(forward_train: Callable, forward_eval: Callable,
                           optimizer, label_weights: Sequence[float], mean,
                           std, train_aug, eval_size=(224, 224),
-                          joint_aug: bool = False):
+                          joint_aug: bool = False, rows=None):
     """Returns (train_step, eval_step):
       train_step(derm, derm_hw, clinic, clinic_hw, labels, seed)
           -> (loss, preds), detached device tensors;
       eval_step(derm, derm_hw, clinic, clinic_hw) -> preds.
     The canvases are (B, S, S, 3) uint8 and the valid sizes (B, 2) on the
-    device; `forward_eval(d, c)` returns the logits in eval mode."""
+    device (`rows` of the global batch where given, with their labels);
+    `forward_eval(d, c)` returns the logits in eval mode."""
     label_weights = tuple(float(w) for w in label_weights)
 
     def train_step(derm, derm_hw, clinic, clinic_hw, labels, seed: int):
         d, c = augment_pair(seed, derm, derm_hw, clinic, clinic_hw, mean, std,
-                            train_aug, joint_aug)
+                            train_aug, joint_aug, rows)
         drop = prng.generator(prng.fold_in(seed, 2), derm.device)
         return supervised_update(forward_train, optimizer, d, c, labels,
-                                 label_weights, drop)
+                                 label_weights, drop, rows)
 
     @torch.no_grad()
     def eval_step(derm, derm_hw, clinic, clinic_hw):
@@ -127,26 +137,31 @@ def upload_batch(batch, device) -> tuple:
 
 
 def run_train_epoch(trainer, data, epoch: int) -> dict:
-    """One pass of `trainer.train_step` over `data`; the epoch's metrics
-    over its own predictions, and the mean loss."""
+    """One pass of `trainer.train_step` over `data` (this rank's rows of
+    each batch, `trainer.rows`); the epoch's metrics over the predictions
+    of all ranks, and the mean loss of the global batches."""
     cfg = trainer.cfg
+    rows = trainer.rows
     losses = AverageMeter("Loss", ":.4f")
     all_preds, all_targets, all_masks, pending = [], [], [], []
     for it, batch in enumerate(
             data.batches(cfg.optim.batch_size, epoch, cfg.run.seed)):
+        label = rows.take(batch.label)
         labels = torch.from_numpy(
-            np.ascontiguousarray(batch.label)).to(trainer.device).long()
+            np.ascontiguousarray(label)).to(trainer.device).long()
         loss, preds = trainer.train_step(
             *upload_batch(batch, trainer.device), labels,
             prng.step_seed(cfg.run.seed, epoch, it))
         # every read-back waits for the last step: a float() a step would
         # stall the queue on a round trip to the device
-        pending.append((loss, batch.derm.shape[0]))
+        pending.append(loss)
         all_preds.append(preds)
-        all_targets.append(batch.label)
-        all_masks.append(batch.mask)
-    for loss, n in pending:
-        losses.update(float(loss), n)
+        all_targets.append(label)
+        all_masks.append(rows.take(batch.mask))
+    if pending:
+        # the ranks' losses of each step in one all-reduce
+        for loss in common.global_mean(torch.stack(pending)).tolist():
+            losses.update(loss, rows.total)
     stats = _epoch_metrics(all_preds, all_targets, all_masks)
     stats["loss"] = losses.avg
     return stats
@@ -154,15 +169,17 @@ def run_train_epoch(trainer, data, epoch: int) -> dict:
 
 def _eval_pass(trainer, data):
     """`trainer.eval_step` over the whole split in order (`epoch=0,
-    shuffle=False`): per-step predictions on the device, targets, masks."""
+    shuffle=False`): per-step predictions on the device, targets, masks,
+    each of this rank's rows."""
     cfg = trainer.cfg
+    rows = trainer.rows
     all_preds, all_targets, all_masks = [], [], []
     for batch in data.batches(cfg.optim.batch_size, epoch=0,
                               seed=cfg.run.seed, shuffle=False):
         all_preds.append(trainer.eval_step(
             *upload_batch(batch, trainer.device)))
-        all_targets.append(batch.label)
-        all_masks.append(batch.mask)
+        all_targets.append(rows.take(batch.label))
+        all_masks.append(rows.take(batch.mask))
     return all_preds, all_targets, all_masks
 
 
@@ -177,16 +194,22 @@ def collect_eval_logits(trainer, data):
 
 
 def _concat_masked(all_preds, all_targets, all_masks):
-    """Per-step lists of per-label logits (device tensors) -> one array a
-    label on the host, rows of wrap-padding dropped: one `torch.cat` and
-    one transfer for the epoch."""
-    mask = np.concatenate(all_masks)
+    """Per-step lists of per-label logits (device tensors), targets and
+    masks of this rank's rows -> one array a label on the host for the
+    whole of every batch, rows of wrap-padding dropped: one `torch.cat`,
+    one transfer and, under a process group, one gather for the epoch
+    (the ranks' rows of each step side by side, the order of one
+    process)."""
     widths = [p.shape[1] for p in all_preds[0]]
-    flat = torch.cat([torch.cat([p.float() for p in step], dim=1)
-                      for step in all_preds]).cpu().numpy()
+    flat = torch.stack([torch.cat([p.float() for p in step], dim=1)
+                        for step in all_preds])
+    got = host_gather_tree({"preds": flat, "targets": np.stack(all_targets),
+                            "mask": np.stack(all_masks)}, axis=1)
+    mask = got["mask"].reshape(-1)
+    flat = got["preds"].reshape(-1, flat.shape[-1])
     edges = np.cumsum([0] + widths)
     preds = [flat[mask, a:b] for a, b in zip(edges[:-1], edges[1:])]
-    targets = np.concatenate(all_targets)[mask]
+    targets = got["targets"].reshape(mask.shape[0], -1)[mask]
     return preds, targets
 
 
@@ -204,7 +227,8 @@ class SupervisedTrainer(common.CheckpointableTrainer):
     pass an epoch, the best model by val AUC_AVG stashed on the device and
     written once after the loop, `results.csv` from a float32 eval pass.
     A trainer sets `cfg`, `device`, `logger`, `writer`, `model`,
-    `optimizer`, `train_step`, `eval_step` and `autocast_modules`."""
+    `optimizer`, `train_step`, `eval_step`, `autocast_modules` and `rows`
+    (this rank's rows of each global batch, `common.data_axis`)."""
 
     best_auc: float = 0.0
     per_label_summary = False
@@ -268,7 +292,12 @@ class SupervisedTrainer(common.CheckpointableTrainer):
     def write_results(self, data, path: str) -> str:
         """`results.csv` in the released layout from an eval pass in
         float32 (TF32 off), whatever --amp says: two bf16 programs differ
-        beyond the CSV's tolerance."""
+        beyond the CSV's tolerance. `data` goes through the feed that
+        --device-feed names (already wrapped, it passes through); every
+        rank runs the pass, rank 0 writes the file."""
+        data = wrap_from_config(data, self.device, self.cfg.data)
         with full_float32(*self.autocast_modules):
             preds, targets = collect_eval_logits(self, data)
+        if not common.is_main_process():
+            return path
         return write_results_csv(path, preds, targets, probabilities=False)

@@ -45,16 +45,21 @@ def log_every_n_seconds(logger, msg: str, n: int = 1,
 
 class StatWriter:
     """Scalars of an epoch to TensorBoard (`<log_path>/tb_log`) and wandb
-    where asked for and available, else to `logger` alone."""
+    where asked for and available, else to `logger` alone. Only rank 0 of
+    a process group writes (the ranks' stats are the same)."""
 
     def __init__(self, log_path: str, tensorboard: bool = False,
                  wandb: bool = False, project: str = "sm3x", config=None,
                  logger=None):
+        from sm3x_torch.parallel.collectives import is_main_process
+
         self.log_path = log_path
         self.logger = logger
         self.tb = None
         self.wb = None
         self.to_log = False   # a sink was asked for and is missing
+        if not is_main_process():
+            return
         if tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter

@@ -132,10 +132,17 @@ class _ElapsedFormatter(logging.Formatter):
                 f"{record.levelname}: {record.getMessage()}")
 
 
-def setup_logger(output: Optional[str] = None,
-                 name: str = "sm3x_torch") -> logging.Logger:
-    """stdout, and a log.txt in `output`. Calling it again for a name
-    replaces that logger's handlers."""
+def setup_logger(output: Optional[str] = None, name: str = "sm3x_torch",
+                 rank: Optional[int] = None) -> logging.Logger:
+    """stdout on rank 0 only, and a file in `output`: `log.txt` on rank 0,
+    `log.txt.rank{N}` on rank N > 0, so that the ranks of one run share
+    its directory without mixing their lines. `rank` defaults to this
+    process's. Calling it again for a name replaces that logger's
+    handlers."""
+    if rank is None:
+        from sm3x_torch.parallel.collectives import process_info
+
+        rank = process_info()[0]
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
@@ -143,10 +150,11 @@ def setup_logger(output: Optional[str] = None,
         logger.removeHandler(h)
         h.close()
     fmt = _ElapsedFormatter()
-    handlers = [logging.StreamHandler(stream=sys.stdout)]
+    handlers = [logging.StreamHandler(stream=sys.stdout)] if rank == 0 else []
     if output:
         os.makedirs(output, exist_ok=True)
-        handlers.append(logging.FileHandler(os.path.join(output, "log.txt")))
+        fname = "log.txt" + (f".rank{rank}" if rank else "")
+        handlers.append(logging.FileHandler(os.path.join(output, fname)))
     for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,8 +67,10 @@ LATER = "not in the PyTorch port yet"
     (["--data-name", "SevenPCSwavDataset"], LATER),
     # not to be ported at all: K = 4 hurt the features
     (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
-    (["--mesh-data", "2"], LATER),
-    (["--coordinator", "localhost:1234"], LATER),
+    # the data axis is the run's processes: --mesh-data is taken, but not
+    # beside a model axis, and --coordinator needs its two companions
+    (["--mesh-data", "2", "--mesh-model", "2"], "ROADMAP.md, PR 10"),
+    (["--coordinator", "localhost:1234"], "needs --num-processes"),
     (["--data-name", "ISIC17Dataset"], LATER),
     (["--mesh-model", "2"], LATER),
     (["--data-name", "ISIC18Dataset"], LATER),
@@ -200,3 +203,71 @@ def test_cli_takes_the_flags_this_slice_ported(dataset, tmp_path):
     assert m and math.isfinite(float(m.group(1)))
     assert os.path.exists(os.path.join(log, "ckp_0.pth"))
     shutil.rmtree(log, ignore_errors=True)   # ~0.3 GB
+
+
+# ---------------------------------------------------------------------------
+# Two processes joined by --coordinator (the twin of test_cli_multihost.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_step_dataset(tmp_path_factory):
+    """8 train cases: one step of -b 8, so the epoch's loss is the first
+    step's."""
+    from sm3x.data.synthetic import make_fake_derm7pt
+
+    root = tmp_path_factory.mktemp("torch7pc_one_step")
+    make_fake_derm7pt(str(root), n_cases=16, img_size=56)
+    return str(root)
+
+
+def _epoch_loss(text: str) -> float:
+    m = re.search(r"Epoch 0: loss (\S+)", text)
+    assert m, text[-3000:]
+    return float(m.group(1))
+
+
+def test_two_processes_joined_by_coordinator_train_as_one(one_step_dataset,
+                                                          tmp_path):
+    """Two tools/backbone_train_torch.py processes on gloo: one run
+    directory (log.txt, log.txt.rank1, one configs.txt), rank 0 alone on
+    stdout, a ckp_0.pth with the keys of a one-process run, and the first
+    step's loss at rtol 1e-4 of the one-process run's (float32; the
+    float64 checks are in test_torch_multigpu.py)."""
+    from sm3x_torch.parallel.launch import free_port
+
+    args = COMMON + ["--data-path", one_step_dataset, "--print-freq", "1"]
+    single = _run(args + ["--log-path", str(tmp_path / "one")], str(tmp_path))
+    assert single.returncode == 0, single.stdout[-3000:] + single.stderr[-3000:]
+    run = str(tmp_path / "two")
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen(
+        [sys.executable, TOOL] + args + [
+            "--log-path", run, "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "2", "--process-id", str(i)],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(outs)
+    assert sorted(f for f in os.listdir(run) if not f.endswith(".pth")) == [
+        "configs.txt", "log.txt", "log.txt.rank1"]
+    assert not os.path.exists(run + "_2")   # one directory, chosen by rank 0
+    assert "Epoch 0: loss" not in outs[1]
+    with open(os.path.join(run, "log.txt.rank1")) as f:
+        rank1 = _epoch_loss(f.read())
+    rank0 = _epoch_loss(outs[0])
+    assert rank0 == rank1
+    np.testing.assert_allclose(rank0, _epoch_loss(single.stdout), rtol=1e-4)
+    ckpt = torch.load(os.path.join(run, "ckp_0.pth"), weights_only=True)
+    model, _ = build_ssl_model("v32", "resnet18", 16)
+    model.load_state_dict(ckpt["state_dict"], strict=True)

@@ -264,12 +264,26 @@ def test_wrap_from_config_plumbs_cli_flags(host_data):
 
 
 def test_auto_in_a_multi_process_run_is_refused(host_data, monkeypatch):
+    """No longer refused: under a process group every strategy yields this
+    rank's rows (sm3x_torch.data.multihost), `auto` through the
+    process-sharded prefetch; on one rank those are the whole batch."""
     import sm3x_torch.data.prefetch as prefetch
+    from sm3x_torch.data.device_data import DeviceData
+    from sm3x_torch.data.multihost import LocalRows, ProcessShardedData
 
-    monkeypatch.setattr(prefetch, "_multi_process", lambda: True)
-    with pytest.raises(NotImplementedError,
-                       match="multi-GPU, ROADMAP item 15"):
-        wrap_for_device(host_data, CPU)
-    # a forced single-process strategy still works, as in the reference
-    assert isinstance(wrap_for_device(host_data, CPU, strategy="prefetch"),
-                      PrefetchData)
+    monkeypatch.setattr(prefetch, "is_distributed", lambda: True)
+    feeds = {s: wrap_for_device(host_data, CPU, strategy=s)
+             for s in ("auto", "prefetch", "resident", "host")}
+    assert type(feeds["auto"]) is ProcessShardedData
+    assert type(feeds["prefetch"]) is ProcessShardedData
+    assert type(feeds["resident"]) is DeviceData and feeds["resident"].local
+    assert type(feeds["host"]) is LocalRows
+    want = list(host_data.batches(8, 1, 3))
+    for name, feed in feeds.items():
+        got = list(feed.batches(8, 1, 3))
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            for f in ("derm", "derm_hw", "clinic", "clinic_hw", "label",
+                      "index", "mask"):
+                np.testing.assert_array_equal(np.asarray(getattr(g, f)),
+                                              getattr(w, f), err_msg=name)
