@@ -17,7 +17,11 @@ Phases, each printing its lines:
            copies; K1, K2f and K2b twice for identical bits; K3 also in bf16 at ViT-B's (64, 197, 12, 64), where it
            runs on the tensor cores and is held against the plain versions
            in float32 and in the TPU kernels' bf16 arithmetic; K4 over 256
-           MiB, exact). Times of each: `ms`, the median of 20 single
+           MiB, exact; and at the multi-crop and tri-modal paths' shapes:
+           K1 at (576, 96, 96, 3), which must take the band kernel, K2f /
+           K2b at (32, 96, 128) and (18, 64, 128), K3 at (64, 37, 12, 64)
+           in float32 and bf16 beside the library's attention, each row
+           under `path_shapes` of its kernel). Times of each: `ms`, the median of 20 single
            launches between two events (the wrapper's host work included);
            `device_ms`, events around 50 launches in a row over the count;
            `plain_ms`, the plain version as `ms`; for K3 `plain_bf16_ms`,
@@ -40,6 +44,13 @@ Phases, each printing its lines:
            losses, kernel launch counts (K1's by kernel: every launch at
            224x224 must take the band kernel), step time, images/s, peak
            memory
+  crop     `main`'s recipe under --data-name SevenPCSwavDataset at the CLI's
+           multi-crop defaults (2 x 224 at scales 0.5-1 and 6 x 96 at
+           0.14-0.5 a modality, local weight 1.0): 3 steps through fit, K1
+           4 launches a step (each crop group of a modality in one: the
+           two globals, the six locals; all band), K2f / K2b one each (16
+           terms x 2 groups); step times, the device's busy time of three
+           traced steps, the loss's parts, peak memory
   stage2   the stage-2 trainer at the run.sh recipe (two frozen resnet50
            from the ckp_0.pth that `main` wrote, 224x224, batch 256, v4
            projectors of 512, 1 head, ff 128, dropout 0.1, T 1, lr 1e-4,
@@ -69,6 +80,12 @@ Phases, each printing its lines:
            128, lr 1e-3, --finetune fc, bf16 autocast): one epoch through
            BackboneEvalTrainer.fit and results.csv; backbones bit-identical
            afterwards; the same numbers
+  transfer the ISIC transfer probe on a synthetic ISIC17 tree that the
+           script writes (256 train / 64 test JPEGs of 100-370 pixels a
+           side), from `main`'s ckp_0.pth: the resnet50 derm encoder frozen
+           under two binary heads, batch 64, 2 epochs, bf16 autocast; K1
+           once a train batch (band), ms an epoch, AUC_AVG finite in [0, 1],
+           peak memory
   infer    sm3x_torch.api on `eval`'s best_eval.pth: build_evaluator,
            load_weights, predict_fn at batch 1 and 64 in float32, equal to
            the trainer's eval step on the same images and to the same
@@ -96,6 +113,11 @@ Phases, each printing its lines:
            --use-checkpoint flash): attention through K3 forward and
            backward, 48 launches of each a step, every one the tensor-core
            kernel; losses, launch counts, step time, images/s, peak memory
+  tri      --arch-version trimodal on vit_b16, batch 64, --use-checkpoint
+           flash, the metadata vocabularies from the synthetic data's codes:
+           3 steps through fit with `vit`'s launch counts (9 NT-Xent terms x
+           2 groups in one K2 call), the same lines as `crop`, and its
+           ckp_0.pth loaded strictly into a new TriModalSimCLR
   dist     [main]'s recipe under torch.distributed, cuDNN deterministic:
            leg A, a world-size-1 NCCL group through the port's
            distributed_initialize, SSLTrainer.fit over 3 steps under DDP
@@ -113,7 +135,8 @@ Phases, each printing its lines:
            are there
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy)
+With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
+crop, tri, transfer)
 only those phases run after device and build, and no result is printed.
 
 With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
@@ -395,6 +418,8 @@ def phase_kernels():
     results["ntxent_bwd"]["max_abs_err"] = errs["bwd"]
     results.update(k3_kernels())
     results["copy"] = k4_kernel()
+    for name, rows in kernels_at_path_shapes().items():
+        results[name]["path_shapes"] = rows
     for name, r in results.items():
         bf16 = (f", plain bf16 {r['plain_bf16_ms']:.4f} ms"
                 if "plain_bf16_ms" in r else "")
@@ -612,6 +637,173 @@ def k3_kernels() -> dict:
     }
 
 
+# the shapes the multi-crop and tri-modal phases give the kernels: K1 over
+# one modality's six 96 x 96 locals of a batch of 96; K2 over multi-crop's
+# 16 terms and the tri-modal loss's 9 (batch 64), 2 groups each; K3 at a
+# ViT-B/16 local view's 37 tokens (36 patches of 96 x 96 and the class
+# token), which a ViT under multi-crop gives it
+K1_LOCAL_SHAPE = (576, 96, 96, 3)
+K2_PATH_SHAPES = {"crop": (32, 96, 128), "tri": (18, 64, 128)}
+K3_LOCAL_SHAPE = (64, 37, 12, 64)
+
+
+def kernels_at_path_shapes() -> dict:
+    """K1, K2f / K2b and K3 at the new paths' shapes against their plain
+    versions at the [kernels] tolerances (K1 must take the band kernel),
+    with the times and bounds of each: {kernel name: [rows]}."""
+    import torch.nn.functional as F
+
+    from sm3x_torch.ops import attention as A3
+    from sm3x_torch.ops import attention_cuda as K3
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops import ntxent_cuda as N
+
+    def timed(row, fn, plain, library=None):
+        row.update(ms=median_ms(fn), device_ms=device_ms(fn),
+                   kernel_ms=kernel_ms(fn), plain_ms=median_ms(plain),
+                   library_ms=None if library is None else device_ms(library))
+        alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
+            "device_ms"]
+        row["share_of_bound"] = row["bound_ms"] / alone
+        lib = (f", library {row['library_ms']:.4f} ms"
+               if row["library_ms"] is not None else "")
+        log(f"  {row['name']} {tuple(row['shape'])} {row['dtype']}: kernel "
+            f"{row['ms']:.4f} ms a single launch, the kernel alone "
+            f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
+            f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
+            f"reached), plain {row['plain_ms']:.4f} ms{lib}")
+        return row
+
+    out = {k: [] for k in ("photometric", "ntxent_fwd", "ntxent_bwd",
+                           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    images, params = k1_inputs(K1_LOCAL_SHAPE[0], K1_LOCAL_SHAPE[1])
+    plan = K.photometric_plan(*K1_LOCAL_SHAPE[1:3])
+    before = dict(K.photometric_cuda.variants)
+    got = K.photometric_cuda(images, params, MEAN, STD)
+    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
+    log(f"[kernels] K1 photometric {K1_LOCAL_SHAPE} (multi-crop's locals of "
+        f"one modality): {took}, {plan['blocks']} blocks an image of "
+        f"{plan['band_rows']} rows, {plan['px']} pixels a thread")
+    if took != {"band": 1, "scratch": 0}:
+        raise AssertionError(f"K1 at {K1_LOCAL_SHAPE} took {took}")
+    err = check_close("K1 out (96 x 96)", got,
+                      K.photometric_plain(images, params, MEAN, STD),
+                      **K1_TOL)
+    out["photometric"].append(timed(
+        dict(name="photometric", path="crop", shape=list(K1_LOCAL_SHAPE),
+             dtype="float32", max_abs_err=err,
+             **bound(nbytes(images, params, got),
+                     130 * images[..., 0].numel(), "f32")),
+        lambda: K.photometric_cuda(images, params, MEAN, STD),
+        lambda: K.photometric_plain(images, params, MEAN, STD)))
+    del images, params, got
+
+    rng = np.random.default_rng(11)
+    for path, shape in K2_PATH_SHAPES.items():
+        z = torch.from_numpy(rng.standard_normal(shape,
+                                                 dtype=np.float32)).cuda()
+        g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).cuda()
+        loss, lse, inv = N.ntxent_forward_cuda(z, 0.1)
+        loss_p, lse_p, inv_p = N.ntxent_forward_plain(z, 0.1)
+        dz = N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+        dz_p = N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)
+        log(f"[kernels] K2 ntxent z {shape} ({path}: {shape[0] // 2} terms "
+            f"x 2 groups)")
+        fwd_err = check_close("K2f loss", loss, loss_p, **K2F_TOL)
+        check_close("K2f lse", lse, lse_p, **K2F_TOL)
+        bwd_err = check_close("K2b dz", dz, dz_p, **K2B_TOL)
+        s_flops = 2 * shape[0] * shape[1] ** 2 * shape[2]
+        out["ntxent_fwd"].append(timed(
+            dict(name="ntxent_fwd", path=path, shape=list(shape),
+                 dtype="float32", max_abs_err=fwd_err,
+                 **bound(nbytes(z, loss, lse, inv), s_flops, "f32")),
+            lambda: N.ntxent_forward_cuda(z, 0.1),
+            lambda: N.ntxent_forward_plain(z, 0.1)))
+        out["ntxent_bwd"].append(timed(
+            dict(name="ntxent_bwd", path=path, shape=list(shape),
+                 dtype="float32", max_abs_err=bwd_err,
+                 **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32")),
+            lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1),
+            lambda: N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)))
+
+    b, s, h, d = K3_LOCAL_SHAPE
+    scale = 1.0 / math.sqrt(d)
+    qk_flops = 2 * b * h * s * s * d
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            K3_LOCAL_SHAPE, dtype=np.float32)).cuda().to(dtype)
+            for _ in range(4))
+        out_k, lse = K3.flash_forward_cuda(q, k, v, scale)
+        dq, delta = K3.flash_backward_dq_cuda(q, k, v, out_k, do, lse, scale)
+        dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
+        f = [t.float() for t in (q, k, v, do)]
+        out_p, lse_p = A3.attention_plain(*f[:3], scale)
+        grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p,
+                                              scale)
+        name = str(dtype).replace("torch.", "")
+        log(f"[kernels] K3 flash attention {K3_LOCAL_SHAPE} {name} (a "
+            f"ViT-B/16 local view)")
+        errs = {}
+        if dtype == torch.float32:
+            errs["flash_fwd"] = check_close("K3f out", out_k, out_p,
+                                            **K3F_TOL)
+            check_close("K3f lse", lse, lse_p, **K3F_TOL)
+            for key, got_g, want_g in zip(
+                    ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                    (dq, dk, dv), grads_p):
+                errs[key] = max(errs.get(key, 0.0), check_close(
+                    f"K3b {key[10:]}", got_g, want_g, **K3B_TOL))
+        else:
+            e = float((out_k.float() - out_p).abs().max())
+            rels = [float((got_g.float() - want_g).norm() / want_g.norm())
+                    for got_g, want_g in zip((dq, dk, dv), grads_p)]
+            log(f"  K3f out (bf16): max abs err {e:.3e} against float32 "
+                f"(bound {K3_BF16_FWD}); K3b dq / dk / dv relative Frobenius "
+                f"err {[f'{r:.3e}' for r in rels]} (bound {K3_BF16_REL})")
+            if not (e < K3_BF16_FWD and max(rels) < K3_BF16_REL):
+                raise AssertionError("K3 in bf16 at S = 37 disagrees")
+            check_close("K3f lse (bf16) against float32", lse, lse_p,
+                        **K3F_LSE_TOL)
+            errs = {"flash_fwd": e, "flash_bwd_dq": rels[0],
+                    "flash_bwd_dkv": max(rels[1:])}
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_in = [t.transpose(1, 2) for t in leaves]
+        out_l = F.scaled_dot_product_attention(*lib_in, scale=scale)
+        lib_det = [t.detach() for t in lib_in]
+        stats = lse
+        rows = (
+            ("flash_fwd", lambda: K3.flash_forward_cuda(q, k, v, scale),
+             lambda: A3.attention_plain(q, k, v, scale),
+             lambda: F.scaled_dot_product_attention(*lib_det, scale=scale),
+             bound(nbytes(q, k, v, out_k, stats), 2 * qk_flops,
+                   "bf16" if dtype == torch.bfloat16 else "f32")),
+            ("flash_bwd_dq",
+             lambda: K3.flash_backward_dq_cuda(q, k, v, out_k, do, lse,
+                                               scale),
+             lambda: A3.attention_backward_plain(q, k, v, out_k, do, lse,
+                                                 scale),
+             lambda: torch.autograd.grad(out_l, leaves, do.transpose(1, 2),
+                                         retain_graph=True),
+             bound(nbytes(q, k, v, out_k, do, stats, stats, q), 3 * qk_flops,
+                   "bf16" if dtype == torch.bfloat16 else "f32")),
+            ("flash_bwd_dkv",
+             lambda: K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta,
+                                                scale),
+             lambda: A3.attention_backward_plain(q, k, v, out_k, do, lse,
+                                                 scale),
+             lambda: torch.autograd.grad(out_l, leaves, do.transpose(1, 2),
+                                         retain_graph=True),
+             bound(nbytes(q, k, v, do, stats, stats, k, v), 4 * qk_flops,
+                   "bf16" if dtype == torch.bfloat16 else "f32")))
+        for key, fn, plain, lib, bnd in rows:
+            out[key].append(timed(
+                dict(name=key, path="crop (ViT)", shape=list(K3_LOCAL_SHAPE),
+                     dtype=name, max_abs_err=errs[key], **bnd),
+                fn, plain, lib))
+        del out_l, leaves, lib_in, lib_det
+    return out
+
+
 def k4_kernel() -> dict:
     """K4 over 256 MiB: exact, and its time beside `Tensor.clone`'s, the
     library call of the same function (one read and one write of the array
@@ -771,11 +963,15 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
 
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
-              per_step: dict, profile_dir=None, profile_name=None) -> dict:
+              per_step: dict, profile_dir=None, profile_name=None,
+              tweak=None, busy: bool = False) -> dict:
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
     steps through SSLTrainer.fit with every kernel count set to 0 just
     before and read just after (each must equal `per_step` x steps), then
-    the step time over two more epochs."""
+    the step time over two more epochs and the loss's parts of the last of
+    them. `tweak(cfg, data)` changes the recipe (the multi-crop and
+    tri-modal phases); with `busy` the device's busy time of three traced
+    steps is printed too."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -785,6 +981,8 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     # a PairedImageData: under --device-feed auto, fit takes the resident
     # feed for it
     data = synthetic_paired_data(batch * steps, canvas=320, seed=0)
+    if tweak is not None:
+        tweak(cfg, data)
     trainer = SSLTrainer(cfg)
     counters, k3 = kernel_counters()
     reset_counters()
@@ -798,8 +996,9 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     k1_variants = dict(K.photometric_cuda.variants)
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
-    log(f"[{tag}] stage-1 step: {arch}/v32, proj 128, T 0.1, batch {batch}, "
-        f"world size 2, bf16 autocast, 224x224, --use-checkpoint "
+    log(f"[{tag}] stage-1 step: {arch}/{cfg.model.arch_version}, proj 128, "
+        f"T 0.1, batch {batch}, world size 2, bf16 autocast, 224x224, "
+        f"--data-name {cfg.data.data_name}, --use-checkpoint "
         f"{trainer.remat}; {steps} steps via SSLTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
     log(f"  kernel launches in fit: {launches}")
@@ -812,7 +1011,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
             for fn in counters}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
-    # 224 x 224: every K1 launch is the band kernel
+    # every K1 launch of stage 1 (224 x 224, 96 x 96) is the band kernel
     if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
         raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
     # bf16 autocast: every K3 launch is a tensor-core kernel
@@ -822,26 +1021,46 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         raise AssertionError("fit wrote no ckp_0.pth")
 
     def device_batches(epoch):
-        return [[torch.from_numpy(x).cuda() for x in
-                 (b.derm, b.derm_hw, b.clinic, b.clinic_hw)]
+        # the tri-modal step's metadata codes stay on the host
+        return [([torch.from_numpy(x).cuda() for x in
+                  (b.derm, b.derm_hw, b.clinic, b.clinic_hw)],
+                 trainer._meta(b))
                 for b in data.batches(batch, epoch, cfg.run.seed)]
+
+    metrics = []
+
+    def step(args, it):
+        metrics.append(trainer.train_step(*args[0], it, *args[1]))
+        return metrics[-1]["loss"]
 
     # step time: two more epochs of the same trainer, each step ended by a
     # sync
     times = timed_steps([
-        lambda it=it, args=args: trainer.train_step(*args, it)["loss"]
+        lambda it=it, args=args: step(args, it)
         for it, args in enumerate(device_batches(1) + device_batches(2))])
     step_s = statistics.median(times)
     log(f"  step time: median {step_s * 1e3:.1f} ms over {len(times)} steps, "
         f"min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f} (host "
         f"clock, synchronised; canvases uploaded before the clock); "
         f"{4 * batch / step_s:.1f} images/s (4 x batch per step)")
+    parts = {k: float(v) for k, v in metrics[-1].items()}
+    log(f"  the loss's parts at the last step: {parts}")
+    if not all(math.isfinite(v) for v in parts.values()):
+        raise AssertionError(f"non-finite loss parts {parts}")
     log(f"  peak device memory in fit: {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
-    if profile_dir:
+    if profile_dir or busy:
         batches = device_batches(3)[:3]
-        profile_steps(lambda it: trainer.train_step(*batches[it], it),
-                      len(batches), profile_dir, profile_name)
+        run = lambda it: trainer.train_step(*batches[it][0], it,
+                                            *batches[it][1])
+        if profile_dir:
+            profile_steps(run, len(batches), profile_dir, profile_name)
+        else:
+            res = profile_device(run, len(batches))
+            log(f"  device busy {res['busy_ms']:.1f} ms a step of "
+                f"{res['wall_ms']:.1f} ms on the host clock under the "
+                f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
+                f"busy), {res['launches']:.0f} kernels and copies a step")
     return launches
 
 
@@ -862,6 +1081,147 @@ def phase_vit(profile_dir=None) -> dict:
     give 48 launches of each K3 kernel a step."""
     return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
                      VIT_PER_STEP, profile_dir, "profile_vit.txt")
+
+
+# multi-crop at the CLI defaults: globals 224 (scales 0.5-1), six locals of
+# 96 (0.14-0.5) a modality; each crop group of a modality is one K1 launch
+CROP_STEPS = 3
+CROP_PER_STEP = dict(MAIN_PER_STEP)
+TRI_STEPS, TRI_BATCH = 3, 64
+
+
+def phase_crop() -> dict:
+    """run.sh's stage 1 under --data-name SevenPCSwavDataset at the CLI's
+    multi-crop defaults: 2 x 224 and 6 x 96 views a modality, local weight
+    1.0; 16 NT-Xent terms in 2 groups, one K2 call a step."""
+    def tweak(cfg, data):
+        d = cfg.data
+        d.data_name = "SevenPCSwavDataset"
+        d.size_crops, d.nmb_crops = (224, 96), (2, 6)
+        d.min_scale_crops, d.max_scale_crops = (0.5, 0.14), (1.0, 0.5)
+        cfg.model.local_loss_weight = 1.0
+
+    return phase_fit("crop", "resnet50", MAIN_BATCH, CROP_STEPS, False,
+                     CROP_PER_STEP, tweak=tweak, busy=True)
+
+
+def phase_tri() -> dict:
+    """--arch-version trimodal on vit_b16, batch 64, --use-checkpoint flash,
+    the metadata vocabularies from the synthetic Derm7pt's codes; then its
+    ckp_0.pth loads strictly into a new TriModalSimCLR."""
+    from sm3x_torch.models.trimodal import TriModalSimCLR
+
+    sizes = []
+
+    def tweak(cfg, data):
+        cfg.model.arch_version = "trimodal"
+        cfg.model.meta_vocab_sizes = tuple(data.meta_vocab_sizes)
+        sizes.append(cfg.model.meta_vocab_sizes)
+
+    launches = phase_fit("tri", "vit_b16", TRI_BATCH, TRI_STEPS, "flash",
+                         VIT_PER_STEP, tweak=tweak, busy=True)
+    ckpt = torch.load(os.path.join(LOGS, "tri", "ckp_0.pth"),
+                      weights_only=True)
+    model = TriModalSimCLR("vit_b16", 128, sizes[0], remat="flash",
+                           img_size=224)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+    log(f"  metadata vocabularies {sizes[0]}; ckp_0.pth loads strictly into "
+        f"a new TriModalSimCLR ({len(ckpt['state_dict'])} tensors)")
+    return launches
+
+
+TRANSFER_TRAIN, TRANSFER_TEST, TRANSFER_BATCH, TRANSFER_EPOCHS = 256, 64, 64, 2
+
+
+def write_isic17(root: str, seed: int = 0) -> None:
+    """A synthetic ISIC 2017 tree: JPEGs of 100-370 pixels a side in the
+    challenge's folders, label CSVs with its two binary columns."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    for sub, name, n in (("ISIC-2017_Training_Data", "train_labels.csv",
+                          TRANSFER_TRAIN),
+                         ("ISIC-2017_Test_v2_Data", "test_labels.csv",
+                          TRANSFER_TEST)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, name), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["image_id", "melanoma", "seborrheic_keratosis"])
+            for i, img in enumerate(raw_images(n, int(rng.integers(1 << 30)))):
+                with open(os.path.join(root, sub, f"ISIC_{i:07d}.jpg"),
+                          "wb") as out:
+                    out.write(encode_image(img, "JPEG", image_decoder()))
+                w.writerow([f"ISIC_{i:07d}", int(rng.integers(2)),
+                            int(rng.integers(2))])
+
+
+def phase_transfer() -> dict:
+    """The ISIC transfer probe (tools/transfer_probe_torch.py's function)
+    on a synthetic ISIC17 tree, from [main]'s ckp_0.pth (a fresh stage-1
+    model's from the seed where [main] did not run): the resnet50 derm
+    encoder frozen under 2 binary heads, batch 64, 2 epochs, bf16 autocast;
+    K1 once a train batch, all `band`."""
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.train.transfer_probe import run_transfer_probe
+
+    ckpt = os.path.join(LOGS, "main", "ckp_0.pth")
+    source = "[main]'s ckp_0.pth"
+    if not os.path.exists(ckpt):
+        from sm3x_torch.models.simclr import build_ssl_model
+
+        torch.manual_seed(3407)
+        model, _ = build_ssl_model("v32", "resnet50", 128)
+        ckpt = os.path.join(LOGS, "transfer", "ckp_0.pth")
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        torch.save({"epoch": 1, "state_dict": model.state_dict()}, ckpt)
+        source = "a stage-1 model from seed 3407 ([main] did not run)"
+    root = os.path.join(LOGS, "transfer", "ISIC2017")
+    t0 = time.perf_counter()
+    write_isic17(root)
+    log(f"[transfer] ISIC17 probe from {source}: {TRANSFER_TRAIN} train / "
+        f"{TRANSFER_TEST} test JPEGs of 100-370 pixels a side written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    import logging
+
+    logger, _ = capture_logger("chip_smoke.transfer")
+    stamps = []
+    stamp = logging.Handler()
+    stamp.emit = lambda r: stamps.append((r.created, r.getMessage()))
+    logger.addHandler(stamp)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    best = run_transfer_probe(
+        ckpt, "ISIC17Dataset", root, arch="resnet50", modality="derm",
+        img_sz=(224, 224), batch_size=TRANSFER_BATCH, epochs=TRANSFER_EPOCHS,
+        cache_size=320, workers=8, logger=logger, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counters, _ = kernel_counters()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    marks = [t for t, msg in stamps if msg.startswith(("transfer probe: ",
+                                                       "probe epoch "))]
+    epoch_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    log(f"  {wall:.2f} s in all (decode included); ms an epoch "
+        f"{[round(t, 1) for t in epoch_ms]} (train views, 4 steps, and the "
+        f"eval pass; the first epoch's cuDNN autotune included)")
+    log(f"  kernel launches: {launches}; K1 by kernel "
+        f"{dict(K.photometric_cuda.variants)}")
+    log(f"  best val: AUC_AVG {best['AUC_AVG']:.4f}, AUC_L0 "
+        f"{best['AUC_L0']:.4f}, AUC_L1 {best['AUC_L1']:.4f}, loss "
+        f"{best['loss']:.4f}; peak device memory {peak / 2 ** 30:.2f} GiB")
+    steps = TRANSFER_EPOCHS * (TRANSFER_TRAIN // TRANSFER_BATCH)
+    want = dict.fromkeys(launches, 0)
+    want["photometric_cuda"] = steps
+    if launches != want or K.photometric_cuda.variants != {
+            "band": steps, "scratch": 0}:
+        raise AssertionError(f"launches {launches}, expected {want}, band")
+    if len(epoch_ms) != TRANSFER_EPOCHS or not all(
+            math.isfinite(v) for v in best.values()) or not (
+            0.0 <= best["AUC_AVG"] <= 1.0):
+        raise AssertionError(f"transfer probe: {best}, epochs {epoch_ms}")
+    return launches
 
 
 # stage 2 at run.sh's recipe: 1024 synthetic cases, 4 steps an epoch
@@ -2525,7 +2885,9 @@ def main(argv=None) -> int:
         alone = {"kernels": phase_kernels, "step": phase_step,
                  "main": lambda: phase_main(args.profile), "feed": phase_feed,
                  "dist": lambda: phase_dist(args.profile),
-                 "vit": lambda: phase_vit(args.profile), "copy": phase_copy}
+                 "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
+                 "crop": phase_crop, "tri": phase_tri,
+                 "transfer": phase_transfer}
         for name in args.only.split(","):
             alone[name]()
         log(f"[only] {args.only}: done (a partial run prints no result)")
@@ -2533,15 +2895,21 @@ def main(argv=None) -> int:
     kernels, floor = phase_kernels()
     phase_step()
     launches = phase_main(args.profile)
+    torch.cuda.empty_cache()
+    crop_launches = phase_crop()
+    torch.cuda.empty_cache()
     feed = phase_feed()
     stage2_launches = phase_stage2(args.profile)
     eval_launches, eval_reference = phase_eval(args.profile)
     probe_launches = phase_probe(args.profile)
+    transfer_launches = phase_transfer()
     phase_infer(eval_reference)
     serve = phase_serve(eval_reference)
     del eval_reference
     torch.cuda.empty_cache()
     vit_launches = phase_vit(args.profile)
+    torch.cuda.empty_cache()
+    tri_launches = phase_tri()
     torch.cuda.empty_cache()
     dist_launches = phase_dist(args.profile)
     copy_launches = phase_copy()
@@ -2581,6 +2949,9 @@ def main(argv=None) -> int:
                  launches_probe=probe_launches[counter],
                  launches_serve=serve["launches"][counter],
                  launches_dist=dist_launches[counter],
+                 launches_crop=crop_launches[counter],
+                 launches_tri=tri_launches[counter],
+                 launches_transfer=transfer_launches[counter],
                  launches_feed={f: feed[f]["launches"][counter]
                                 for f in FEEDS},
                  launches_per_step={
@@ -2590,7 +2961,10 @@ def main(argv=None) -> int:
                      "eval": SUPERVISED_PER_STEP.get(counter, 0),
                      "probe": SUPERVISED_PER_STEP.get(counter, 0),
                      "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0,
-                     "dist": MAIN_PER_STEP.get(counter, 0)},
+                     "dist": MAIN_PER_STEP.get(counter, 0),
+                     "crop": CROP_PER_STEP.get(counter, 0),
+                     "tri": VIT_PER_STEP.get(counter, 0),
+                     "transfer": int(counter == "photometric_cuda")},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))

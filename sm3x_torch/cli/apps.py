@@ -86,11 +86,24 @@ def backbone_train_main(argv=None):
     logger = _setup(args, cfg, "sm3x_torch.ssl")
 
     def run():
-        from sm3x_torch.train.backbone_train import SSLTrainer
+        from sm3x_torch.train.backbone_train import SSLTrainer, unsupported
 
-        # the trainer first: it refuses what the port does not do yet
+        # what the port does not do is refused before the data is read
+        problems = unsupported(cfg)
+        if problems:
+            raise ValueError("; ".join(problems))
+        data = None
+        if cfg.model.arch_version == "trimodal":
+            # the data before the model: the metadata embeddings are sized
+            # from this dataset's vocabularies
+            data = _train_data(cfg, logger)
+            sizes = getattr(data, "meta_vocab_sizes", None)
+            if sizes:
+                cfg.model.meta_vocab_sizes = tuple(sizes)
+                logger.info(f"trimodal metadata vocab sizes: {tuple(sizes)}")
         trainer = SSLTrainer(cfg, logger=logger)
-        data = _train_data(cfg, logger)
+        if data is None:
+            data = _train_data(cfg, logger)
         trainer.resume()  # --resume-path
         trainer.fit(data)
 

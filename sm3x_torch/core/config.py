@@ -58,6 +58,9 @@ class ModelConfig:
     negatives: str = "local"
     local_loss_weight: float = 1.0
     bn_stat_freq: int = 1
+    # --arch-version trimodal: the cardinality of each metadata field
+    # (elevation, sex, location); the CLI takes them from the training data
+    meta_vocab_sizes: Tuple[int, ...] = (4, 4, 16)
 
 
 @dataclasses.dataclass

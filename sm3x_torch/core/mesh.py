@@ -7,11 +7,12 @@ torch.distributed, so its mesh is a record: data = the processes of the
 run, model = 1. Rank r of N holds rows [r B / N, (r + 1) B / N) of a
 global batch of B, the order JAX's 1-D data axis gives. Tensor
 parallelism over "model" (the stacked label heads, the ViT) is not in the
-port (ROADMAP.md, PR 10).
+port (ROADMAP.md item 18).
 
 `batch_rows` marks a block in which random draws are made at the global
 batch's shape and each rank keeps its rows (sm3x_torch.models.transformer
-.dropout), so that a run's random numbers do not depend on N.
+.dropout: the MLC head's and the tri-modal metadata views'), so that a
+run's random numbers do not depend on N.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 TP_LATER = ("tensor parallelism (--mesh-model > 1) is not in the PyTorch "
-            "port yet (ROADMAP.md, PR 10)")
+            "port yet (ROADMAP.md item 18)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,10 @@ of a fixed size with labels, the last one padded by wrapping and masked,
 in a per-epoch permutation or, with `shuffle=False`, in order.
 `synthetic_paired_data` gives the same canvases, labels and epoch orders as
 a `PairedImageData`, which the device feeds (sm3x_torch.data.prefetch) take
-like a decoded split.
+like a decoded split. Both carry metadata codes for the tri-modal model,
+uniform over `META_VOCAB_SIZES` (Derm7pt's elevation, sex and location, as
+the config's default) from a stream of their own, so the canvases and
+labels do not depend on them.
 """
 
 from __future__ import annotations
@@ -21,6 +24,15 @@ from sm3x_torch.data.pipeline import (Batch, PairedImageData,
                                       iter_batch_selections)
 
 PairedBatch = Batch  # the batches' type, under its first name
+META_VOCAB_SIZES = (4, 4, 16)
+
+
+def synthetic_meta_codes(n: int, seed: int = 0,
+                         vocab_sizes=META_VOCAB_SIZES) -> np.ndarray:
+    """(n, F) int32 codes, field f uniform over [0, vocab_sizes[f])."""
+    rng = np.random.default_rng([seed, 2])
+    return np.stack([rng.integers(0, v, n) for v in vocab_sizes],
+                    axis=1).astype(np.int32)
 
 
 def synthetic_canvas_batch(batch_size: int, canvas: int = 320, seed: int = 0):
@@ -44,6 +56,8 @@ class SyntheticPairedData:
             n, canvas, seed)
         self.clinic, self.clinic_hw, _ = synthetic_canvas_batch(
             n, canvas, seed + 1)
+        self.meta_codes = synthetic_meta_codes(n, seed)
+        self.meta_vocab_sizes = list(META_VOCAB_SIZES)
 
     def steps_per_epoch(self, batch_size: int) -> int:
         return (self.n + batch_size - 1) // batch_size
@@ -63,7 +77,7 @@ class SyntheticPairedData:
             yield Batch(derm=self.derm[sel], derm_hw=self.derm_hw[sel],
                         clinic=self.clinic[sel], clinic_hw=self.clinic_hw[sel],
                         label=self.labels[sel], index=sel.astype(np.int32),
-                        mask=mask)
+                        mask=mask, meta=self.meta_codes[sel])
 
 
 def synthetic_paired_data(n: int, canvas: int = 320,
@@ -71,5 +85,7 @@ def synthetic_paired_data(n: int, canvas: int = 320,
     """`SyntheticPairedData(n, canvas, seed)`'s cases as a
     `PairedImageData`."""
     s = SyntheticPairedData(n, canvas, seed)
-    return PairedImageData.from_canvases(s.derm, s.derm_hw, s.clinic,
+    data = PairedImageData.from_canvases(s.derm, s.derm_hw, s.clinic,
                                          s.clinic_hw, s.labels)
+    data.meta_codes, data.meta_vocab_sizes = s.meta_codes, s.meta_vocab_sizes
+    return data

@@ -1,4 +1,7 @@
-"""Batch normalisation with the JAX package's (Flax) running statistics.
+"""Batch normalisation with the JAX package's (Flax) running statistics; and
+the dormant weight-standardised convolutions and group norm of
+sm3x/models/layers.py (`ConvWS` :14, `ConvAWS` :50, `group_norm` :88),
+which no model of either package builds.
 
 Flax's BatchNorm (momentum 0.9, eps 1e-5) normalises with the batch mean and
 the *biased* batch variance, and moves `running_var` toward that same biased
@@ -196,3 +199,60 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
             gx = torch.batch_norm_backward_elemt(
                 gy, x, mean, invstd, weight, sums[:c], sums[c:], counts)
         return gx, gw if need_w else None, gb if need_b else None
+
+
+# ----------------------------------------------------------------------------
+# Weight-standardised convolutions and group norm (dormant in the reference)
+# ----------------------------------------------------------------------------
+
+class ConvWS(nn.Module):
+    """Conv2d over NCHW whose kernel is standardised per output channel
+    before use: (w - mean) / (std + eps) over (in, kh, kw), with the biased
+    std (`jnp.std`'s). The weight is OIHW (Flax keeps HWIO); He-normal over
+    fan-out, as Flax's variance_scaling(2, fan_out, normal); the bias 0.
+    Padding kh // 2, kw // 2."""
+
+    def __init__(self, in_channels: int, features: int, kernel=(3, 3),
+                 strides: int = 1, use_bias: bool = True, eps: float = 1e-5):
+        super().__init__()
+        self.strides, self.eps = strides, eps
+        self.weight = nn.Parameter(torch.empty(features, in_channels,
+                                               *kernel))
+        nn.init.kaiming_normal_(self.weight, mode="fan_out",
+                                nonlinearity="relu")
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def standardised(self) -> torch.Tensor:
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        std = w.std(dim=(1, 2, 3), keepdim=True, unbiased=False)
+        return (w - mean) / (std + self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.weight.shape[2:]
+        return F.conv2d(x, self.standardised().to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype),
+                        stride=self.strides, padding=(kh // 2, kw // 2))
+
+
+class ConvAWS(ConvWS):
+    """Adaptive weight standardisation: a learned per-output-channel scale
+    `ws_gamma` (1) and shift `ws_beta` (0), (O, 1, 1, 1), applied to the
+    standardised kernel."""
+
+    def __init__(self, in_channels: int, features: int, kernel=(3, 3),
+                 strides: int = 1, use_bias: bool = True, eps: float = 1e-5):
+        super().__init__(in_channels, features, kernel, strides, use_bias,
+                         eps)
+        self.ws_gamma = nn.Parameter(torch.ones(features, 1, 1, 1))
+        self.ws_beta = nn.Parameter(torch.zeros(features, 1, 1, 1))
+
+    def standardised(self) -> torch.Tensor:
+        return super().standardised() * self.ws_gamma + self.ws_beta
+
+
+def group_norm(num_channels: int, num_groups: int = 32, eps: float = 1e-6,
+               affine: bool = True) -> nn.GroupNorm:
+    """The reference's GroupNorm helper, at Flax's defaults (eps 1e-6, 32
+    groups), over channel dim 1."""
+    return nn.GroupNorm(num_groups, num_channels, eps=eps, affine=affine)

@@ -1,6 +1,9 @@
 """Dual-modality SimCLR models of stage 1 (counterpart of
-sm3x/models/simclr.py: `SimCLRBranch` :33, `SimCLRSkinV3` :129,
-`SimCLRSkinV32` :209, `build_ssl_model` :272).
+sm3x/models/simclr.py: `SimCLRBranch` :33, `SimCLR` :74, `SimCLRSkin` :101,
+`SimCLRSkinV3` :129 with `multicrop` :189, `SimCLRSkinV32` :209,
+`SimCLRSkinV2` :214, `build_ssl_model` :272). `build_ssl_model` builds the
+V3 family, the one --arch-version reaches; the others have no flag, as in
+the JAX package.
 
 The models return projections; the NT-Xent terms are assembled in
 sm3x_torch.losses.ssl. Batch-norm batching is the JAX package's: each
@@ -21,6 +24,7 @@ from torch import nn
 
 from sm3x_torch.models import backbones
 from sm3x_torch.models.projector import SSLProjector
+from sm3x_torch.ops.ntxent import ntxent_logits
 
 
 class SimCLRBranch(nn.Module):
@@ -50,8 +54,62 @@ class SimCLRBranch(nn.Module):
         f2 = self.extract(x2)
         return (f1, f2), self.projector(torch.cat([f1, f2], dim=0))
 
+    def project_view(self, x: torch.Tensor) -> torch.Tensor:
+        """One view through the encoder and the intra projector, as its own
+        batch-norm batch (a multi-crop local view)."""
+        return self.projector(self.extract(x))
 
-class SimCLRSkinV3(nn.Module):
+
+class SimCLR(nn.Module):
+    """Single-modality SimCLR: one branch (key prefix `branch.`); `forward`
+    returns the reference-layout (logits, labels) of the two views."""
+
+    def __init__(self, arch: str = "resnet50", proj_dim: int = 128,
+                 temperature: float = 0.5, amp: bool = False,
+                 remat: Union[bool, str] = False,
+                 img_size: Union[int, Sequence[int]] = 224):
+        super().__init__()
+        self.temperature = temperature
+        self.branch = SimCLRBranch(arch, proj_dim, amp, remat, img_size)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        _, z = self.branch(x1, x2)
+        b = x1.shape[0]
+        return ntxent_logits(z[:b], z[b:], self.temperature)
+
+    def extract(self, imgs: torch.Tensor) -> torch.Tensor:
+        return self.branch.extract(imgs)
+
+
+class TwoBranches(nn.Module):
+    """A derm and a clinic branch (`derm_backbone.`, `clinic_backbone.`)."""
+
+    def __init__(self, arch, proj_dim, amp, remat, img_size):
+        super().__init__()
+        self.derm_backbone = SimCLRBranch(arch, proj_dim, amp, remat, img_size)
+        self.clinic_backbone = SimCLRBranch(arch, proj_dim, amp, remat,
+                                            img_size)
+
+    def extract(self, derm_imgs, clinic_imgs):
+        return (self.derm_backbone.extract(derm_imgs),
+                self.clinic_backbone.extract(clinic_imgs))
+
+
+class SimCLRSkin(TwoBranches):
+    """Two independent branches, intra-modal projections only."""
+
+    def __init__(self, arch: str = "resnet50", proj_dim: int = 128,
+                 amp: bool = False, remat: Union[bool, str] = False,
+                 img_size: Union[int, Sequence[int]] = 224):
+        super().__init__(arch, proj_dim, amp, remat, img_size)
+
+    def forward(self, derm_imgs, clinic_imgs) -> dict:
+        _, derm_z = self.derm_backbone(*derm_imgs)
+        _, clinic_z = self.clinic_backbone(*clinic_imgs)
+        return {"derm_z": derm_z, "clinic_z": clinic_z}
+
+
+class SimCLRSkinV3(TwoBranches):
     """Cross-modal contrast. `shared_cross_proj=True` is V3 (one cross
     projector, key prefix `cross_proj.`); False is V32 (a derm and a clinic
     cross projector, `cross_proj.0.` and `cross_proj.1.`).
@@ -66,11 +124,8 @@ class SimCLRSkinV3(nn.Module):
                  amp: bool = False, shared_cross_proj: bool = True,
                  remat: Union[bool, str] = False,
                  img_size: Union[int, Sequence[int]] = 224):
-        super().__init__()
+        super().__init__(arch, proj_dim, amp, remat, img_size)
         self.shared_cross_proj = shared_cross_proj
-        self.derm_backbone = SimCLRBranch(arch, proj_dim, amp, remat, img_size)
-        self.clinic_backbone = SimCLRBranch(arch, proj_dim, amp, remat,
-                                            img_size)
         feat = backbones.feat_dim(arch)
         if shared_cross_proj:
             self.cross_proj = SSLProjector(feat, proj_dim)
@@ -83,24 +138,75 @@ class SimCLRSkinV3(nn.Module):
             which]
         return proj(f)
 
-    def forward(self, derm_imgs, clinic_imgs) -> dict:
+    def forward(self, derm_imgs, clinic_imgs, derm_locals=(),
+                clinic_locals=()) -> dict:
+        """With local views (multi-crop), also `derm_local_z` and
+        `clinic_local_z`: one (B, P) projection a view (`multicrop`)."""
         derm_f, derm_z = self.derm_backbone(*derm_imgs)
         clinic_f, clinic_z = self.clinic_backbone(*clinic_imgs)
-        return {
+        out = {
             "derm_z": derm_z,
             "clinic_z": clinic_z,
             "cross_derm_z": tuple(self._cross(0, f) for f in derm_f),
             "cross_clinic_z": tuple(self._cross(1, f) for f in clinic_f),
         }
+        if derm_locals or clinic_locals:
+            out["derm_local_z"] = tuple(
+                self.derm_backbone.project_view(v) for v in derm_locals)
+            out["clinic_local_z"] = tuple(
+                self.clinic_backbone.project_view(v) for v in clinic_locals)
+        return out
 
-    def extract(self, derm_imgs, clinic_imgs):
-        return (self.derm_backbone.extract(derm_imgs),
-                self.clinic_backbone.extract(clinic_imgs))
+    def multicrop(self, derm_imgs, clinic_imgs, derm_locals, clinic_locals):
+        """SwAV-style multi-crop forward: the two-global-view forward, and
+        each local view encoded and projected by its modality's intra
+        projector as its own batch-norm batch; the loss pairs each local
+        with global view 1 of its modality (sm3x_torch.losses.ssl). A train
+        step calls `forward` with the locals, which is this, so that DDP
+        sees the call."""
+        return self(derm_imgs, clinic_imgs, derm_locals, clinic_locals)
 
 
 def SimCLRSkinV32(**kw) -> SimCLRSkinV3:
     """Independent derm/clinic cross projectors."""
     return SimCLRSkinV3(shared_cross_proj=False, **kw)
+
+
+FUSIONS = ("concat", "concat_cross", "concat_both", "add")
+
+
+class SimCLRSkinV2(TwoBranches):
+    """Fused cross contrast: `fusion` is V2 ("concat"), V21 ("concat_cross"),
+    V22 ("concat_both") or V23 ("add") of the features of the two
+    modalities; one cross projector (`cross_proj.`) of width 2 x feat, or
+    feat for "add". Each fused pair goes through it as one 2B batch-norm
+    batch; `cross_z` holds one (2B, P) projection a pair."""
+
+    def __init__(self, arch: str = "resnet50", proj_dim: int = 128,
+                 fusion: str = "concat", amp: bool = False,
+                 remat: Union[bool, str] = False,
+                 img_size: Union[int, Sequence[int]] = 224):
+        super().__init__(arch, proj_dim, amp, remat, img_size)
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {fusion!r}; have {FUSIONS}")
+        self.fusion = fusion
+        feat = backbones.feat_dim(arch)
+        self.cross_proj = SSLProjector(feat if fusion == "add" else 2 * feat,
+                                       proj_dim)
+
+    def _fuse(self, a, b):
+        return a + b if self.fusion == "add" else torch.cat([a, b], dim=1)
+
+    def forward(self, derm_imgs, clinic_imgs) -> dict:
+        (d1, d2), derm_z = self.derm_backbone(*derm_imgs)
+        (c1, c2), clinic_z = self.clinic_backbone(*clinic_imgs)
+        same = (self._fuse(d1, c1), self._fuse(d2, c2))
+        swapped = (self._fuse(d1, c2), self._fuse(d2, c1))
+        pairs = {"concat": [same], "add": [same], "concat_cross": [swapped],
+                 "concat_both": [same, swapped]}[self.fusion]
+        return {"derm_z": derm_z, "clinic_z": clinic_z,
+                "cross_z": tuple(self.cross_proj(torch.cat(p, dim=0))
+                                 for p in pairs)}
 
 
 _VERSIONS = {

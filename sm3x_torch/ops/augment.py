@@ -284,6 +284,43 @@ def modality_valid_hw(derm_hw, clinic_hw, joint_aug: bool = False):
     return hw, hw
 
 
+def multicrop_augment_batch(seed: int, canvases: torch.Tensor,
+                            valid_hw: torch.Tensor, mean, std,
+                            size_crops=(224, 96), nmb_crops=(2, 6),
+                            min_scale_crops=(0.5, 0.14),
+                            max_scale_crops=(1.0, 0.5),
+                            base_cfg: AugConfig = SSL_AUG,
+                            rows=None) -> list:
+    """SwAV-style multi-crop (counterpart of sm3x/ops/augment.py:365):
+    nmb_crops[i] views at size_crops[i] x size_crops[i] with RRC scales
+    (min_scale_crops[i], max_scale_crops[i]); the views of all groups in
+    order, globals (group 0) first. View `idx` draws from its own generator,
+    `fold_in(seed, idx)`: it is cropped and draws its parameter rows as
+    `ssl_augment_batch` does, and the rows of all views of one group go
+    through K1 at once (K1 works image by image, so the numbers are those
+    of one launch a view)."""
+    from sm3x_torch.core import prng
+    from sm3x_torch.ops.augment_cuda import build_params, photometric
+
+    dev = canvases.device
+    views, idx = [], 0
+    for size, n, lo, hi in zip(size_crops, nmb_crops, min_scale_crops,
+                               max_scale_crops):
+        if not n:
+            continue
+        cfg = dataclasses.replace(base_cfg, out_size=(size, size),
+                                  rrc_scale=(lo, hi))
+        crops, params = [], []
+        for v in range(n):
+            g = prng.generator(prng.fold_in(seed, idx + v), dev)
+            crops.append(batch_crop_resize(g, canvases, valid_hw, cfg, rows))
+            params.append(build_params(g, crops[-1].shape[0], cfg, dev, rows))
+        idx += n
+        out = photometric(torch.cat(crops), torch.cat(params), mean, std)
+        views += list(out.chunk(n))
+    return views
+
+
 def eval_resize_batch(canvases: torch.Tensor, valid_hw: torch.Tensor, mean,
                       std, out_size=(224, 224)) -> torch.Tensor:
     """Deterministic eval path: resize the valid region, then normalise."""
@@ -292,3 +329,17 @@ def eval_resize_batch(canvases: torch.Tensor, valid_hw: torch.Tensor, mean,
     zero = torch.zeros_like(h)
     out = crop_resize(canvases.float() / 255.0, zero, zero, h, w, out_size)
     return normalize_images(torch.clamp(out, 0.0, 1.0), mean, std)
+
+
+def normalize_uint8(x, mean, std) -> torch.Tensor:
+    """uint8 NHWC batch -> normalised float32: (x / 255 - mean) / std."""
+    x = torch.as_tensor(x)
+    return normalize_images(x.float() / 255.0, mean, std)
+
+
+def denormalize_to_uint8(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """The inverse of `normalize_uint8`, clipped to [0, 255] and truncated
+    to uint8."""
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    return torch.clamp((x * std + mean) * 255.0, 0, 255).to(torch.uint8)

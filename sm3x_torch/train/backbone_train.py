@@ -1,5 +1,6 @@
 """Stage-1 SSL pretraining (counterpart of sm3x/train/backbone_train.py:
-`make_ssl_train_step` :30-144, `SSLTrainer` :193-493).
+`make_ssl_train_step` :30-144 and `make_trimodal_train_step` :149-190
+(one function here), `SSLTrainer` :193-493).
 
 One step, after the uint8 canvases reach the device:
   2 augmented views per modality (RRC as torch.bmm, photometric chain as
@@ -7,6 +8,13 @@ One step, after the uint8 canvases reach the device:
   around the encoders; a ViT with --use-checkpoint flash runs its attention
   as kernels K3f / K3b-dq / K3b-dkv) -> ssl_loss (all NT-Xent terms and
   groups as one K2 call) -> backward (K2b for the loss) -> AdamW.
+
+Under --data-name SevenPCSwavDataset (multi-crop) each modality also gets
+the local views of --size-crops / --nmb-crops (one K1 launch a resolution
+and modality), each an encoder pass of its own, and the loss a `local`
+term. Under --arch-version trimodal the batch's metadata codes join as a
+third modality (sm3x_torch.models.trimodal): two dropout views, nine
+NT-Xent terms, still one K2 call.
 
 Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
@@ -29,20 +37,19 @@ import torch
 
 from sm3x_torch.core import prng
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
-from sm3x_torch.core.mesh import TP_LATER
+from sm3x_torch.core.mesh import TP_LATER, batch_rows
+from sm3x_torch.data.datasets import PAIRED as DATASETS
 from sm3x_torch.losses.ssl import local_groups, ssl_loss
 from sm3x_torch.models.backbones import is_vit
 from sm3x_torch.models.simclr import build_ssl_model
+from sm3x_torch.models.trimodal import TriModalSimCLR, trimodal_ssl_loss
 from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
-                                    ssl_augment_batch)
+                                    multicrop_augment_batch, ssl_augment_batch)
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
 from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 
-DATASETS = ("SevenPCBaseDataset", "SevenPCBaseDataset2")
-
-
-LATER = "is not in the PyTorch port yet (ROADMAP.md)"
+MULTICROP = "SevenPCSwavDataset"
 NOT_PORTED = "is not ported (ROADMAP.md, \"Do not port\")"
 
 
@@ -51,10 +58,13 @@ def unsupported(cfg) -> list:
     where it stands; an empty list when the run is within the slice."""
     m, d = cfg.model, cfg.data
     checks = [
-        (m.arch_version == "trimodal", f"--arch-version trimodal {LATER}"),
         (d.data_name not in DATASETS,
          f"--data-name {d.data_name}: the port's stage 1 takes "
-         f"{' or '.join(DATASETS)} (multi-crop SevenPCSwavDataset {LATER})"),
+         f"{', '.join(DATASETS)} (the single-image ISIC sets go to "
+         f"tools/transfer_probe_torch.py)"),
+        (m.arch_version == "trimodal" and d.data_name == MULTICROP,
+         "multi-crop (SevenPCSwavDataset) and --arch-version trimodal are "
+         "not combinable"),
         (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} is not ported "
          f"(measured harmful to feature quality, BENCH.md r4)"),
         (m.negatives not in ("local", "global"),
@@ -100,57 +110,143 @@ def augment_views(seed: int, canvases, valid_hw, mean, std, cfg,
                  for v in range(2))
 
 
-def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
-               temperature: float, groups: int,
-               modality_weights=(1.0, 1.0), world: int = 1) -> dict:
-    """Forward, loss, backward and AdamW step on augmented views (this
-    rank's rows of them across `world` processes, `model` under DDP).
-    Returns the global loss and its parts as detached device scalars (read
-    them back when needed)."""
-    optimizer.zero_grad(set_to_none=True)
-    outs = model(derm_views, clinic_views)
-    total, parts = ssl_loss(outs, style, temperature, groups,
-                            modality_weights=modality_weights, world=world)
-    total.backward()
-    optimizer.step()
+def _metrics(total, parts, groups: int, world: int) -> dict:
+    """The loss and its parts as detached device scalars; where every rank
+    holds whole groups, their mean over ranks (each rank's is its share)."""
     metrics = {"loss": total.detach(),
                **{k: v.detach() for k, v in parts.items()}}
     if world > 1 and local_groups(groups, world):
-        # each rank's share of its own groups: the mean is the loss
         mean = common.global_mean(torch.stack(list(metrics.values())))
         metrics = dict(zip(metrics, mean.unbind()))
     return metrics
 
 
+def _descend(optimizer, loss_fn, groups: int, world: int) -> dict:
+    """Gradients cleared (before the forward, so the last step's are not
+    held through it), `loss_fn()` -> (total, parts), backward and one AdamW
+    step; the metrics."""
+    optimizer.zero_grad(set_to_none=True)
+    total, parts = loss_fn()
+    total.backward()
+    optimizer.step()
+    return _metrics(total, parts, groups, world)
+
+
+def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
+               temperature: float, groups: int,
+               modality_weights=(1.0, 1.0), world: int = 1, derm_locals=(),
+               clinic_locals=(), local_weight: float = 1.0) -> dict:
+    """Forward, loss, backward and AdamW step on augmented views (this
+    rank's rows of them across `world` processes, `model` under DDP), and
+    multi-crop local views where given. Returns the global loss and its
+    parts as detached device scalars (read them back when needed)."""
+    def loss_fn():
+        outs = model(derm_views, clinic_views, derm_locals, clinic_locals)
+        return ssl_loss(outs, style, temperature, groups,
+                        modality_weights=modality_weights, world=world,
+                        local_weight=local_weight)
+
+    return _descend(optimizer, loss_fn, groups, world)
+
+
+def trimodal_update(model, optimizer, derm_views, clinic_views, meta_codes,
+                    generator, temperature: float, groups: int,
+                    rows=None) -> dict:
+    """The tri-modal forward (the metadata's dropout views drawn from
+    `generator`, for the global batch where `rows` are given), loss,
+    backward and AdamW step; returns the metrics as `ssl_update` does."""
+    world = 1 if rows is None else rows.world
+
+    def loss_fn():
+        with batch_rows(rows):
+            outs = model(derm_views, clinic_views, meta_codes, generator)
+        return trimodal_ssl_loss(outs, temperature, groups, world=world)
+
+    return _descend(optimizer, loss_fn, groups, world)
+
+
+def multicrop_settings(multicrop: dict):
+    """The SevenPCSwavDataset recipe of a `multicrop` dict (size_crops,
+    nmb_crops, min_scale_crops, max_scale_crops, local_weight), checked as
+    the JAX package checks it: equal list lengths and two global views."""
+    sizes = tuple(multicrop["size_crops"])
+    counts = tuple(multicrop["nmb_crops"])
+    los = tuple(multicrop["min_scale_crops"])
+    his = tuple(multicrop["max_scale_crops"])
+    if not (len(sizes) == len(counts) == len(los) == len(his)):
+        raise ValueError("size/nmb/min-scale/max-scale crop lists must "
+                         f"have equal lengths, got {sizes}/{counts}/"
+                         f"{los}/{his}")
+    if counts[0] != 2:
+        raise ValueError(f"crop group 0 is the two global SimCLR views; "
+                         f"--nmb-crops must start with 2, got {counts}")
+    return (dict(size_crops=sizes, nmb_crops=counts, min_scale_crops=los,
+                 max_scale_crops=his),
+            float(multicrop.get("local_weight", 1.0)))
+
+
 def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                         groups: int, mean, std, aug_cfg=SSL_AUG,
                         modality_weights=(1.0, 1.0), joint_aug: bool = False,
-                        rows=None):
+                        rows=None, multicrop=None, trimodal: bool = False):
     """Returns step(derm, derm_hw, clinic, clinic_hw, seed) -> metrics, with
     the canvases (B, S, S, 3) uint8 and valid sizes (B, 2) on the device:
     the `rows` of the global batch where given (sm3x_torch.core.mesh.Rows,
     with `model` under DDP). `joint_aug` (SevenPCBaseDataset2) gives the
     derm/clinic pair the same augmentation parameters within their common
-    valid region. On the card the photometric chain and the loss always
-    run kernels K1 and K2, so --use-pallas-augment / --use-pallas-ntxent
-    change nothing here."""
+    valid region. `multicrop` (SevenPCSwavDataset: `multicrop_settings`'s
+    dict) makes crop group 0 the two global views, at size_crops[0] and
+    its scales, and adds every further group's local views. `trimodal`
+    (a `TriModalSimCLR` model) makes it step(..., seed, meta): the batch's
+    metadata codes ((B, F) integers of the global batch, on the host until
+    the step uploads this rank's rows of them), whose two dropout views
+    draw from the seed's stream 2. On the card the photometric chain and
+    the loss always run kernels K1 and K2, so --use-pallas-augment /
+    --use-pallas-ntxent change nothing here."""
     world = 1 if rows is None else rows.world
+    local_weight, crops = 1.0, None
+    if multicrop is not None:
+        if trimodal:
+            raise ValueError("multi-crop and the tri-modal step are not "
+                             "combinable")
+        crops, local_weight = multicrop_settings(multicrop)
+        aug_cfg = dataclasses.replace(
+            aug_cfg, out_size=(crops["size_crops"][0],) * 2,
+            rrc_scale=(crops["min_scale_crops"][0],
+                       crops["max_scale_crops"][0]))
 
-    def train_step(derm, derm_hw, clinic, clinic_hw, seed: int) -> dict:
+    def views(seed, canvases, hw):
+        if crops is None:
+            return augment_views(seed, canvases, hw, mean, std, aug_cfg,
+                                 rows), ()
+        out = multicrop_augment_batch(seed, canvases, hw, mean, std,
+                                      base_cfg=aug_cfg, rows=rows, **crops)
+        return tuple(out[:2]), tuple(out[2:])
+
+    def train_step(derm, derm_hw, clinic, clinic_hw, seed: int,
+                   *meta) -> dict:
         kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
                                joint_aug)
         d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
-        d = augment_views(kd, derm, d_hw, mean, std, aug_cfg, rows)
-        c = augment_views(kc, clinic, c_hw, mean, std, aug_cfg, rows)
-        return ssl_update(model, optimizer, d, c, style, temperature, groups,
-                          modality_weights, world)
+        d, d_locals = views(kd, derm, d_hw)
+        c, c_locals = views(kc, clinic, c_hw)
+        if not trimodal:
+            return ssl_update(model, optimizer, d, c, style, temperature,
+                              groups, modality_weights, world, d_locals,
+                              c_locals, local_weight)
+        codes = meta[0] if rows is None else rows.take(meta[0])
+        gen = prng.generator(prng.fold_in(seed, 2), derm.device)
+        return trimodal_update(model, optimizer, d, c,
+                               to_device(codes, derm.device).long(), gen,
+                               temperature, groups, rows)
 
     return train_step
 
 
 class SSLTrainer(common.CheckpointableTrainer):
     """Owns the model, the optimizer and the epoch loop on this process's
-    device; its checkpoints have `export_simclr_skin`'s key layout, from
+    device; its checkpoints have `export_simclr_skin`'s key layout (the
+    tri-modal model's adds its metadata branch and cross projectors), from
     the model without its DDP wrapper."""
 
     scheduler = None
@@ -168,12 +264,20 @@ class SSLTrainer(common.CheckpointableTrainer):
                                  logger=self.logger)
         m = cfg.model
         self.remat = resolve_remat(m.use_checkpoint, m.arch, self.logger)
+        self.is_trimodal = m.arch_version == "trimodal"
         # initialise from the seed on the CPU, whatever the device
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(prng.fold_in(cfg.run.seed, 0))
-            self.model, self.style = build_ssl_model(
-                m.arch_version, m.arch, m.proj_dim, amp=cfg.optim.amp,
-                remat=self.remat, img_size=tuple(cfg.data.img_sz))
+            if self.is_trimodal:
+                self.model = TriModalSimCLR(
+                    m.arch, m.proj_dim, tuple(m.meta_vocab_sizes),
+                    amp=cfg.optim.amp, remat=self.remat,
+                    img_size=tuple(cfg.data.img_sz))
+                self.style = 0
+            else:
+                self.model, self.style = build_ssl_model(
+                    m.arch_version, m.arch, m.proj_dim, amp=cfg.optim.amp,
+                    remat=self.remat, img_size=tuple(cfg.data.img_sz))
         if m.arch_weights:
             self._load_arch_weights(str(m.arch_weights), m.arch)
         self.model.to(self.device)
@@ -191,12 +295,26 @@ class SSLTrainer(common.CheckpointableTrainer):
             eps=cfg.optim.adam_eps)
         aug_cfg = dataclasses.replace(SSL_AUG, out_size=tuple(cfg.data.img_sz))
         self.net = common.data_parallel(self.model, self.device)
+        joint_aug = cfg.data.data_name == "SevenPCBaseDataset2"
+        if self.is_trimodal:
+            self.logger.info(f"trimodal SSL: metadata vocab sizes "
+                             f"{tuple(m.meta_vocab_sizes)}")
+        multicrop = None
+        if cfg.data.data_name == MULTICROP:
+            d = cfg.data
+            multicrop = dict(size_crops=d.size_crops, nmb_crops=d.nmb_crops,
+                             min_scale_crops=d.min_scale_crops,
+                             max_scale_crops=d.max_scale_crops,
+                             local_weight=m.local_loss_weight)
+            self.logger.info(
+                f"multi-crop SSL: sizes {d.size_crops}, counts "
+                f"{d.nmb_crops}, local weight {m.local_loss_weight}")
         self.train_step = make_ssl_train_step(
             self.net, self.optimizer, self.style, m.temperature,
             self.groups, tuple(cfg.data.mean), tuple(cfg.data.std), aug_cfg,
             modality_weights=tuple(cfg.modality_weights),
-            joint_aug=cfg.data.data_name == "SevenPCBaseDataset2",
-            rows=self.rows)
+            joint_aug=joint_aug, rows=self.rows, multicrop=multicrop,
+            trimodal=self.is_trimodal)
 
     def _load_arch_weights(self, value: str, arch: str) -> None:
         """--arch-weights: both encoders start from a torchvision-layout
@@ -237,6 +355,18 @@ class SSLTrainer(common.CheckpointableTrainer):
     def _upload(self, x) -> torch.Tensor:
         return to_device(x, self.device)
 
+    def _meta(self, batch) -> tuple:
+        """The tri-modal step's last argument: the batch's metadata codes,
+        left on the host (the step uploads its rows of them)."""
+        if not self.is_trimodal:
+            return ()
+        if batch.meta is None:
+            raise ValueError(
+                "--arch-version trimodal needs a dataset with metadata codes "
+                "(Derm7pt SevenPCBaseDataset provides them); this batch has "
+                "none")
+        return (batch.meta,)
+
     def train_epoch(self, data, epoch: int) -> dict:
         """One pass over `data` (any object with `steps_per_epoch(b)` and
         `batches(b, epoch, seed)`). Loss readbacks wait for the print
@@ -254,7 +384,7 @@ class SSLTrainer(common.CheckpointableTrainer):
             metrics = self.train_step(
                 self._upload(batch.derm), self._upload(batch.derm_hw),
                 self._upload(batch.clinic), self._upload(batch.clinic_hw),
-                prng.step_seed(cfg.run.seed, epoch, it))
+                prng.step_seed(cfg.run.seed, epoch, it), *self._meta(batch))
             if self.scheduler is not None:
                 self.scheduler.step()
             pending.append((metrics["loss"], len(batch.index)))

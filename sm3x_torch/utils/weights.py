@@ -11,6 +11,12 @@ into `sm3x_torch.models.simclr.SimCLRSkinV3`:
 The ViTs have no counterpart in `torch_export`; their layout is the port's
 own, named after the Flax tree (`vit_state_dict`).
 
+`simclr_state_dict`, `simclr_skin_plain_state_dict`,
+`simclr_skin_v2_state_dict` and `trimodal_state_dict` carry the model
+variants no CLI reaches and the tri-modal model, `conv_ws_state_dict` the
+dormant weight-standardised convolutions, each in the module layout of its
+port class.
+
 `mlc_state_dict` does the same for the stage-2 model, in the layout of
 `export_mlc_model`, which strict-loads into `sm3x_torch.models.mlc.MLCModel`,
 and `baseline_state_dict` for `sm3x_torch.models.baseline.Baseline` and
@@ -136,19 +142,33 @@ def projector_state_dict(params: dict, stats: dict,
     return sd
 
 
-def simclr_skin_state_dict(params: dict, stats: dict) -> StateDict:
-    """Stage-1 model (V3 or V32, ResNet or ViT encoders, told apart by the
-    tree; a ViT has no batch statistics)."""
+def branch_state_dict(params: dict, stats: dict, prefix: str) -> StateDict:
+    """One `SimCLRBranch` (ResNet or ViT encoder, told apart by the tree; a
+    ViT has no batch statistics) and its projector."""
+    sd: StateDict = {}
+    enc = params["encoder"]
+    if "patch_embed" in enc:
+        sd.update(vit_state_dict(enc, f"{prefix}encoder."))
+    else:
+        sd.update(resnet_state_dict(enc, stats["encoder"],
+                                    f"{prefix}encoder."))
+    sd.update(projector_state_dict(params["projector"], stats["projector"],
+                                   f"{prefix}projector."))
+    return sd
+
+
+def simclr_skin_plain_state_dict(params: dict, stats: dict) -> StateDict:
+    """`SimCLRSkin`: the derm and clinic branches."""
     sd: StateDict = {}
     for mod in ("derm_backbone", "clinic_backbone"):
-        enc, prefix = params[mod]["encoder"], f"{mod}.encoder."
-        if "patch_embed" in enc:
-            sd.update(vit_state_dict(enc, prefix))
-        else:
-            sd.update(resnet_state_dict(enc, stats[mod]["encoder"], prefix))
-        sd.update(projector_state_dict(params[mod]["projector"],
-                                       stats[mod]["projector"],
-                                       prefix=f"{mod}.projector."))
+        sd.update(branch_state_dict(params[mod], stats.get(mod, {}),
+                                    f"{mod}."))
+    return sd
+
+
+def simclr_skin_state_dict(params: dict, stats: dict) -> StateDict:
+    """Stage-1 model (V3 or V32, ResNet or ViT encoders)."""
+    sd = simclr_skin_plain_state_dict(params, stats)
     if "cross_proj" in params:
         sd.update(projector_state_dict(params["cross_proj"],
                                        stats["cross_proj"], "cross_proj."))
@@ -156,6 +176,51 @@ def simclr_skin_state_dict(params: dict, stats: dict) -> StateDict:
         for i, name in enumerate(("cross_proj_derm", "cross_proj_clinic")):
             sd.update(projector_state_dict(params[name], stats[name],
                                            f"cross_proj.{i}."))
+    return sd
+
+
+def simclr_state_dict(params: dict, stats: dict) -> StateDict:
+    """`SimCLR`: its one branch under `branch.`."""
+    return branch_state_dict(params["branch"], stats.get("branch", {}),
+                             "branch.")
+
+
+def simclr_skin_v2_state_dict(params: dict, stats: dict) -> StateDict:
+    """`SimCLRSkinV2` of any fusion: the branches and the cross projector,
+    whose input width (2 x feat, or feat for "add") comes with the tree."""
+    sd = simclr_skin_plain_state_dict(params, stats)
+    sd.update(projector_state_dict(params["cross_proj"], stats["cross_proj"],
+                                   "cross_proj."))
+    return sd
+
+
+def trimodal_state_dict(params: dict, stats: dict) -> StateDict:
+    """`TriModalSimCLR`: the branches, the metadata encoder (each `Embed`
+    table copied, fc1 / fc2 transposed) and the three cross projectors."""
+    sd = simclr_skin_plain_state_dict(params, stats)
+    meta = params["meta_encoder"]
+    fields = sorted(int(k[len("embed"):]) for k in meta
+                    if k.startswith("embed"))
+    for i in fields:
+        sd[f"meta_encoder.embeds.{i}.weight"] = _np(
+            meta[f"embed{i}"]["embedding"])
+    _dense(sd, "meta_encoder.fc1", meta["fc1"])
+    _dense(sd, "meta_encoder.fc2", meta["fc2"])
+    for name in ("cross_proj_derm", "cross_proj_clinic", "cross_proj_meta"):
+        sd.update(projector_state_dict(params[name], stats[name],
+                                       f"{name}."))
+    return sd
+
+
+def conv_ws_state_dict(params: dict) -> StateDict:
+    """`ConvWS` / `ConvAWS`: the kernel HWIO -> OIHW, the bias, and the
+    adaptive scale and shift (1, 1, 1, O) -> (O, 1, 1, 1)."""
+    sd: StateDict = {"weight": _conv_w(params["kernel"])}
+    if "bias" in params:
+        sd["bias"] = _np(params["bias"])
+    for name in ("ws_gamma", "ws_beta"):
+        if name in params:
+            sd[name] = _conv_w(params[name])
     return sd
 
 

@@ -1,8 +1,12 @@
 """The port's stage-1 CLI end to end on the CPU: tools/backbone_train_torch.py
 on a synthetic Derm7pt tree (resnet18, 32x32, batch 8, one epoch). It must
 log a finite epoch loss and write a `ckp_0.pth` that loads strictly into
-the port's model. The same for a ViT with --use-checkpoint flash. Flags
-outside the slice are refused with a message."""
+the port's model. The same for a ViT with --use-checkpoint flash, for
+multi-crop (--data-name SevenPCSwavDataset) and for --arch-version trimodal
+(the metadata vocabularies from the data, named in the log);
+tools/transfer_probe_torch.py on a tiny ISIC17 tree prints finite AUCs and
+refuses a bad --modality. Flags outside the slice are refused with a
+message."""
 
 import math
 import os
@@ -59,21 +63,84 @@ def test_cli_trains_one_epoch_and_writes_a_strict_checkpoint(dataset,
     model.load_state_dict(ckpt["state_dict"], strict=True)
 
 
+def test_cli_trains_multicrop_and_writes_a_strict_checkpoint(dataset,
+                                                             tmp_path):
+    log = str(tmp_path / "crop")
+    res = _run(COMMON + ["--data-path", dataset, "--log-path", log,
+                         "--data-name", "SevenPCSwavDataset", "--size-crops",
+                         "32", "16", "--nmb-crops", "2", "2"], str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "multi-crop SSL: sizes (32, 16), counts (2, 2)" in res.stdout
+    m = re.search(r"Epoch 0: loss (\S+)", res.stdout)
+    assert m and math.isfinite(float(m.group(1))) and float(m.group(1)) > 0
+    ckpt = torch.load(os.path.join(log, "ckp_0.pth"), weights_only=True)
+    model, _ = build_ssl_model("v32", "resnet18", 16)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+
+
+def test_cli_trains_trimodal_with_the_data_s_vocabularies(dataset, tmp_path):
+    from sm3x_torch.models.trimodal import TriModalSimCLR
+
+    log = str(tmp_path / "tri")
+    res = _run(COMMON + ["--data-path", dataset, "--log-path", log,
+                         "--arch-version", "trimodal"], str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    # the synthetic tree has one elevation, one sex and one location
+    assert "trimodal metadata vocab sizes: (1, 1, 1)" in res.stdout
+    m = re.search(r"Epoch 0: loss (\S+)", res.stdout)
+    assert m and math.isfinite(float(m.group(1))) and float(m.group(1)) > 0
+    ckpt = torch.load(os.path.join(log, "ckp_0.pth"), weights_only=True)
+    TriModalSimCLR("resnet18", 16, (1, 1, 1)).load_state_dict(
+        ckpt["state_dict"], strict=True)
+
+
+def test_transfer_probe_tool_prints_finite_aucs(tmp_path):
+    from test_torch_transfer_probe import _make_isic
+
+    root = tmp_path / "isic"
+    root.mkdir()
+    _make_isic(root)
+    torch.manual_seed(0)
+    model, _ = build_ssl_model("v32", "resnet18", 16)
+    ckpt = str(tmp_path / "ckp_0.pth")
+    torch.save({"epoch": 1, "state_dict": model.state_dict()}, ckpt)
+    tool = os.path.join(REPO, "tools", "transfer_probe_torch.py")
+    args = ["--pretrain-path", ckpt, "--data-path", str(root), "-a",
+            "resnet18", "--img-sz", "32", "32", "-b", "8", "--epochs", "1",
+            "--cache-size", "48", "--workers", "1", "--device", "cpu"]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, tool] + args, cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    best = eval(res.stdout.strip().splitlines()[-1])
+    assert {"AUC_L0", "AUC_L1", "AUC_AVG", "loss"} <= set(best)
+    assert all(math.isfinite(v) for v in best.values())
+    assert 0.0 <= best["AUC_AVG"] <= 1.0
+    bad = subprocess.run([sys.executable, tool] + args
+                         + ["--modality", "nope"], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert bad.returncode == 2 and "--modality" in bad.stderr
+
+
 LATER = "not in the PyTorch port yet"
 
 
 @pytest.mark.parametrize("flag,said", [
-    (["--arch-version", "trimodal"], LATER),
-    (["--data-name", "SevenPCSwavDataset"], LATER),
+    (["--arch-version", "trimodal", "--data-name", "SevenPCSwavDataset"],
+     "are not combinable"),
+    (["--data-name", "SevenPCSwavDataset", "--nmb-crops", "3", "6"],
+     "--nmb-crops must start with 2"),
     # not to be ported at all: K = 4 hurt the features
     (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
     # the data axis is the run's processes: --mesh-data is taken, but not
     # beside a model axis, and --coordinator needs its two companions
-    (["--mesh-data", "2", "--mesh-model", "2"], "ROADMAP.md, PR 10"),
+    (["--mesh-data", "2", "--mesh-model", "2"], "ROADMAP.md item 18)"),
     (["--coordinator", "localhost:1234"], "needs --num-processes"),
-    (["--data-name", "ISIC17Dataset"], LATER),
+    (["--data-name", "ISIC17Dataset"], "go to tools/transfer_probe_torch.py"),
     (["--mesh-model", "2"], LATER),
-    (["--data-name", "ISIC18Dataset"], LATER),
+    (["--data-name", "ISIC18Dataset"], "go to tools/transfer_probe_torch.py"),
     (["--ckpt-backend", "orbax"], "is not ported")])
 def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag, said):
     res = _run(COMMON + ["--data-path", dataset, "--log-path",

@@ -217,7 +217,7 @@ def test_mesh_and_rows():
     from sm3x_torch.data.multihost import local_batch_rows
 
     assert mesh.make_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(ValueError, match=r"ROADMAP\.md, PR 10"):
+    with pytest.raises(ValueError, match=r"ROADMAP\.md item 18\)"):
         mesh.make_mesh(model=2)
     rows = mesh.local_rows(12, rank=1, world=3)
     assert (rows.start, rows.stop, rows.total, rows.size) == (4, 8, 12, 4)

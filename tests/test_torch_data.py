@@ -108,9 +108,13 @@ def test_batch_selections_equal_the_jax_packages(n, batch):
 
 
 def test_registry_holds_what_stage_1_takes(root):
+    """Stage 1 takes the paired sets; the registry also holds the
+    single-image ISIC sets of the transfer probe, as the reference's."""
     from sm3x_torch.train.backbone_train import DATASETS
 
-    assert sorted(datasets.REGISTRY) == sorted(DATASETS)
-    assert set(datasets.REGISTRY) <= set(ref_datasets.REGISTRY)
+    assert sorted(DATASETS) == sorted(datasets.PAIRED)
+    assert sorted(datasets.REGISTRY) == sorted(
+        datasets.PAIRED + datasets.SINGLE_IMAGE)
+    assert sorted(datasets.REGISTRY) == sorted(ref_datasets.REGISTRY)
     with pytest.raises(KeyError, match="unknown dataset"):
-        datasets.build_dataset("ISIC17Dataset", root, "train")
+        datasets.build_dataset("ISIC19Dataset", root, "train")

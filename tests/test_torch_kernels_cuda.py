@@ -199,11 +199,13 @@ def test_photometric_counts_launches_and_checks_inputs(card):
 
 # the last five are K2b's: D beyond 512 (two tiles of 32-column blocks),
 # the widest D of the tests, rows that stream tiles at a wide D, an odd
-# unaligned D, one problem
+# unaligned D, one problem; then multi-crop's 16 terms and the tri-modal
+# loss's 9 terms (batch 64), each in two groups
 @pytest.mark.parametrize("shape", [(1, 2, 1), (3, 10, 33), (8, 96, 128),
                                    (2, 64, 512), (2, 300, 64), (8, 96, 640),
                                    (2, 96, 1024), (2, 300, 520), (3, 14, 131),
-                                   (1, 96, 128)])
+                                   (1, 96, 128), (32, 96, 128),
+                                   (18, 64, 128)])
 @pytest.mark.parametrize("temperature", [0.1, 0.5])
 def test_ntxent_kernels_match_plain(card, shape, temperature):
     rng = np.random.default_rng(sum(shape))
@@ -362,6 +364,49 @@ def test_ssl_loss_on_card_matches_cpu(card, style, groups):
         _close(got, want, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["multicrop", "trimodal"])
+def test_multicrop_and_trimodal_losses_on_card_match_cpu(card, kind):
+    """The local term and the tri-modal loss: every term and group in one
+    K2f and one K2b launch, against the plain versions on the CPU."""
+    from sm3x_torch.losses.ssl import ssl_loss
+    from sm3x_torch.models.trimodal import trimodal_ssl_loss
+
+    rng = np.random.default_rng(7)
+    b, d = 16, 32
+    n_half = 8 if kind == "multicrop" else 6  # B-row projections
+    arrays = [rng.standard_normal((2 * b, d), dtype=np.float32)
+              for _ in range(2)]
+    arrays += [rng.standard_normal((b, d), dtype=np.float32)
+               for _ in range(n_half)]
+
+    def run(dev):
+        t = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays]
+        outs = {"derm_z": t[0], "clinic_z": t[1],
+                "cross_derm_z": (t[2], t[3]), "cross_clinic_z": (t[4], t[5])}
+        if kind == "multicrop":
+            outs["derm_local_z"], outs["clinic_local_z"] = (t[6], t[7]), (
+                t[8], t[9])
+            total, parts = ssl_loss(outs, 0, 0.1, 2, local_weight=0.5)
+        else:
+            outs["cross_meta_z"] = (t[6], t[7])
+            total, parts = trimodal_ssl_loss(outs, 0.1, 2)
+        total.backward()
+        return total.detach(), parts, [x.grad for x in t]
+
+    before = (K2.ntxent_forward_cuda.launches,
+              K2.ntxent_backward_cuda.launches)
+    total_c, parts_c, grads_c = run(card)
+    assert (K2.ntxent_forward_cuda.launches,
+            K2.ntxent_backward_cuda.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    total_p, parts_p, grads_p = run("cpu")
+    _close(total_c, total_p, rtol=1e-5, atol=1e-6)
+    for k in parts_p:
+        _close(parts_c[k].detach(), parts_p[k].detach(), rtol=1e-5, atol=1e-6)
+    for got, want in zip(grads_c, grads_p):
+        _close(got, want, rtol=1e-4, atol=1e-6)
+
+
 def _qkv(shape, dtype, card, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
@@ -384,7 +429,9 @@ def _rel_bf16(got, want):
                  / (want.norm() + 1e-3 * want.numel() ** 0.5))
 
 
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 197, 257])
+# S = 37: a ViT-B/16's multi-crop local view (96 x 96: 36 patches and the
+# class token)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 197, 257, 37])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(card, s, dtype):
     b, h, d = 8, 12, 64
@@ -677,6 +724,48 @@ def test_photometric_at_the_supervised_presets(card, preset, batch, size):
     flipped = torch.where(params[:, K1.P_DO_FLIP, None, None, None] > 0.5,
                           images.flip(2), images)
     _close(got, A.normalize_images(flipped, MEAN, STD), rtol=1e-4, atol=1e-5)
+
+
+def test_photometric_at_the_local_views(card):
+    """Multi-crop's six 96 x 96 local views of a batch of 96 in one launch,
+    (576, 96, 96, 3) under the SSL parameter rows: the band kernel, as its
+    plain version; and `multicrop_augment_batch` on the card gives each
+    view what a launch of its own gives it, bit for bit, in one K1 launch
+    a group."""
+    from sm3x_torch.core import prng
+
+    images = torch.rand((576, 96, 96, 3), device=card,
+                        generator=torch.Generator(device=card).manual_seed(4))
+    gen = torch.Generator(device=card).manual_seed(3)
+    params = K1.build_params(gen, 576, A.SSL_AUG, card)
+    before = dict(K1.photometric_cuda.variants)
+    got = K1.photometric_cuda(images, params, MEAN, STD)
+    assert K1.photometric_cuda.variants == dict(before,
+                                                band=before["band"] + 1)
+    _close(got, K1.photometric_plain(images, params, MEAN, STD),
+           rtol=1e-4, atol=1e-5)
+
+    rng = np.random.default_rng(5)
+    canv = torch.from_numpy(rng.integers(0, 256, (8, 120, 120, 3),
+                                         dtype=np.uint8)).to(card)
+    hw = torch.from_numpy(rng.integers(60, 121, (8, 2)).astype(
+        np.int32)).to(card)
+    crops = dict(size_crops=(64, 32), nmb_crops=(2, 3),
+                 min_scale_crops=(0.5, 0.14), max_scale_crops=(1.0, 0.5))
+    launches = K1.photometric_cuda.launches
+    views = A.multicrop_augment_batch(9, canv, hw, MEAN, STD, **crops)
+    assert K1.photometric_cuda.launches == launches + 2
+    import dataclasses
+
+    for idx in range(5):
+        group = int(idx >= 2)
+        cfg = dataclasses.replace(
+            A.SSL_AUG, out_size=(crops["size_crops"][group],) * 2,
+            rrc_scale=(crops["min_scale_crops"][group],
+                       crops["max_scale_crops"][group]))
+        want = A.ssl_augment_batch(prng.generator(prng.fold_in(9, idx), card),
+                                   canv, hw, MEAN, STD, cfg)
+        assert torch.equal(views[idx], want), idx
 
 
 @pytest.mark.parametrize("finetune", ["projector", "all"])

@@ -314,8 +314,7 @@ def test_trainer_clusters_then_trains(tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("run.mesh_model", 3), ("run.mesh_model", 2),
     ("run.ckpt_backend", "orbax"), ("data.data_name", "ISIC17Dataset"),
-    ("data.data_name", "ISIC18Dataset"), ("run.mesh_model", 4),
-    ("data.data_name", "SevenPCSwavDataset")])
+    ("data.data_name", "ISIC18Dataset"), ("run.mesh_model", 4)])
 def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
     cfg = _cfg(tmp_path)
     part, name = field.split(".")
@@ -329,7 +328,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, field, value):
     ("data.device_feed", "resident"), ("data.device_feed", "prefetch"),
     ("optim.use_lr_schedule", True), ("run.ckpt_keep", 7),
     # the data axis is the run's processes, whatever --mesh-data says
-    ("run.mesh_data", 2)])
+    ("run.mesh_data", 2),
+    # the reference's alias of SevenPCBaseDataset: only stage 1 reads it
+    ("data.data_name", "SevenPCSwavDataset")])
 def test_trainer_takes_the_feed_and_loop_settings(tmp_path, field, value):
     cfg = _cfg(tmp_path)
     part, name = field.split(".")

@@ -20,7 +20,11 @@ on the global batch:
   and both ranks' state identical bit for bit after every step;
 - the views: the ranks' augmented views side by side equal the
   one-process views bit for bit (float32, the plain K1 path), for the
-  SSL, stage-2 and finetune presets, and so do the dropout masks;
+  SSL, stage-2 and finetune presets and multi-crop's globals and locals,
+  and so do the dropout masks;
+- multi-crop and tri-modal stage 1, one step each in float64: the loss at
+  rtol 1e-9 and parameters within 1e-3 x lr of one process's, the state
+  identical on both ranks;
 - the feed: every strategy and streaming gives each rank its rows of the
   one-process batches, the wrap-padded last batch included;
 - stage 2, the init pass and one epoch in float64: the k-means
@@ -110,6 +114,46 @@ def _stage1(init_path: str, groups: int, rows=None) -> dict:
     return out
 
 
+def _stage1_paths(rows=None) -> dict:
+    """One float64 step of the multi-crop update (two 16 x 16 locals a
+    modality, local weight 0.5) and of the tri-modal update, each model
+    from the seed's weights, on this rank's rows (all without `rows`):
+    each path's loss, parameters after the step and state digest."""
+    from sm3x_torch.core import prng
+    from sm3x_torch.models.simclr import build_ssl_model
+    from sm3x_torch.models.trimodal import TriModalSimCLR
+    from sm3x_torch.train import common
+    from sm3x_torch.train.backbone_train import ssl_update, trimodal_update
+
+    world = 1 if rows is None else rows.world
+    take = (lambda t, dim=0: t) if rows is None else rows.take
+    v = take(torch.from_numpy(_views()[0]).double(), dim=1)
+    lv = take(torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, B, 16, 16, 3))).double(), dim=1)
+    codes = torch.from_numpy(np.random.default_rng(6).integers(0, 4, (B, 3)))
+    out = {}
+    for kind in ("crop", "tri"):
+        torch.manual_seed(7)
+        model = (build_ssl_model("v32", "resnet18", 16)[0] if kind == "crop"
+                 else TriModalSimCLR("resnet18", 16, (4, 4, 4)))
+        model.double().train()
+        net = common.data_parallel(model, "cpu")
+        opt = common.make_adamw(model.parameters(), LR, WD, eps=EPS)
+        if kind == "crop":
+            m = ssl_update(net, opt, (v[0], v[1]), (v[2], v[3]), 0, T, 2,
+                           world=world, derm_locals=(lv[0], lv[1]),
+                           clinic_locals=(lv[2], lv[3]), local_weight=0.5)
+        else:
+            m = trimodal_update(net, opt, (v[0], v[1]), (v[2], v[3]),
+                                take(codes), prng.generator(20, "cpu"), T, 2,
+                                rows)
+        losses = [float(m["loss"])]
+        out[kind] = {"losses": losses, "digest": _digest(model),
+                     "params": {n: p.detach().clone()
+                                for n, p in model.named_parameters()}}
+    return out
+
+
 def _canvases():
     from sm3x_torch.data.synthetic import synthetic_canvas_batch
 
@@ -143,6 +187,11 @@ def _views_of(rows=None) -> dict:
         prng.generator(13, "cpu"), c, ch, MEAN, STD, fin, rows)
     gen = prng.generator(14, "cpu")
     n = B if rows is None else rows.size
+    crops = A.multicrop_augment_batch(
+        15, d, dh, MEAN, STD, size_crops=(SIZE, 16), nmb_crops=(2, 3),
+        min_scale_crops=(0.5, 0.14), max_scale_crops=(1.0, 0.5), rows=rows)
+    out["crop_global"] = torch.stack(crops[:2])
+    out["crop_local"] = torch.stack(crops[2:])
     with mesh.batch_rows(rows):
         out["drop0"] = dropout(torch.ones(n, 3, 5, dtype=torch.float64), 0.3,
                                True, gen)
@@ -309,6 +358,7 @@ def worker(out_dir: str, data_dir: str) -> None:
     init = os.path.join(out_dir, "init.pt")
     # the one-process runs, before the group exists
     ref = {k: _stage1(init, g) for k, g in GROUPS.items()}
+    ref_paths = _stage1_paths()
     assert C.distributed_initialize(backend="gloo")
     rank, world = C.process_info()
     rows = local_rows(B)
@@ -330,6 +380,15 @@ def worker(out_dir: str, data_dir: str) -> None:
                        os.path.join(out_dir, "stage1_params.pt"))
         del run
     del ref
+    paths = _stage1_paths(rows)
+    got["paths"] = {k: {"losses": run["losses"],
+                        "ref_losses": ref_paths[k]["losses"],
+                        "digest": run["digest"],
+                        "param_err": max(float((p - ref_paths[k]["params"][n])
+                                               .abs().max())
+                                         for n, p in run["params"].items())}
+                    for k, run in paths.items()}
+    del paths, ref_paths
     got["views"] = _views_of(rows)
     host, stream = _split(data_dir, False), _split(data_dir, True)
     got["feed"] = {s: _feed_batches(wrap_for_device(host, "cpu", strategy=s))
@@ -482,11 +541,29 @@ def test_stage1_on_two_ranks_is_the_one_process_run(ranks, config):
     assert ranks[0][config]["losses"] == ranks[1][config]["losses"]
 
 
+@pytest.mark.parametrize("kind", ["crop", "tri"])
+def test_multicrop_and_trimodal_on_two_ranks_are_the_one_process_run(ranks,
+                                                                     kind):
+    """The local views' own batch norms, the 16-term and 9-term losses in
+    one group a rank, and the metadata's dropout views drawn for the whole
+    batch: two ranks take the one-process steps."""
+    for g in ranks:
+        run = g["paths"][kind]
+        np.testing.assert_allclose(run["losses"], run["ref_losses"],
+                                   rtol=1e-9)
+        assert run["param_err"] <= 1e-3 * LR, run["param_err"]
+    assert ranks[0]["paths"][kind]["digest"] == ranks[1]["paths"][kind][
+        "digest"]
+    assert ranks[0]["paths"][kind]["losses"] == ranks[1]["paths"][kind][
+        "losses"]
+
+
 def test_the_views_do_not_depend_on_the_process_count(ranks):
     assert [g["rows"] for g in ranks] == [(0, 4), (4, 8)]
     want = _views_of()
     for name, w in want.items():
-        dim = 1 if name in ("ssl", "mlc", "drop1") else 0
+        dim = 1 if name in ("ssl", "mlc", "drop1", "crop_global",
+                            "crop_local") else 0
         got = torch.cat([g["views"][name] for g in ranks], dim=dim)
         assert torch.equal(got, w), name
 
@@ -591,7 +668,7 @@ def test_mesh_data_on_one_process_trains_and_warns(tmp_path, caplog):
     assert "--mesh-data 2 ignored" in caplog.text
     assert trainer.groups == 1   # one process: one group of negatives
     cfg.run.mesh_model = 2
-    with pytest.raises(ValueError, match=r"ROADMAP\.md, PR 10"):
+    with pytest.raises(ValueError, match=r"ROADMAP\.md item 18\)"):
         SSLTrainer(cfg, logger=logger)
 
 

@@ -5,7 +5,9 @@ written off the loop's thread from a snapshot, SIGTERM turned into a
 checkpoint and a clean break, --arch-weights from a torchvision-layout state
 dict against `sm3x.utils.torch_convert.convert_resnet`, per-block remat of a
 ResNet (exact in float64) and the bilinear pos_embed resize of the ViT
-against the Flax ViT (atol 1e-5). All on the CPU at resnet18 / 32x32.
+against the Flax ViT (atol 1e-5), and stage 2 and both eval stages under
+--data-name SevenPCSwavDataset exactly as under SevenPCBaseDataset (the
+reference's alias). All on the CPU at resnet18 / 32x32.
 """
 
 import hashlib
@@ -34,6 +36,7 @@ from sm3x_torch.models.vit import ViT
 from sm3x_torch.train import common
 from sm3x_torch.train.backbone_eval import BackboneEvalTrainer
 from sm3x_torch.train.backbone_train import SSLTrainer
+from sm3x_torch.train.mlc_eval import MLCEvalTrainer
 from sm3x_torch.train.mlc_train import MLCTrainer
 from sm3x_torch.utils import weight_registry, weights
 from sm3x_torch.utils.weight_registry import (DEFAULTS, WEIGHTS, WeightSpec,
@@ -54,7 +57,7 @@ def _free_disk(tmp_path):
 
 
 def _cfg(kind, log_path, epochs=2):
-    cfg = {"ssl": SSLConfig, "mlc": MLCTrainConfig,
+    cfg = {"ssl": SSLConfig, "mlc": MLCTrainConfig, "mlc_eval": EvalConfig,
            "backbone_eval": EvalConfig}[kind]()
     m = cfg.model
     m.arch, m.proj_dim, m.mlc_proj_dim, m.sa_dim_ff = "resnet18", 16, 32, 16
@@ -171,6 +174,58 @@ def test_eval_stage_warns_about_the_schedule_and_trains(tmp_path):
     BackboneEvalTrainer(cfg, logger=logger).fit(_data(), _data(8, 3))
     assert any("this stage ignores it" in ln for lvl, ln in lines
                if lvl == "WARNING")
+
+
+# ---------------------------------------------------------------------------
+# --data-name SevenPCSwavDataset beyond stage 1
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def derm7pt_tree(tmp_path_factory):
+    from sm3x.data.synthetic import make_fake_derm7pt
+
+    root = tmp_path_factory.mktemp("swav7pc")
+    make_fake_derm7pt(str(root), n_cases=24, img_size=48)
+    return str(root)
+
+
+@pytest.mark.parametrize("kind", ["mlc", "mlc_eval", "backbone_eval"])
+def test_stage2_and_eval_take_the_multicrop_dataset_name(tmp_path,
+                                                         derm7pt_tree, kind):
+    """The reference's SevenPCSwavDataset is SevenPCBaseDataset under
+    another name (sm3x/data/datasets.py:42): only stage 1 reads the name.
+    Stage 2 and the eval stages build it and augment it per modality, so a
+    run on it equals a run on SevenPCBaseDataset from the same seed: the
+    same batches, losses and weights, exactly. The port refused the name
+    here."""
+    from sm3x_torch.data.datasets import build_dataset
+
+    splits = {name: [build_dataset(name, derm7pt_tree, mode, cache_size=40,
+                                   workers=1) for mode in ("train", "test")]
+              for name in ("SevenPCBaseDataset", "SevenPCSwavDataset")}
+    for a, b in zip(*(list(splits[n][0].batches(8, 0, 0)) for n in splits)):
+        for field in ("derm", "derm_hw", "clinic", "clinic_hw", "label",
+                      "index", "mask", "meta"):
+            np.testing.assert_array_equal(getattr(a, field),
+                                          getattr(b, field))
+    runs = {}
+    for name, (train, test) in splits.items():
+        cfg = _cfg(kind, str(tmp_path / name), epochs=1)
+        cfg.data.data_name = name
+        torch.manual_seed(0)
+        if kind == "mlc":
+            trainer = MLCTrainer(cfg, logger=_quiet(f"j1_{kind}")[0])
+            result = trainer.fit(train)[0]["loss"]
+        else:
+            make = MLCEvalTrainer if kind == "mlc_eval" else BackboneEvalTrainer
+            trainer = make(cfg, logger=_quiet(f"j1_{kind}")[0])
+            result = trainer.fit(train, test)
+        runs[name] = (result, {k: v.clone() for k, v in
+                               trainer.model.state_dict().items()})
+    (loss_a, sd_a), (loss_b, sd_b) = runs.values()
+    assert np.isfinite(loss_a) and loss_a == loss_b
+    assert sd_a.keys() == sd_b.keys()
+    assert all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
 
 
 # ---------------------------------------------------------------------------
