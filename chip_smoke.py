@@ -133,10 +133,23 @@ Phases, each printing its lines:
            float32 step each at 48 rows against the one-process step, both
            ranks' states identical; leg C, two NCCL ranks where two cards
            are there
+  tp       tensor parallelism (--mesh-model 2): one-process runs of vit_b16
+           stage 1 (v32, proj 128, global batch 32, 224x224, flash; 2 bf16
+           steps and 1 float32 step through fit) and of one stage-2 step
+           (resnet50 frozen, v4 / 512, batch 64, fixed targets); K3 at a
+           rank's (32, 197, 6, 64) in bf16 against its plain version with
+           its times, bound and the library's; then two processes on this
+           card over gloo, a grid of data 1 x model 2, running the same:
+           the kernel counts of the bf16 fit (K1 4, K2f 1, K2b 1, K3 48
+           a step), a rank's slice of the q weight and its moments, the
+           losses within [dist]'s limits, replicated weights identical on
+           both ranks, rank 0's whole ckp_0.pth of each run loaded
+           strictly by a one-process model within Adam's bound of the
+           one-process weights; NCCL across cards where there are two
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
-crop, tri, transfer)
+crop, tri, transfer, tp)
 only those phases run after device and build, and no result is printed.
 
 With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
@@ -647,32 +660,32 @@ K2_PATH_SHAPES = {"crop": (32, 96, 128), "tri": (18, 64, 128)}
 K3_LOCAL_SHAPE = (64, 37, 12, 64)
 
 
+def timed(row, fn, plain, library=None):
+    """`row` with the times of `fn` (a single launch, 50 in a row, the
+    kernel alone), of its plain version and of the library call, and the
+    share of the bound reached; one line of them."""
+    row.update(ms=median_ms(fn), device_ms=device_ms(fn),
+               kernel_ms=kernel_ms(fn), plain_ms=median_ms(plain),
+               library_ms=None if library is None else device_ms(library))
+    alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
+        "device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / alone
+    lib = (f", library {row['library_ms']:.4f} ms"
+           if row["library_ms"] is not None else "")
+    log(f"  {row['name']} {tuple(row['shape'])} {row['dtype']}: kernel "
+        f"{row['ms']:.4f} ms a single launch, the kernel alone "
+        f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
+        f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
+        f"reached), plain {row['plain_ms']:.4f} ms{lib}")
+    return row
+
+
 def kernels_at_path_shapes() -> dict:
     """K1, K2f / K2b and K3 at the new paths' shapes against their plain
     versions at the [kernels] tolerances (K1 must take the band kernel),
     with the times and bounds of each: {kernel name: [rows]}."""
-    import torch.nn.functional as F
-
-    from sm3x_torch.ops import attention as A3
-    from sm3x_torch.ops import attention_cuda as K3
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.ops import ntxent_cuda as N
-
-    def timed(row, fn, plain, library=None):
-        row.update(ms=median_ms(fn), device_ms=device_ms(fn),
-                   kernel_ms=kernel_ms(fn), plain_ms=median_ms(plain),
-                   library_ms=None if library is None else device_ms(library))
-        alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
-            "device_ms"]
-        row["share_of_bound"] = row["bound_ms"] / alone
-        lib = (f", library {row['library_ms']:.4f} ms"
-               if row["library_ms"] is not None else "")
-        log(f"  {row['name']} {tuple(row['shape'])} {row['dtype']}: kernel "
-            f"{row['ms']:.4f} ms a single launch, the kernel alone "
-            f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
-            f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
-            f"reached), plain {row['plain_ms']:.4f} ms{lib}")
-        return row
 
     out = {k: [] for k in ("photometric", "ntxent_fwd", "ntxent_bwd",
                            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -726,12 +739,31 @@ def kernels_at_path_shapes() -> dict:
             lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1),
             lambda: N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)))
 
-    b, s, h, d = K3_LOCAL_SHAPE
+    for key, rows in k3_at_path_shape(
+            K3_LOCAL_SHAPE, (torch.float32, torch.bfloat16), "crop (ViT)",
+            "kernels", "a ViT-B/16 local view", rng).items():
+        out[key] += rows
+    return out
+
+
+def k3_at_path_shape(shape, dtypes, path: str, tag: str, what: str,
+                     rng) -> dict:
+    """K3f, K3b-dq and K3b-dkv at `shape` in each of `dtypes` against the
+    plain forward and backward at the [kernels] tolerances, with the times,
+    the bound and the library's attention of each: {kernel name: [rows]}
+    of `path`, the lines under `[tag]`."""
+    import torch.nn.functional as F
+
+    from sm3x_torch.ops import attention as A3
+    from sm3x_torch.ops import attention_cuda as K3
+
+    out = {k: [] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    b, s, h, d = shape
     scale = 1.0 / math.sqrt(d)
     qk_flops = 2 * b * h * s * s * d
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            K3_LOCAL_SHAPE, dtype=np.float32)).cuda().to(dtype)
+            shape, dtype=np.float32)).cuda().to(dtype)
             for _ in range(4))
         out_k, lse = K3.flash_forward_cuda(q, k, v, scale)
         dq, delta = K3.flash_backward_dq_cuda(q, k, v, out_k, do, lse, scale)
@@ -741,8 +773,7 @@ def kernels_at_path_shapes() -> dict:
         grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p,
                                               scale)
         name = str(dtype).replace("torch.", "")
-        log(f"[kernels] K3 flash attention {K3_LOCAL_SHAPE} {name} (a "
-            f"ViT-B/16 local view)")
+        log(f"[{tag}] K3 flash attention {shape} {name} ({what})")
         errs = {}
         if dtype == torch.float32:
             errs["flash_fwd"] = check_close("K3f out", out_k, out_p,
@@ -761,7 +792,7 @@ def kernels_at_path_shapes() -> dict:
                 f"(bound {K3_BF16_FWD}); K3b dq / dk / dv relative Frobenius "
                 f"err {[f'{r:.3e}' for r in rels]} (bound {K3_BF16_REL})")
             if not (e < K3_BF16_FWD and max(rels) < K3_BF16_REL):
-                raise AssertionError("K3 in bf16 at S = 37 disagrees")
+                raise AssertionError(f"K3 in bf16 at {shape} disagrees")
             check_close("K3f lse (bf16) against float32", lse, lse_p,
                         **K3F_LSE_TOL)
             errs = {"flash_fwd": e, "flash_bwd_dq": rels[0],
@@ -797,7 +828,7 @@ def kernels_at_path_shapes() -> dict:
                    "bf16" if dtype == torch.bfloat16 else "f32")))
         for key, fn, plain, lib, bnd in rows:
             out[key].append(timed(
-                dict(name=key, path="crop (ViT)", shape=list(K3_LOCAL_SHAPE),
+                dict(name=key, path=path, shape=list(shape),
                      dtype=name, max_abs_err=errs[key], **bnd),
                 fn, plain, lib))
         del out_l, leaves, lib_in, lib_det
@@ -2841,6 +2872,266 @@ def dist_worker(backend: str) -> int:
     return 0
 
 
+# [tp]: tensor parallelism, two gloo ranks on this one card (data 1 x model
+# 2). vit_b16 stage 1 at a global batch of 32 through fit, bf16 autocast
+# and --use-checkpoint flash, so that K3 runs at the 6 heads a rank holds
+TP_MODEL, TP_BATCH, TP_STEPS = 2, 32, 2
+TP_K3_SHAPE = (TP_BATCH, 197, 12 // TP_MODEL, 64)
+TP_PER_STEP = dict(VIT_PER_STEP)
+TP_STAGE2_BATCH = 64
+
+
+def tp_cfg(tag: str, amp: bool, model: int, log_dir: str):
+    """[vit]'s stage-1 recipe at a global batch of TP_BATCH under
+    --mesh-model `model`, logging into `log_dir` (left as it is)."""
+    cfg = stage1_cfg(tag, "vit_b16", TP_BATCH, "flash")
+    cfg.optim.amp = amp
+    cfg.run.mesh_model, cfg.run.log_path = model, log_dir
+    cfg.run.ckpt_freq = 100   # ckp_0.pth alone
+    return cfg
+
+
+def tp_stage2_cfg(model: int, log_dir: str):
+    """[stage2]'s recipe (resnet50 frozen, v4 / 512, 1 head, ff 128,
+    dropout 0.1, T 1, lr 1e-4, float32) at a batch of TP_STAGE2_BATCH
+    under --mesh-model `model`: 8 label heads, 4 a rank at model 2."""
+    from sm3x_torch.core.config import MLCTrainConfig
+
+    cfg = MLCTrainConfig()
+    m, o, r = cfg.model, cfg.optim, cfg.run
+    m.arch, m.mlc_proj, m.mlc_proj_dim, m.num_heads = "resnet50", "v4", 512, 1
+    m.sa_dim_ff, m.sa_dropout, m.temperature = 128, 0.1, 1.0
+    o.batch_size, o.base_lr, o.amp, o.epochs = TP_STAGE2_BATCH, 1e-4, False, 1
+    cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
+    r.device, r.print_freq, r.mesh_model, r.log_path = ("cuda", 10 ** 6,
+                                                        model, log_dir)
+    r.ckpt_freq = 100   # ckp_0.pth alone
+    return cfg
+
+
+def tp_stage2_step(trainer) -> float:
+    """One stage-2 step with fixed targets (as tests/test_tp.py holds the
+    JAX package's): seeded canvases, a zero bank, assignments of 0 / 1."""
+    from sm3x_torch.data.synthetic import synthetic_canvas_batch
+
+    d, dh, _ = synthetic_canvas_batch(TP_STAGE2_BATCH, 320, 21)
+    c, ch, _ = synthetic_canvas_batch(TP_STAGE2_BATCH, 320, 22)
+    rows, dev = trainer.rows, trainer.device
+    up = [rows.take(torch.from_numpy(x)).to(dev) for x in (d, dh, c, ch)]
+    gen = np.random.default_rng(23)
+    assign = torch.from_numpy(gen.integers(
+        0, 2, (8, TP_STAGE2_BATCH))).to(dev)
+    bank = torch.zeros(8, TP_STAGE2_BATCH, 512, device=dev)
+    index = torch.arange(TP_STAGE2_BATCH, device=dev)
+    return float(trainer.train_step(bank, *up, index, assign, 24))
+
+
+def tp_dirs() -> dict:
+    return {k: os.path.join(LOGS, f"tp_{k}")
+            for k in ("one_bf16", "one_f32", "one_stage2", "two_bf16",
+                      "two_f32", "two_stage2")}
+
+
+def phase_tp() -> dict:
+    """Tensor parallelism on this card: first the one-process runs (vit_b16
+    stage 1 through fit, 2 bf16 steps and 1 float32 step; one stage-2 step
+    of resnet50 with v4 / 512 heads), then K3 at the per-rank shape
+    (32, 197, 6, 64) in bf16 against its plain version, then two processes
+    over gloo on a grid of data 1 x model 2 (tp_worker) that run the same:
+    every kernel count set to 0 just before the bf16 fit and read just
+    after, the losses against the one-process run within [dist]'s limits,
+    rank 0's whole ckp_0.pth loaded strictly by a one-process model and
+    held against the one-process weights, the float32 step and the stage-2
+    step the same way. NCCL across two cards where there are two."""
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.models.mlc import MLCModel
+    from sm3x_torch.models.simclr import build_ssl_model
+    from sm3x_torch.parallel.launch import launch_local
+    from sm3x_torch.train.backbone_train import SSLTrainer
+    from sm3x_torch.train.mlc_train import MLCTrainer
+
+    t_phase = time.perf_counter()
+    dirs = tp_dirs()
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[tp] tensor parallelism (--mesh-model {TP_MODEL}): vit_b16/v32, "
+        f"proj 128, T 0.1, global batch {TP_BATCH}, --world-size 2, "
+        f"224x224, --use-checkpoint flash; the one-process runs first")
+    one = {}
+    for arith, amp, steps in (("bf16", True, TP_STEPS), ("f32", False, 1)):
+        tr = SSLTrainer(tp_cfg(f"tp_one_{arith}", amp, 1,
+                               dirs[f"one_{arith}"]))
+        data = synthetic_paired_data(TP_BATCH * steps, canvas=320, seed=0)
+        losses = tr.fit(data)[0]["step_losses"]
+        one[arith] = tr.model.cpu(), losses
+        log(f"  one process, {arith}: losses {losses}")
+        del tr
+    tr = MLCTrainer(tp_stage2_cfg(1, dirs["one_stage2"]))
+    loss = tp_stage2_step(tr)
+    one["stage2"] = tr.model.cpu(), [loss]
+    log(f"  one process, stage 2 (resnet50, v4 / 512, batch "
+        f"{TP_STAGE2_BATCH}): loss {one['stage2'][1][0]:.6f}")
+    del tr
+    torch.cuda.empty_cache()
+
+    k3 = k3_at_path_shape(TP_K3_SHAPE, (torch.bfloat16,),
+                          f"tp (ViT-B/16, model {TP_MODEL})", "tp",
+                          f"vit_b16's 12 heads over a model axis of "
+                          f"{TP_MODEL}, a global batch of {TP_BATCH}",
+                          np.random.default_rng(31))
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, os.path.abspath(__file__), "--tp-worker", "gloo"]
+    t = time.perf_counter()
+    log(f"[tp] two processes on this card over gloo with CUDA tensors, a "
+        f"grid of data 1 x model {TP_MODEL}")
+    res = launch_local(cmd, TP_MODEL, 600, env=env, cwd=ROOT)
+    got = []
+    for r, (rc, text) in enumerate(res):
+        line = [ln for ln in text.splitlines() if ln.startswith("TP_WORKER ")]
+        if rc != 0 or not line:
+            raise AssertionError(f"[tp]: rank {r} exited {rc}:\n"
+                                 + text[-4000:])
+        got.append(json.loads(line[-1].split(" ", 1)[1]))
+    ok = True
+    for g in got:
+        log(f"  rank {g['rank']}: grid {g['grid']}; q weight "
+            f"{g['q_shape']}, its AdamW moments {g['q_moment_shape']}; "
+            f"kernel launches in fit {g['launches']}; K1 by kernel "
+            f"{g['k1']}; K3 by kernel {g['k3']}; fit {g['fit_s']:.1f} s")
+        want = {k: TP_PER_STEP.get(k, 0) * TP_STEPS for k in g["launches"]}
+        if g["launches"] != want:
+            raise AssertionError(f"[tp] launch counts {g['launches']}, "
+                                 f"expected {want}")
+        if g["k1"]["scratch"] or any(v["fma"] for v in g["k3"].values()):
+            raise AssertionError("[tp]: a K1 scratch or K3 fma launch")
+        if g["q_shape"] != [768 // TP_MODEL, 768] or \
+                g["q_moment_shape"] != g["q_shape"]:
+            raise AssertionError("[tp]: the q weight is not a rank's slice")
+        for arith, key in (("bf16", "losses_bf16"), ("float32", "losses_f32"),
+                           ("float32", "losses_stage2")):
+            ref = one[{"losses_bf16": "bf16", "losses_f32": "f32",
+                       "losses_stage2": "stage2"}[key]][1]
+            for i, (a, b) in enumerate(zip(g[key], ref)):
+                rel = abs(a - b) / abs(b)
+                log(f"  rank {g['rank']} {key[7:]} step {i}: loss {a:.6f} "
+                    f"against {b:.6f}, relative {rel:.2e} (tolerance "
+                    f"{DIST_LOSS_RTOL[arith]:g})")
+                ok &= math.isfinite(a) and rel <= DIST_LOSS_RTOL[arith]
+    if len({g["replicated"] for g in got}) != 1:
+        raise AssertionError("[tp]: replicated weights differ between ranks")
+    log("  replicated weights identical bit for bit on both ranks")
+
+    def whole(path, model):
+        state = torch.load(path, map_location="cpu", weights_only=False)
+        model.load_state_dict(state["state_dict"], strict=True)
+        return model
+
+    for name, path, ref, lr, share_max in (
+            ("bf16 ckp_0.pth", os.path.join(dirs["two_bf16"], "ckp_0.pth"),
+             "bf16", 1e-6, None),
+            ("float32 ckp_0.pth", os.path.join(dirs["two_f32"], "ckp_0.pth"),
+             "f32", 1e-6, DIST_SHARE_MAX[1]),
+            ("stage-2 ckp_0.pth", os.path.join(dirs["two_stage2"],
+                                               "ckp_0.pth"),
+             "stage2", 1e-4, DIST_SHARE_MAX[1])):
+        ref_model, ref_losses = one[ref]
+        fresh = (MLCModel("resnet50", proj_dim=512, mlc_proj="v4",
+                          sa_dim_ff=128, sa_dropout=0.1, img_size=224)
+                 if ref == "stage2" else
+                 build_ssl_model("v32", "vit_b16", 128, img_size=224)[0])
+        loaded = whole(path, fresh)
+        worst, share = params_diff(loaded, ref_model, 0.1 * lr)
+        tol = len(ref_losses) * (2 * 3.17 * lr + 2.5e-7)
+        good = worst <= tol and (share_max is None or share <= share_max)
+        log(f"  rank 0's {name}, loaded strictly by a one-process model: "
+            f"max abs diff {worst:.3e} from the one-process run (tolerance "
+            f"{tol:.2e}), {100 * share:.3f}% of entries beyond 0.1 x lr ("
+            + (f"tolerance {100 * share_max:g}%)" if share_max else
+               "not held in bf16)") + f" {'ok' if good else 'OFF'}")
+        ok &= good
+    if not ok:
+        raise AssertionError("[tp]: off the one-process run")
+    log(f"  two processes: {time.perf_counter() - t:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        log("[tp] two NCCL ranks, a card each")
+        res = launch_local(cmd[:-1] + ["nccl"], TP_MODEL, 600, env=env,
+                           cwd=ROOT)
+        if any(rc != 0 for rc, _ in res):
+            raise AssertionError("[tp] over NCCL: " + res[0][1][-4000:])
+    else:
+        log(f"[tp] NCCL tensor parallelism across cards needs two cards, "
+            f"this machine has {torch.cuda.device_count()}; not run")
+    log(f"  [tp] took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": got[0]["launches"], "k3": k3}
+
+
+def tp_worker(backend: str) -> int:
+    """A rank of [tp] (gloo: both ranks on card 0; NCCL: a card each) on a
+    grid of data 1 x model TP_MODEL: the bf16 fit of vit_b16 with every
+    kernel count set to 0 just before and read just after, the float32
+    step through fit, the stage-2 step (rank 0 writes each run's whole
+    ckp_0.pth); one TP_WORKER line with what it saw."""
+    import hashlib
+
+    from sm3x_torch.core.mesh import current_mesh
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.parallel import collectives as C
+    from sm3x_torch.train.backbone_train import SSLTrainer
+    from sm3x_torch.train.mlc_train import MLCTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    C.distributed_initialize(backend=backend)
+    dirs = tp_dirs()
+    out = {"rank": rank}
+    counters, k3 = kernel_counters()
+
+    tr = SSLTrainer(tp_cfg(f"tp_two_r{rank}", True, TP_MODEL,
+                           dirs["two_bf16"]))
+    mesh = current_mesh()
+    out["grid"] = [mesh.data, mesh.model, mesh.data_index, mesh.model_index]
+    data = synthetic_paired_data(TP_BATCH * TP_STEPS, canvas=320, seed=0)
+    reset_counters()
+    t = time.perf_counter()
+    out["losses_bf16"] = tr.fit(data)[0]["step_losses"]
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["k1"] = dict(K.photometric_cuda.variants)
+    out["k3"] = {fn.__name__: dict(fn.variants) for fn in k3}
+    q = tr.model.derm_backbone.encoder.block0.attn.query.weight
+    out["q_shape"] = list(q.shape)
+    out["q_moment_shape"] = list(tr.optimizer.state[q]["exp_avg"].shape)
+    h = hashlib.sha256()
+    for k, v in tr.model.state_dict().items():
+        if tr.tp.plan(k, tr.tp.shapes[k], TP_MODEL) is None:
+            h.update(v.detach().contiguous().view(-1).cpu().numpy().view(
+                np.uint8).data)
+    out["replicated"] = h.hexdigest()
+    del tr
+    torch.cuda.empty_cache()
+
+    tr = SSLTrainer(tp_cfg(f"tp_two_r{rank}", False, TP_MODEL,
+                           dirs["two_f32"]))
+    out["losses_f32"] = tr.fit(synthetic_paired_data(
+        TP_BATCH, canvas=320, seed=0))[0]["step_losses"]
+    del tr
+    torch.cuda.empty_cache()
+
+    tr = MLCTrainer(tp_stage2_cfg(TP_MODEL, dirs["two_stage2"]))
+    out["losses_stage2"] = [tp_stage2_step(tr)]
+    tr.epoch_checkpoint(0)
+    tr.finish_checkpoints()
+    print("TP_WORKER " + json.dumps(out), flush=True)
+    C.shutdown()
+    return 0
+
+
 def phase_copy() -> dict:
     """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
     import importlib.util
@@ -2871,11 +3162,15 @@ def main(argv=None) -> int:
                    "build (a quick check; the full run takes every phase)")
     p.add_argument("--dist-worker", metavar="BACKEND", default=None,
                    help=argparse.SUPPRESS)
+    p.add_argument("--tp-worker", metavar="BACKEND", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.tp_worker:
+        return tp_worker(args.tp_worker)
 
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2887,7 +3182,7 @@ def main(argv=None) -> int:
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
                  "crop": phase_crop, "tri": phase_tri,
-                 "transfer": phase_transfer}
+                 "transfer": phase_transfer, "tp": phase_tp}
         for name in args.only.split(","):
             alone[name]()
         log(f"[only] {args.only}: done (a partial run prints no result)")
@@ -2912,6 +3207,10 @@ def main(argv=None) -> int:
     tri_launches = phase_tri()
     torch.cuda.empty_cache()
     dist_launches = phase_dist(args.profile)
+    torch.cuda.empty_cache()
+    tp = phase_tp()
+    for key, rows in tp["k3"].items():
+        kernels[key]["path_shapes"] += rows
     copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
         if mod in sys.modules:
@@ -2949,6 +3248,7 @@ def main(argv=None) -> int:
                  launches_probe=probe_launches[counter],
                  launches_serve=serve["launches"][counter],
                  launches_dist=dist_launches[counter],
+                 launches_tp=tp["launches"][counter],
                  launches_crop=crop_launches[counter],
                  launches_tri=tri_launches[counter],
                  launches_transfer=transfer_launches[counter],
@@ -2962,6 +3262,7 @@ def main(argv=None) -> int:
                      "probe": SUPERVISED_PER_STEP.get(counter, 0),
                      "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0,
                      "dist": MAIN_PER_STEP.get(counter, 0),
+                     "tp": TP_PER_STEP.get(counter, 0),
                      "crop": CROP_PER_STEP.get(counter, 0),
                      "tri": VIT_PER_STEP.get(counter, 0),
                      "transfer": int(counter == "photometric_cuda")},

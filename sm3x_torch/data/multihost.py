@@ -3,9 +3,11 @@ sm3x/data/multihost.py).
 
 Every rank computes the same epoch order (`epoch_order`, seeded) and the
 same selections (`iter_batch_selections`), so each step's samples are
-those of a single-process run. Rank r of N then gathers, or decodes when
-streaming, only rows [r B / N, (r + 1) B / N) of each selection and
-uploads them; no process reads another's canvases. A batch keeps `label`,
+those of a single-process run. The rank at data index d of a data axis of
+D then gathers, or decodes when streaming, only rows [d B / D,
+(d + 1) B / D) of each selection (`local_batch_rows`) and uploads them; no
+process reads another data index's canvases (the ranks of one model group
+read the same rows). A batch keeps `label`,
 `index`, `mask` and `meta` as full host arrays of the global batch: they
 are tiny and the same on every rank, and the trainers take this rank's
 rows of them where they need them.
@@ -19,29 +21,30 @@ step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 
-from sm3x_torch.core.mesh import local_rows
+from sm3x_torch.core.mesh import Mesh, current_mesh, local_rows
 from sm3x_torch.data.pipeline import (Batch, PairedImageData,
                                       iter_batch_selections)
 from sm3x_torch.data.prefetch import DEVICE_FIELDS, PrefetchData
 
 
-def local_batch_rows(global_batch: int, rank: Optional[int] = None,
-                     world: Optional[int] = None) -> np.ndarray:
-    """Global row indices of this process's rows of a batch, ascending;
-    `arange(global_batch)` on one process."""
-    rows = local_rows(global_batch, rank, world)
+def local_batch_rows(mesh: Mesh, global_batch: int) -> np.ndarray:
+    """Global row indices of this process's rows of a batch on `mesh` (the
+    rows of its data index), ascending; `arange(global_batch)` on a mesh
+    of one data rank."""
+    rows = local_rows(global_batch, mesh.data_index, mesh.data)
     return np.arange(rows.start, rows.stop, dtype=np.int64)
 
 
 class LocalRows:
-    """A host dataset's batches cut to this process's rows: the canvases
-    and sizes of this rank's rows only; label, index, mask and meta of the
-    whole global batch. A canvas cache is gathered, a streaming dataset
-    decodes only these rows; any other source's batches are sliced."""
+    """A host dataset's batches cut to this process's rows on the run's
+    grid: the canvases and sizes of this rank's rows only; label, index,
+    mask and meta of the whole global batch. A canvas cache is gathered, a
+    streaming dataset decodes only these rows; any other source's batches
+    are sliced."""
 
     def __init__(self, data):
         self._host = data
@@ -59,16 +62,16 @@ class LocalRows:
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
                 shuffle: bool = True) -> Iterator[Batch]:
         host = self._host
-        rows = local_rows(batch_size)
+        rows = local_batch_rows(current_mesh(), batch_size)
         if not (isinstance(host, PairedImageData)
                 or hasattr(host, "decode_rows")):
             for b in host.batches(batch_size, epoch, seed, shuffle):
                 yield dataclasses.replace(b, **{
-                    f: rows.take(getattr(b, f)) for f in DEVICE_FIELDS})
+                    f: getattr(b, f)[rows] for f in DEVICE_FIELDS})
             return
         order = self.epoch_order(epoch, seed, shuffle)
         for sel, mask in iter_batch_selections(order, batch_size):
-            mine = rows.take(sel)
+            mine = sel[rows]
             if hasattr(host, "decode_rows"):
                 d, dh, c, ch = host.decode_rows(mine)
             else:

@@ -18,11 +18,12 @@ through sm3x_torch.ops.ntxent_cuda.ntxent_problems_loss): on CUDA one forward an
 one backward launch of kernel K2 per loss, where the JAX package loops
 over terms and groups.
 
-Across `world` processes (each holding its rows of the global batch of
-every projection): where the processes divide the groups, each holds
-groups / world whole groups and computes them alone, and the returned
-loss is its share (the mean over ranks, which DDP's average of gradients
-takes, is the global loss); otherwise (--negatives global included) the
+Across `world` ranks of the data axis (each holding its rows of the
+global batch of every projection; the ranks of one model group hold the
+same rows and compute the same loss): where the processes divide the
+groups, each holds groups / world whole groups and computes them alone,
+and the returned loss is its share (the mean over ranks, which DDP's
+average of gradients takes, is the global loss); otherwise (--negatives global included) the
 projections of all ranks are gathered, with a gradient that goes back to
 each row's owner, and every rank computes the global loss of all groups.
 """
@@ -33,6 +34,7 @@ import torch
 
 from sm3x_torch.ops.ntxent import group_problems
 from sm3x_torch.ops.ntxent_cuda import ntxent_problems_loss
+from sm3x_torch.core.mesh import data_group
 from sm3x_torch.parallel.collectives import gather_rows_autograd
 
 
@@ -62,7 +64,8 @@ def ntxent_terms(pairs, temperature: float, groups: int = 1,
     else:
         # (b, 2 x terms, D) of every rank in one gather, in rank order
         here = groups
-        views = gather_rows_autograd(torch.stack(views, dim=1)).unbind(1)
+        views = gather_rows_autograd(torch.stack(views, dim=1),
+                                     data_group()).unbind(1)
     z = torch.cat([group_problems(views[2 * k], views[2 * k + 1], here)
                    for k in range(len(pairs))])
     per_term = ntxent_problems_loss(z, temperature).view(len(pairs), here)

@@ -20,10 +20,11 @@ dict keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
 
 Under a process group (sm3x_torch.parallel) a train-mode `BatchNorm`
 normalises with the statistics of the global batch, as the JAX package's
-GSPMD step does over its data axis, and the running statistics move
-toward the global mean and the biased global variance, the same on every
-rank (`torch.nn.SyncBatchNorm` would move `running_var` toward the
-unbiased variance). On CUDA tensors it runs PyTorch's own batch-norm
+GSPMD step does over its data axis (the ranks of the run's data group,
+sm3x_torch.core.mesh.data_group: the whole run with --mesh-model 1), and
+the running statistics move toward the global mean and the biased global
+variance, the same on every rank (`torch.nn.SyncBatchNorm` would move
+`running_var` toward the unbiased variance). On CUDA tensors it runs PyTorch's own batch-norm
 kernels: each rank's mean and inverse deviation (`batch_norm_stats`,
 float32), one all-gather of them with the counts, their combination, the
 normalisation; the backward's two per-channel sums go through one
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sm3x_torch.core.mesh import data_group
 from sm3x_torch.parallel.collectives import (all_reduce_sum, gather_rows,
                                              is_distributed)
 
@@ -140,12 +142,13 @@ def _global_batch_norm_plain(x, weight, bias):
     shape = (1, c) + (1,) * (x.dim() - 2)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     n = x.numel() // c
+    group = data_group()
     counted = all_reduce_sum(torch.cat([xf.mean(dims) * n,
-                                        xf.new_full((1,), n)]))
+                                        xf.new_full((1,), n)]), group)
     total = counted[c]
     mean = counted[:c] / total
     centred = xf - mean.view(shape)
-    var = all_reduce_sum((centred * centred).sum(dims)) / total
+    var = all_reduce_sum((centred * centred).sum(dims), group) / total
     y = centred * torch.rsqrt(var + EPS).view(shape)
     if weight is not None:
         y = y * weight.view(shape) + bias.view(shape)
@@ -165,7 +168,8 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
         c = x.shape[1]
         mean, invstd = torch.batch_norm_stats(x, EPS)
         count = mean.new_full((1,), x.numel() // c)
-        every = gather_rows(torch.cat([mean, invstd, count])[None])
+        every = gather_rows(torch.cat([mean, invstd, count])[None],
+                            data_group())
         counts = every[:, 2 * c].contiguous()
         # running statistics of its own that the kernel moves by momentum 0
         # (without them it wants the counts in the input's dtype, which
@@ -195,7 +199,8 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
         gx = None
         if need_x:
             c = x.shape[1]
-            sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]))
+            sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]),
+                                  data_group())
             gx = torch.batch_norm_backward_elemt(
                 gy, x, mean, invstd, weight, sums[:c], sums[c:], counts)
         return gx, gw if need_w else None, gb if need_b else None

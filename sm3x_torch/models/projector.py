@@ -13,6 +13,14 @@ layer, v3 is Linear-BN(affine=False), v4 one Linear with a bias, v0 the
 identity as a single pseudo-head. The heads' products run as one batched
 product over the weights stacked at call time; batch norm runs head by
 head, each with its own running statistics.
+
+Tensor parallelism (--mesh-model > 1, sm3x_torch.parallel.tensor):
+`split_for_model` keeps heads [m L / M, (m + 1) L / M) of the model axis
+(sm3x_torch.core.mesh.label_head_shardings), under their own names
+(`projectors.{h}`), so a rank's state dict is a part of the whole one.
+The input enters through `copy_to_model` and the (L / M, B, P) output
+leaves through `gather_from_model` along the heads; where M does not
+divide L every rank keeps every head.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 from torch import nn
 
 from sm3x_torch.models.layers import BatchNorm
+from sm3x_torch.parallel.tensor import copy_to_model, gather_from_model
 
 
 def _linear(fan_in: int, out: int, bias: bool = False) -> nn.Linear:
@@ -63,6 +72,8 @@ def _ProjHead(in_dim: int, proj_dim: int, variant: str) -> nn.Sequential:
 class MultiLabelProjector(nn.Module):
     """`num_labels` parallel heads: (B, in_dim) -> (H, B, proj_dim)."""
 
+    tp_kind = "labels"   # sm3x_torch.parallel.tensor.tensor_parallel
+
     def __init__(self, in_dim: int, proj_dim: int, num_labels: int = 8,
                  variant: str = "v4"):
         super().__init__()
@@ -70,11 +81,27 @@ class MultiLabelProjector(nn.Module):
         self.projectors = nn.ModuleList(
             [] if variant == "v0" else
             [_ProjHead(in_dim, proj_dim, variant) for _ in range(num_labels)])
+        self.group = None   # the model group once the heads are split
+
+    def split_for_model(self, size: int, index: int, group) -> None:
+        """Keep heads [index L / size, (index + 1) L / size), by their
+        global index; all of them where `size` does not divide L."""
+        n = len(self.projectors)
+        if n == 0 or n % size:
+            return
+        per = n // size
+        self.projectors = nn.ModuleDict(
+            (str(h), self.projectors[h])
+            for h in range(index * per, (index + 1) * per))
+        self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.variant == "v0":
             return x[None]  # nn.Identity: a single pseudo-head
-        for layers in zip(*self.projectors):  # the same layer of every head
+        if self.group is not None:
+            x = copy_to_model(x, self.group)
+        # the same layer of every head this rank holds
+        for layers in zip(*self.projectors.children()):
             first = layers[0]
             if isinstance(first, nn.Linear):
                 # (B, in) or (H, B, in) by (H, in, out): one batched product
@@ -85,4 +112,6 @@ class MultiLabelProjector(nn.Module):
                 x = torch.stack([l(x[h]) for h, l in enumerate(layers)])
             else:
                 x = torch.relu(x)
+        if self.group is not None:
+            x = gather_from_model(x, 0, self.group)
         return x

@@ -25,9 +25,19 @@ the same in every mode):
   "mlp"          checkpoint around ln2 + fc1 + gelu
   "attn_mlp"     "attn" and "mlp"
 
-`pos_embed` is made for the grid of `img_size`. The JAX package resizes it
-bilinearly for another grid (sm3x/models/vit.py:197-211); the port does
-not yet and raises.
+`pos_embed` is made for the grid of `img_size` and resized bilinearly for
+another grid (`ViT.pos_embed_for`).
+
+Tensor parallelism (--mesh-model > 1, sm3x_torch.parallel.tensor): each
+`ViTBlock` is split Megatron style by `split_for_model`, after the whole
+model was built from the seed, as sm3x_torch.core.mesh.vit_tp_shardings
+says: a rank keeps the q/k/v rows and bias of its H / M heads and the
+`out` columns of those heads, the `fc1` rows and bias of its share of the
+hidden units and the `fc2` columns. The inputs of q/k/v and of `fc1` enter
+through `copy_to_model`; the partial outputs of `out` and `fc2` are summed
+by `reduce_from_model`, their whole biases added once after the sum.
+Heads that the model axis does not divide keep the attention whole on
+every rank, and the MLP still splits.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sm3x_torch.ops.attention import ATTENTION_FNS
+from sm3x_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6
 REMAT_MODES = (False, True, "dots", "attn", "flash", "mlp", "attn_mlp")
@@ -66,6 +77,28 @@ def _linear(fan_in: int, out: int, init) -> nn.Linear:
     return lin
 
 
+def _keep(lin: nn.Linear, dim: int, size: int, index: int) -> None:
+    """`lin` cut to block `index` of `size` of its weight's `dim` (0: output
+    rows, with the bias; 1: input columns, the bias whole)."""
+    n = lin.weight.shape[dim] // size
+    lin.weight = nn.Parameter(
+        lin.weight.detach().narrow(dim, index * n, n).clone())
+    if dim == 0:
+        lin.bias = nn.Parameter(
+            lin.bias.detach().narrow(0, index * n, n).clone())
+        lin.out_features = n
+    else:
+        lin.in_features = n
+
+
+def _row_parallel(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel `lin` on this rank's columns of its input: the partial
+    products summed over the model group in float32, the bias added once,
+    one cast to the products' dtype."""
+    part = F.linear(x, lin.weight)
+    return (reduce_from_model(part, group) + lin.bias).to(part.dtype)
+
+
 class MultiHeadAttention(nn.Module):
     """Flax `MultiHeadDotProductAttention` (self-attention, no mask): the
     q/k/v projections to (B, S, H, D), an attention function of the mode
@@ -76,21 +109,42 @@ class MultiHeadAttention(nn.Module):
         if dim % n_heads:
             raise ValueError(f"dim {dim} is not a multiple of {n_heads} heads")
         self.n_heads = n_heads
+        self.head_dim = dim // n_heads
         self.attn_fn = ATTENTION_FNS[attn_impl]
         self.query = _linear(dim, dim, lecun_normal_)
         self.key = _linear(dim, dim, lecun_normal_)
         self.value = _linear(dim, dim, lecun_normal_)
         self.out = _linear(dim, dim, lecun_normal_)
+        self.group = None   # the model group once the heads are split
+
+    def split_for_model(self, size: int, index: int, group) -> bool:
+        """Keep heads [index H / size, (index + 1) H / size); False (and the
+        attention whole) where `size` does not divide the heads."""
+        if self.n_heads % size:
+            return False
+        for lin in (self.query, self.key, self.value):
+            _keep(lin, 0, size, index)
+        _keep(self.out, 1, size, index)
+        self.n_heads //= size
+        self.group = group
+        return True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, s, dim = x.shape
-        shape = (b, s, self.n_heads, dim // self.n_heads)
+        b, s, _ = x.shape
+        if self.group is not None:
+            x = copy_to_model(x, self.group)
+        shape = (b, s, self.n_heads, self.head_dim)
         o = self.attn_fn(self.query(x).view(shape), self.key(x).view(shape),
                          self.value(x).view(shape))
-        return self.out(o.reshape(b, s, dim))
+        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        if self.group is None:
+            return self.out(o)
+        return _row_parallel(self.out, o, self.group)
 
 
 class ViTBlock(nn.Module):
+    tp_kind = "vit"   # sm3x_torch.parallel.tensor.tensor_parallel
+
     def __init__(self, dim: int, n_heads: int, mlp_ratio: float = 4.0,
                  attn_impl: str = "xla", mlp_remat: bool = False):
         super().__init__()
@@ -101,10 +155,24 @@ class ViTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.fc1 = _linear(dim, hidden, torch_linear_init_)
         self.fc2 = _linear(hidden, dim, torch_linear_init_)
+        self.group = None   # the model group once the MLP is split
+
+    def split_for_model(self, size: int, index: int, group) -> None:
+        """Split the attention's heads and the MLP's hidden units over a
+        model axis of `size`, this rank holding block `index`; each part
+        stays whole where `size` does not divide it."""
+        self.attn.split_for_model(size, index, group)
+        if self.fc1.out_features % size == 0:
+            _keep(self.fc1, 0, size, index)
+            _keep(self.fc2, 1, size, index)
+            self.group = group
 
     def mlp_in(self, x: torch.Tensor) -> torch.Tensor:
         """ln2 + fc1 + gelu, the span that "mlp" recomputes."""
-        return F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
+        h = self.ln2(x)
+        if self.group is not None:
+            h = copy_to_model(h, self.group)
+        return F.gelu(self.fc1(h), approximate="tanh")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -112,7 +180,9 @@ class ViTBlock(nn.Module):
             h = checkpoint(self.mlp_in, x, use_reentrant=False)
         else:
             h = self.mlp_in(x)
-        return x + self.fc2(h)
+        if self.group is None:
+            return x + self.fc2(h)
+        return x + _row_parallel(self.fc2, h, self.group)
 
 
 def _dots_saveable_context():

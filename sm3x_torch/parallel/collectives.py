@@ -10,7 +10,11 @@ which gloo reduces and broadcasts only) they use the form it has (a gather
 of host tensors into a list).
 
 Everything here is a no-op, or the identity, without a process group;
-with one, every rank must call each function in the same order.
+with one, every rank must call each function in the same order. A
+function with a `group` runs over that torch.distributed group (None: the
+whole run); the trainers pass the data group of the run's grid
+(sm3x_torch.core.mesh.data_group) wherever the batch is split or reduced,
+and tensor parallelism (sm3x_torch.parallel.tensor) its model group.
 """
 
 from __future__ import annotations
@@ -37,6 +41,14 @@ def process_info() -> tuple:
     if not is_distributed():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def group_info(group=None) -> tuple:
+    """(rank, size) of this process in `group` (None: the whole run);
+    (0, 1) without a process group."""
+    if not is_distributed():
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def is_main_process() -> bool:
@@ -100,22 +112,47 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's `x` (the same shape on each) concatenated along dim 0
     in rank order; no gradient. One collective."""
-    _, world = process_info()
+    _, world = group_info(group)
     if world == 1:
         return x
     x = x.contiguous()
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x)
+        dist.all_gather_into_tensor(out, x, group=group)
         return out
+    return torch.cat(gather_list(x, group))
+
+
+def gather_list(x: torch.Tensor, group=None) -> list:
+    """Every rank's `x` (the same shape on each), a tensor a rank in rank
+    order, on `x`'s device; no gradient. One collective."""
+    _, world = group_info(group)
+    if world == 1:
+        return [x]
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=group)
+        return parts
     # gloo gathers host tensors only: a CUDA tensor goes through the host
     here = x.cpu()
     parts = [torch.empty_like(here) for _ in range(world)]
-    dist.all_gather(parts, here)
-    return torch.cat(parts).to(x.device)
+    dist.all_gather(parts, here, group=group)
+    return [p.to(x.device) for p in parts]
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every rank's picklable `obj`, a list in rank order. One collective
+    (two under the hood: sizes, then bytes)."""
+    _, world = group_info(group)
+    if world == 1:
+        return [obj]
+    out = [None] * world
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def broadcast_string(s: str, max_len: int = 4096) -> str:
@@ -148,14 +185,14 @@ def max_over_ranks(value: int) -> int:
     return int(t)
 
 
-def host_gather(x, axis: int = 0) -> np.ndarray:
+def host_gather(x, axis: int = 0, group=None) -> np.ndarray:
     """Every rank's array (a tensor or numpy array of one shape on every
     rank) concatenated along `axis` in rank order, as a host numpy array
     on every rank."""
-    return host_gather_tree({"x": x}, axis)["x"]
+    return host_gather_tree({"x": x}, axis, group)["x"]
 
 
-def host_gather_tree(tree, axis: int = 0):
+def host_gather_tree(tree, axis: int = 0, group=None):
     """`host_gather` over a dict / list / tuple of arrays in ONE
     collective: each rank's leaves go to the host, their bytes into one
     buffer, the buffers of all ranks into one gather; each leaf comes back
@@ -165,13 +202,13 @@ def host_gather_tree(tree, axis: int = 0):
     host = [np.ascontiguousarray(
         x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
         for x in leaves]
-    _, world = process_info()
+    _, world = group_info(group)
     if world == 1:
         return pytree.tree_unflatten(host, spec)
     flat = np.concatenate([a.reshape(-1).view(np.uint8) for a in host]) \
         if host else np.zeros(0, np.uint8)
     got = gather_rows(torch.from_numpy(flat.copy())[None].to(
-        _comm_device())).cpu().numpy()          # (world, nbytes)
+        _comm_device()), group).cpu().numpy()   # (world, nbytes)
     out, at = [], 0
     for a in host:
         n = a.nbytes
@@ -182,18 +219,18 @@ def host_gather_tree(tree, axis: int = 0):
     return pytree.tree_unflatten(out, spec)
 
 
-def all_gather_varlen(x: torch.Tensor):
+def all_gather_varlen(x: torch.Tensor, group=None):
     """Rows of a different count on each rank: (gathered (world, max, ...),
     lengths (world,)), each rank's rows padded with zeros to the longest;
     slice rank r's with `gathered[r, :lengths[r]]`. Two collectives: the
-    lengths, then the padded rows."""
-    _, world = process_info()
+    lengths, then the padded rows. The counterpart of the reference's
+    public helper of the same name (sm3x/parallel/__init__.py)."""
     n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    lengths = gather_rows(n) if world > 1 else n
+    lengths = gather_rows(n, group)
     top = int(lengths.max())
     pad = x.new_zeros((top,) + tuple(x.shape[1:]))
     pad[:x.shape[0]] = x
-    return gather_rows(pad[None]), lengths
+    return gather_rows(pad[None], group), lengths
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -202,30 +239,31 @@ class _AllReduceSum(torch.autograd.Function):
     use of the sum."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of `x` over the ranks (`x` itself without a
-    process group)."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of `x` over the ranks of `group` (`x` itself
+    without a process group)."""
     if not is_distributed():
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
-def cross_replica_mean(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable mean of `x` over the ranks."""
-    _, world = process_info()
-    return all_reduce_sum(x) / world if world > 1 else x
+def cross_replica_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable mean of `x` over the ranks of `group`."""
+    _, world = group_info(group)
+    return all_reduce_sum(x, group) / world if world > 1 else x
 
 
 class _GatherRows(torch.autograd.Function):
@@ -235,20 +273,21 @@ class _GatherRows(torch.autograd.Function):
     owners (DDP then averages the ranks' parameter gradients)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.rank, ctx.n = dist.get_rank(), x.shape[0]
-        return gather_rows(x)
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[0]
+        ctx.rank = dist.get_rank(group)
+        return gather_rows(x, group)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g.narrow(0, ctx.rank * ctx.n, ctx.n)
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(0, ctx.rank * ctx.n, ctx.n), None
 
 
-def gather_rows_autograd(x: torch.Tensor) -> torch.Tensor:
+def gather_rows_autograd(x: torch.Tensor, group=None) -> torch.Tensor:
     """`gather_rows` with a gradient (see `_GatherRows`); `x` itself on
     one process."""
-    if process_info()[1] == 1:
+    if group_info(group)[1] == 1:
         return x
-    return _GatherRows.apply(x)
+    return _GatherRows.apply(x, group)

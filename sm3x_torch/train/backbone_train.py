@@ -26,6 +26,13 @@ whole batch, runs the model under DDP with the global-batch BatchNorm, and
 computes its NT-Xent groups, or all of them from the gathered projections
 (sm3x_torch.losses.ssl). A run on N processes is then the one-process run
 up to the order of float reductions.
+
+Under --mesh-model M > 1 the ranks form a grid of N / M data x M model
+(sm3x_torch.core.mesh): the M ranks of a model group take the same rows,
+and a ViT's blocks are split over them Megatron style (SSLTrainer
+`split_model("vit")`, sm3x_torch.models.vit), the reference's
+`_place_state`; a ResNet stays whole on every rank. Tri-modal and
+multi-crop runs go through the same blocks.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 
 from sm3x_torch.core import prng
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
-from sm3x_torch.core.mesh import TP_LATER, batch_rows
+from sm3x_torch.core.mesh import batch_rows
 from sm3x_torch.data.datasets import PAIRED as DATASETS
 from sm3x_torch.losses.ssl import local_groups, ssl_loss
 from sm3x_torch.models.backbones import is_vit
@@ -74,13 +81,13 @@ def unsupported(cfg) -> list:
 
 
 def unsupported_run(cfg) -> list:
-    """The run settings that no stage of the port takes: a model axis
-    (tensor parallelism, queued) and the Orbax checkpoint backend (not
-    ported). --mesh-data is taken and, as in the JAX package, the data axis
-    is the run's processes whatever it says."""
+    """The run settings that no stage of the port takes: the Orbax
+    checkpoint backend (not ported). --mesh-data is taken and, as in the JAX
+    package, the data axis is the run's processes over --mesh-model
+    whatever it says; a --mesh-model that does not divide the processes is
+    refused where the grid is made (sm3x_torch.core.mesh.make_mesh)."""
     r = cfg.run
     checks = [
-        (r.mesh_model != 1, TP_LATER),
         (r.ckpt_backend != "msgpack",
          f"--ckpt-backend {r.ckpt_backend} {NOT_PORTED}; the port writes "
          f".pth files"),
@@ -285,6 +292,8 @@ class SSLTrainer(common.CheckpointableTrainer):
             self.model.to(memory_format=torch.channels_last)
         self.model.train()
         self.rows = common.data_axis(cfg, self.logger)
+        if is_vit(m.arch):
+            self.split_model("vit")
         world = self.rows.world
         # per-device-negatives parity: world_size groups, by default one a
         # process (sm3x/train/backbone_train.py:249-253)

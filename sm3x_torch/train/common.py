@@ -15,10 +15,12 @@ import threading
 
 import torch
 
-from sm3x_torch.core.mesh import local_rows, make_mesh
+from sm3x_torch.core.mesh import (current_mesh, data_group, local_rows,
+                                  make_mesh)
 from sm3x_torch.data.prefetch import indexed
 from sm3x_torch.parallel.collectives import (  # noqa: F401  (re-exported)
     is_distributed, is_main_process, max_over_ranks, process_info)
+from sm3x_torch.parallel.tensor import tensor_parallel
 
 
 def make_adamw(params, lr: float, wd: float = 5e-2,
@@ -152,24 +154,27 @@ def write_checkpoint(paths, state: dict) -> None:
 
 
 def data_axis(cfg, logger):
-    """This process's rows of every global batch of `-b` (all of them on
-    one process), after a word where --mesh-data names another data axis
-    than the run's processes: the JAX package builds its mesh from the
-    devices and never reads the flag, and the port follows it."""
+    """This rank's rows of every global batch of `-b` (all of them on one
+    process), on the run's grid of the processes over --mesh-model
+    (sm3x_torch.core.mesh.make_mesh, which refuses a model size that does
+    not divide them); after a word where --mesh-data names another data
+    axis than that: the JAX package builds its mesh from the devices and
+    never reads the flag, and the port follows it."""
     mesh = make_mesh(cfg.run.mesh_model)
     if cfg.run.mesh_data not in (None, mesh.data):
         logger.warning(f"--mesh-data {cfg.run.mesh_data} ignored: the data "
-                       f"axis is the run's {mesh.data} process(es)")
+                       f"axis is the run's {mesh.data} process(es) over "
+                       f"--mesh-model {mesh.model}")
     return local_rows(cfg.optim.batch_size)
 
 
 def data_parallel(model: torch.nn.Module, device) -> torch.nn.Module:
     """What a train step calls: `model` itself on one process, under
-    DistributedDataParallel where a process group is up (world size 1
-    included). The running statistics need no broadcast (the global-batch
-    BatchNorm keeps them equal on every rank) and the gradients live in
-    DDP's buckets. Checkpoints come from `model`, with the keys of a
-    single-process run."""
+    DistributedDataParallel over the data group where a process group is up
+    (world size 1 included). The running statistics need no broadcast (the
+    global-batch BatchNorm keeps them equal on every rank) and the
+    gradients live in DDP's buckets. Checkpoints come from `model`, with
+    the keys of a single-process run."""
     if not is_distributed():
         return model
     from torch.nn.parallel import DistributedDataParallel
@@ -177,15 +182,16 @@ def data_parallel(model: torch.nn.Module, device) -> torch.nn.Module:
     device = indexed(device)
     return DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        broadcast_buffers=False, gradient_as_bucket_view=True)
+        broadcast_buffers=False, gradient_as_bucket_view=True,
+        process_group=data_group())
 
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over ranks of a detached device value (a loss); one
-    all-reduce on the device, read back when the caller reads it."""
+    """The mean over the data axis of a detached device value (a loss);
+    one all-reduce on the device, read back when the caller reads it."""
     from sm3x_torch.parallel.collectives import cross_replica_mean
 
-    return cross_replica_mean(x.detach())
+    return cross_replica_mean(x.detach(), data_group())
 
 
 class CheckpointableTrainer:
@@ -202,9 +208,17 @@ class CheckpointableTrainer:
     writes it (one save in flight). Every `fit` ends in
     `finish_checkpoints`, so `resume` and the end of the process find whole
     files. With --save-on-preempt SIGTERM / SIGINT become a checkpoint and
-    a clean end of the loop at the next epoch boundary."""
+    a clean end of the loop at the next epoch boundary.
+
+    Under tensor parallelism (`split_model`, --mesh-model > 1) a file holds
+    the whole model and the whole optimizer, in the layout of a
+    one-process run: before rank 0 writes, every rank takes part in
+    gathering the split tensors over its model group (`live_state`), and
+    `resume` cuts each rank's part out of the whole file. So a file moves
+    between model sizes, one process included."""
 
     start_epoch: int = 0
+    tp = None   # sm3x_torch.parallel.tensor.Split of a split model
     _best = None
     _save_thread = None
     _save_error = None
@@ -219,32 +233,60 @@ class CheckpointableTrainer:
     def restore_extra_state(self, ckpt: dict) -> None:
         pass
 
+    def split_model(self, kind: str, **plan_args) -> None:
+        """Split `model` over the model axis of the run's grid (nothing with
+        --mesh-model 1): "vit" for the ViT blocks, "labels" for the label
+        heads (sm3x_torch.parallel.tensor.tensor_parallel). Before DDP and
+        the optimizer see the parameters."""
+        self.tp = tensor_parallel(self.model, current_mesh(), kind,
+                                  **plan_args)
+        if self.tp is not None:
+            self.logger.info(
+                f"tensor parallelism: {kind} split over the grid "
+                f"{self.tp.mesh.shape}, this rank at model index "
+                f"{self.tp.mesh.model_index}")
+
+    def model_state(self) -> dict:
+        """The model's state dict, whole (gathered over the model group
+        under tensor parallelism: every rank must call it then)."""
+        sd = {k: v.detach() for k, v in self.model.state_dict().items()}
+        return sd if self.tp is None else self.tp.gather(sd)
+
     def live_state(self, epoch: int) -> dict:
-        """The checkpoint's content with the tensors the run is using."""
+        """The checkpoint's content with the tensors the run is using;
+        under tensor parallelism the whole model and optimizer, gathered
+        (every rank must call it)."""
+        optim = (self.optimizer.state_dict() if self.tp is None else
+                 self.tp.whole_optimizer_state(self.model, self.optimizer))
         return {
             "epoch": epoch + 1,
-            "state_dict": {k: v.detach()
-                           for k, v in self.model.state_dict().items()},
-            "optimizer": self.optimizer.state_dict(),
+            "state_dict": self.model_state(),
+            "optimizer": optim,
             **self.extra_state(),
         }
+
+    def _state_to_write(self, epoch: int):
+        """What rank 0 writes, taken on every rank where it has to be
+        gathered; None where `save` / `save_async` take it themselves."""
+        return None if self.tp is None else self.live_state(epoch)
 
     def state_dict(self, epoch: int) -> dict:
         """The checkpoint's content on the host."""
         return map_tensors(lambda t: t.detach().cpu(), self.live_state(epoch))
 
-    def save_async(self, paths, epoch: int) -> None:
+    def save_async(self, paths, epoch: int, state=None) -> None:
         """Write the state as it stands to `paths` (one path or several;
         several share one fetch) without holding the loop for the transfer
         and the disk: every tensor is cloned on its device first, so the
         next step cannot change what is written, then a background thread
         fetches, serialises and writes. One save is in flight at a time:
         the one before is waited for here, which bounds the extra device
-        memory to one state."""
+        memory to one state. `state`: the content to write where the
+        caller took it already (`live_state`)."""
         if isinstance(paths, str):
             paths = [paths]
         snap = map_tensors(lambda t: t.detach().clone(),
-                           self.live_state(epoch))
+                           self.live_state(epoch) if state is None else state)
         cloned, device = None, indexed(self.device)
         if device.type == "cuda":
             # the clones are queued on the loop's stream; the thread copies
@@ -327,11 +369,12 @@ class CheckpointableTrainer:
             signum = max_over_ranks(signum or 0) or None
         if signum is None:
             return False
+        state = self._state_to_write(epoch)
         if not is_main_process():
             return True
         self.flush_saves()
         where = os.path.join(self.cfg.run.log_path, "checkpoint.pth")
-        self.save(where, epoch)
+        self.save(where, epoch, state)
         self.logger.warning(
             f"preemption signal {signum} caught: epoch {epoch} state saved; "
             f"resume with --resume-path {where}")
@@ -351,9 +394,15 @@ class CheckpointableTrainer:
             raise FileNotFoundError(f"cannot find checkpoint at '{path}'")
         self.logger.info(f"Re-starting from checkpoint: '{path}' ...")
         ckpt = load_checkpoint_file(path)
-        self.model.load_state_dict(ckpt["state_dict"], strict=True)
-        if "optimizer" in ckpt:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+        state, optim = ckpt["state_dict"], ckpt.get("optimizer")
+        if self.tp is not None:   # this rank's part of the whole file
+            state = self.tp.shard(state)
+            if optim is not None:
+                optim = self.tp.local_optimizer_state(optim, self.model,
+                                                      self.optimizer)
+        self.model.load_state_dict(state, strict=True)
+        if optim is not None:
+            self.optimizer.load_state_dict(optim)
         self.restore_extra_state(ckpt)
         self.start_epoch = int(ckpt.get("epoch", 0))
         self.logger.info(f"resumed from '{path}' (epoch {self.start_epoch})")
@@ -365,8 +414,8 @@ class CheckpointableTrainer:
         loop. `write_best` persists the stash once, after the loop."""
         self._best = {
             "epoch": epoch + 1,
-            "state_dict": {k: v.detach().clone()
-                           for k, v in self.model.state_dict().items()},
+            "state_dict": {k: v.clone()
+                           for k, v in self.model_state().items()},
             "best_val_auc": float(best_val_auc),
         }
 
@@ -392,18 +441,20 @@ class CheckpointableTrainer:
                 "(SSL pretraining); this stage ignores it and uses a "
                 "constant lr")
 
-    def save(self, path: str, epoch: int):
-        """Write the state now and return when the file is whole; the epoch
-        loop uses `save_async`."""
-        write_checkpoint([path], self.live_state(epoch))
+    def save(self, path: str, epoch: int, state=None):
+        """Write the state now (or `state`, where the caller took it) and
+        return when the file is whole; the epoch loop uses `save_async`."""
+        write_checkpoint([path], self.live_state(epoch) if state is None
+                         else state)
 
     def guard_loss(self, epoch: int, loss: float):
         """--nan-guard: dump the state and stop on a non-finite epoch loss."""
         if not self.cfg.run.nan_guard or math.isfinite(loss):
             return
         path = os.path.join(self.cfg.run.log_path, "nan_dump.pth")
+        state = self._state_to_write(epoch)
         if is_main_process():
-            self.save(path, epoch)
+            self.save(path, epoch, state)
         raise FloatingPointError(
             f"non-finite loss {loss} at epoch {epoch} (state: {path})")
 
@@ -413,13 +464,14 @@ class CheckpointableTrainer:
         `save_async`: where both fall on one epoch they share one snapshot
         and one fetch."""
         cfg = self.cfg
-        if not is_main_process():
-            return
         paths = []
         if ((epoch + 1) % cfg.run.save_freq == 0
                 or epoch + 1 == cfg.optim.epochs):
             paths.append(os.path.join(cfg.run.log_path, f"ckp_{epoch}.pth"))
         if (epoch + 1) % max(cfg.run.ckpt_freq, 1) == 0:
             paths.append(os.path.join(cfg.run.log_path, "checkpoint.pth"))
-        if paths:
-            self.save_async(paths, epoch)
+        if not paths:
+            return
+        state = self._state_to_write(epoch)
+        if is_main_process():
+            self.save_async(paths, epoch, state)

@@ -22,7 +22,7 @@ import torch
 
 from sm3x_torch import CLASSES_NAME, CLS_WEIGHTS, NUM_CLASSES
 from sm3x_torch.core import prng
-from sm3x_torch.core.mesh import local_rows
+from sm3x_torch.core.mesh import data_group, local_rows
 from sm3x_torch.data.prefetch import to_device
 from sm3x_torch.losses import weighted_multilabel_ce
 from sm3x_torch.metrics import compute_stage_metrics
@@ -85,7 +85,8 @@ class LinearProbe:
             for it, batch in enumerate(
                     train_data.batches(batch_size, epoch, seed)):
                 feats = gather_rows(extract_feats(
-                    batch, prng.step_seed(self.seed, epoch, it), True))
+                    batch, prng.step_seed(self.seed, epoch, it), True),
+                    data_group())
                 labels = torch.from_numpy(np.ascontiguousarray(
                     batch.label)).to(self.device).long()
                 losses.append(self.train_step(feats, labels,

@@ -10,7 +10,9 @@ The freeze policies fc | projector | all decide which tensors AdamW gets
   all        both in train mode, the frozen stem's batch norm included: its
              running statistics move though its weights do not
 Train views are made at `train_sz`, eval runs at `test_sz`. AdamW's eps is
-the 1e-8 default here, not stage 1's.
+the 1e-8 default here, not stage 1's. Under --mesh-model M > 1 the label
+heads are split over the model axis, as in stage 2; under --finetune all
+the extractor then gets every head's gradient through `copy_to_model`.
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ class MLCEvalTrainer(supervised.SupervisedTrainer):
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
         self.rows = common.data_axis(cfg, self.logger)
+        self.split_model("labels", num_labels=m.num_labels)
         params = common.trainable_parameters(
             self.model, lambda name: common.mlc_eval_trainable(
                 name, m.finetune))

@@ -28,6 +28,14 @@ head trains under DDP, and the rows `sa` of all ranks are gathered and
 written into every rank's bank at the batch's global index. k-means runs
 on every rank from the same bank and the same generator, so the
 assignments are the same bits everywhere.
+
+Under --mesh-model M > 1 the label heads are split over the model axis
+(`split_model("labels")`, sm3x_torch.models.projector): the M ranks of a
+model group take the same rows, each runs its L / M heads, and the heads'
+tokens are gathered along the heads before the transformer layer, which,
+like the extractor and the prototypes, every rank holds whole. The rows
+of the bank are gathered over the data group only, so a batch writes B
+rows, not M B.
 """
 
 from __future__ import annotations
@@ -38,14 +46,14 @@ import time
 import torch
 
 from sm3x_torch.core import prng
-from sm3x_torch.core.mesh import batch_rows
+from sm3x_torch.core.mesh import batch_rows, data_group
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
 from sm3x_torch.losses import cluster_ce
 from sm3x_torch.models.mlc import MLCModel
 from sm3x_torch.ops.augment import (MLC_TRAIN_AUG, modality_keys,
                                     modality_valid_hw, ssl_augment_batch)
 from sm3x_torch.ops.kmeans import spherical_kmeans
-from sm3x_torch.parallel.collectives import gather_rows, process_info
+from sm3x_torch.parallel.collectives import gather_rows, group_info
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
 from sm3x_torch.train.backbone_train import DATASETS, unsupported_run
@@ -86,10 +94,13 @@ def augment_pair(seed: int, derm, derm_hw, clinic, clinic_hw, mean, std,
 
 def gather_tokens(sa: torch.Tensor) -> torch.Tensor:
     """(heads, b, P) of this rank's rows -> (heads, B, P) of the global
-    batch, in one gather (`sa` itself on one process)."""
-    if process_info()[1] == 1:
+    batch, in one gather over the data group (`sa` itself where that is
+    one rank)."""
+    group = data_group()
+    if group_info(group)[1] == 1:
         return sa
-    return gather_rows(sa.transpose(0, 1).contiguous()).transpose(0, 1)
+    return gather_rows(sa.transpose(0, 1).contiguous(),
+                       group).transpose(0, 1)
 
 
 def mlc_update(model, optimizer, bank, derm_view, clinic_view, index,
@@ -211,6 +222,7 @@ class MLCTrainer(common.CheckpointableTrainer):
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
         self.rows = common.data_axis(cfg, self.logger)
+        self.split_model("labels", num_labels=m.num_labels)
         params = common.trainable_parameters(
             self.model, lambda name: common.mlc_train_trainable(
                 name, m.finetune_backbone))

@@ -36,7 +36,7 @@ from sm3x_torch import CLASSES_NAME, METRICS_NAME
 from sm3x_torch.core import prng
 from sm3x_torch.data.prefetch import (resident_nbytes, to_device,
                                       wrap_from_config)
-from sm3x_torch.core.mesh import batch_rows
+from sm3x_torch.core.mesh import batch_rows, data_group
 from sm3x_torch.losses import weighted_multilabel_ce
 from sm3x_torch.metrics import (compute_stage_metrics,
                                 mean_average_precision, write_results_csv)
@@ -197,14 +197,15 @@ def _concat_masked(all_preds, all_targets, all_masks):
     """Per-step lists of per-label logits (device tensors), targets and
     masks of this rank's rows -> one array a label on the host for the
     whole of every batch, rows of wrap-padding dropped: one `torch.cat`,
-    one transfer and, under a process group, one gather for the epoch
-    (the ranks' rows of each step side by side, the order of one
-    process)."""
+    one transfer and, under a process group, one gather over the data
+    group for the epoch (the ranks' rows of each step side by side, the
+    order of one process)."""
     widths = [p.shape[1] for p in all_preds[0]]
     flat = torch.stack([torch.cat([p.float() for p in step], dim=1)
                         for step in all_preds])
     got = host_gather_tree({"preds": flat, "targets": np.stack(all_targets),
-                            "mask": np.stack(all_masks)}, axis=1)
+                            "mask": np.stack(all_masks)}, axis=1,
+                           group=data_group())
     mask = got["mask"].reshape(-1)
     flat = got["preds"].reshape(-1, flat.shape[-1])
     edges = np.cumsum([0] + widths)

@@ -124,7 +124,8 @@ def test_transfer_probe_tool_prints_finite_aucs(tmp_path):
     assert bad.returncode == 2 and "--modality" in bad.stderr
 
 
-LATER = "not in the PyTorch port yet"
+# one process is no grid of data x 2 model
+NOT_DIVIDED = "--mesh-model 2 does not divide the 1 process"
 
 
 @pytest.mark.parametrize("flag,said", [
@@ -134,12 +135,12 @@ LATER = "not in the PyTorch port yet"
      "--nmb-crops must start with 2"),
     # not to be ported at all: K = 4 hurt the features
     (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
-    # the data axis is the run's processes: --mesh-data is taken, but not
-    # beside a model axis, and --coordinator needs its two companions
-    (["--mesh-data", "2", "--mesh-model", "2"], "ROADMAP.md item 18)"),
+    # the data axis is the run's processes over --mesh-model, which must
+    # divide them; --coordinator needs its two companions
+    (["--mesh-data", "2", "--mesh-model", "2"], NOT_DIVIDED),
     (["--coordinator", "localhost:1234"], "needs --num-processes"),
     (["--data-name", "ISIC17Dataset"], "go to tools/transfer_probe_torch.py"),
-    (["--mesh-model", "2"], LATER),
+    (["--mesh-model", "2"], NOT_DIVIDED),
     (["--data-name", "ISIC18Dataset"], "go to tools/transfer_probe_torch.py"),
     (["--ckpt-backend", "orbax"], "is not ported")])
 def test_cli_refuses_flags_outside_the_slice(dataset, tmp_path, flag, said):

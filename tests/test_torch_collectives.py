@@ -217,15 +217,18 @@ def test_mesh_and_rows():
     from sm3x_torch.data.multihost import local_batch_rows
 
     assert mesh.make_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(ValueError, match=r"ROADMAP\.md item 18\)"):
+    # one process at --mesh-model 2: the divisibility refusal, both numbers
+    with pytest.raises(ValueError, match=r"--mesh-model 2 does not divide "
+                       r"the 1 process"):
         mesh.make_mesh(model=2)
     rows = mesh.local_rows(12, rank=1, world=3)
     assert (rows.start, rows.stop, rows.total, rows.size) == (4, 8, 12, 4)
     assert rows.take(np.arange(12)).tolist() == [4, 5, 6, 7]
     assert rows.take(torch.arange(24).view(2, 12), dim=1).tolist() == [
         [4, 5, 6, 7], [16, 17, 18, 19]]
-    assert local_batch_rows(12, 2, 3).tolist() == [8, 9, 10, 11]
-    assert local_batch_rows(5).tolist() == [0, 1, 2, 3, 4]
+    assert local_batch_rows(mesh.Mesh(data=3, model=2, data_index=2),
+                            12).tolist() == [8, 9, 10, 11]
+    assert local_batch_rows(mesh.make_mesh(), 5).tolist() == [0, 1, 2, 3, 4]
     with pytest.raises(ValueError, match="not a multiple of the 2"):
         mesh.local_rows(7, 0, 2)
     assert mesh.pad_to_multiple(10, 4) == 12

@@ -78,7 +78,8 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.data.device_data", "sm3x_torch.data.streaming",
               "sm3x_torch.native.loader", "sm3x_torch.utils.weight_registry",
               "sm3x_torch.parallel", "sm3x_torch.parallel.collectives",
-              "sm3x_torch.parallel.launch", "sm3x_torch.core.mesh",
+              "sm3x_torch.parallel.launch", "sm3x_torch.parallel.tensor",
+              "sm3x_torch.core.mesh",
               "sm3x_torch.data.multihost", "tools/dryrun_multigpu_torch",
               "sm3x_torch.models.trimodal", "sm3x_torch.models.layers",
               "sm3x_torch.train.transfer_probe",

@@ -414,4 +414,5 @@ def test_cli_refuses_a_flag_outside_the_slice(tmp_path):
                                       "--log-path", str(tmp_path / "m")],
                str(tmp_path))
     assert res.returncode != 0
-    assert "not in the PyTorch port yet" in res.stdout + res.stderr
+    assert "--mesh-model 2 does not divide the 1 process" in (
+        res.stdout + res.stderr)

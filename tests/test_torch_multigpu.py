@@ -668,7 +668,8 @@ def test_mesh_data_on_one_process_trains_and_warns(tmp_path, caplog):
     assert "--mesh-data 2 ignored" in caplog.text
     assert trainer.groups == 1   # one process: one group of negatives
     cfg.run.mesh_model = 2
-    with pytest.raises(ValueError, match=r"ROADMAP\.md item 18\)"):
+    with pytest.raises(ValueError, match=r"--mesh-model 2 does not divide "
+                       r"the 1 process"):
         SSLTrainer(cfg, logger=logger)
 
 
