@@ -146,10 +146,19 @@ Phases, each printing its lines:
            both ranks, rank 0's whole ckp_0.pth of each run loaded
            strictly by a one-process model within Adam's bound of the
            one-process weights; NCCL across cards where there are two
+  learn    tools/demo_synthetic_e2e_torch.py at its defaults with
+           --full-pipeline (resnet18 at 96 x 96, batch 48, 20 SSL epochs,
+           40 stage-2 and 25 eval epochs on label-correlated textures):
+           the random-init, SSL-probe and stage-2 eval AUC_AVG, the first
+           and last SSL epoch loss, each stage's seconds, the launches (K1
+           band only, K2f / K2b one a SSL step); every AUC and loss finite,
+           the last SSL loss below the first, K1 816 launches, K2f / K2b
+           60 each; then K1 at (48, 96, 96, 3) and K2 at (4, 96, 64)
+           against their plain versions, under `path_shapes`
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
-crop, tri, transfer, tp)
+crop, tri, transfer, tp, learn)
 only those phases run after device and build, and no result is printed.
 
 With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
@@ -684,66 +693,81 @@ def kernels_at_path_shapes() -> dict:
     """K1, K2f / K2b and K3 at the new paths' shapes against their plain
     versions at the [kernels] tolerances (K1 must take the band kernel),
     with the times and bounds of each: {kernel name: [rows]}."""
-    from sm3x_torch.ops import augment_cuda as K
-    from sm3x_torch.ops import ntxent_cuda as N
-
     out = {k: [] for k in ("photometric", "ntxent_fwd", "ntxent_bwd",
                            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    images, params = k1_inputs(K1_LOCAL_SHAPE[0], K1_LOCAL_SHAPE[1])
-    plan = K.photometric_plan(*K1_LOCAL_SHAPE[1:3])
-    before = dict(K.photometric_cuda.variants)
-    got = K.photometric_cuda(images, params, MEAN, STD)
-    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
-    log(f"[kernels] K1 photometric {K1_LOCAL_SHAPE} (multi-crop's locals of "
-        f"one modality): {took}, {plan['blocks']} blocks an image of "
-        f"{plan['band_rows']} rows, {plan['px']} pixels a thread")
-    if took != {"band": 1, "scratch": 0}:
-        raise AssertionError(f"K1 at {K1_LOCAL_SHAPE} took {took}")
-    err = check_close("K1 out (96 x 96)", got,
-                      K.photometric_plain(images, params, MEAN, STD),
-                      **K1_TOL)
-    out["photometric"].append(timed(
-        dict(name="photometric", path="crop", shape=list(K1_LOCAL_SHAPE),
-             dtype="float32", max_abs_err=err,
-             **bound(nbytes(images, params, got),
-                     130 * images[..., 0].numel(), "f32")),
-        lambda: K.photometric_cuda(images, params, MEAN, STD),
-        lambda: K.photometric_plain(images, params, MEAN, STD)))
-    del images, params, got
-
+    out["photometric"].append(k1_at_path_shape(
+        K1_LOCAL_SHAPE, "crop", "kernels", "multi-crop's locals of one "
+        "modality"))
     rng = np.random.default_rng(11)
     for path, shape in K2_PATH_SHAPES.items():
-        z = torch.from_numpy(rng.standard_normal(shape,
-                                                 dtype=np.float32)).cuda()
-        g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).cuda()
-        loss, lse, inv = N.ntxent_forward_cuda(z, 0.1)
-        loss_p, lse_p, inv_p = N.ntxent_forward_plain(z, 0.1)
-        dz = N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
-        dz_p = N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)
-        log(f"[kernels] K2 ntxent z {shape} ({path}: {shape[0] // 2} terms "
-            f"x 2 groups)")
-        fwd_err = check_close("K2f loss", loss, loss_p, **K2F_TOL)
-        check_close("K2f lse", lse, lse_p, **K2F_TOL)
-        bwd_err = check_close("K2b dz", dz, dz_p, **K2B_TOL)
-        s_flops = 2 * shape[0] * shape[1] ** 2 * shape[2]
-        out["ntxent_fwd"].append(timed(
-            dict(name="ntxent_fwd", path=path, shape=list(shape),
-                 dtype="float32", max_abs_err=fwd_err,
-                 **bound(nbytes(z, loss, lse, inv), s_flops, "f32")),
-            lambda: N.ntxent_forward_cuda(z, 0.1),
-            lambda: N.ntxent_forward_plain(z, 0.1)))
-        out["ntxent_bwd"].append(timed(
-            dict(name="ntxent_bwd", path=path, shape=list(shape),
-                 dtype="float32", max_abs_err=bwd_err,
-                 **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32")),
-            lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1),
-            lambda: N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)))
-
+        for key, row in k2_at_path_shape(shape, path, "kernels", rng).items():
+            out[key].append(row)
     for key, rows in k3_at_path_shape(
             K3_LOCAL_SHAPE, (torch.float32, torch.bfloat16), "crop (ViT)",
             "kernels", "a ViT-B/16 local view", rng).items():
         out[key] += rows
     return out
+
+
+def k1_at_path_shape(shape, path: str, tag: str, what: str) -> dict:
+    """K1 at `shape` against its plain version at the [kernels] tolerance,
+    which must take the band kernel: the row of `path` with its times and
+    bound, the lines under `[tag]`."""
+    from sm3x_torch.ops import augment_cuda as K
+
+    images, params = k1_inputs(shape[0], shape[1])
+    plan = K.photometric_plan(*shape[1:3])
+    before = dict(K.photometric_cuda.variants)
+    got = K.photometric_cuda(images, params, MEAN, STD)
+    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
+    log(f"[{tag}] K1 photometric {tuple(shape)} ({what}): {took}, "
+        f"{plan['blocks']} blocks an image of {plan['band_rows']} rows, "
+        f"{plan['px']} pixels a thread")
+    if took != {"band": 1, "scratch": 0}:
+        raise AssertionError(f"K1 at {tuple(shape)} took {took}")
+    err = check_close(f"K1 out ({shape[1]} x {shape[2]})", got,
+                      K.photometric_plain(images, params, MEAN, STD),
+                      **K1_TOL)
+    return timed(
+        dict(name="photometric", path=path, shape=list(shape),
+             dtype="float32", max_abs_err=err,
+             **bound(nbytes(images, params, got),
+                     130 * images[..., 0].numel(), "f32")),
+        lambda: K.photometric_cuda(images, params, MEAN, STD),
+        lambda: K.photometric_plain(images, params, MEAN, STD))
+
+
+def k2_at_path_shape(shape, path: str, tag: str, rng) -> dict:
+    """K2f and K2b at z of `shape` (problems, 2b, D) against their plain
+    versions at the [kernels] tolerances: {"ntxent_fwd": row, "ntxent_bwd":
+    row} of `path` with their times and bounds, the lines under `[tag]`."""
+    from sm3x_torch.ops import ntxent_cuda as N
+
+    z = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    g = torch.from_numpy(rng.random(shape[0], dtype=np.float32)).cuda()
+    loss, lse, inv = N.ntxent_forward_cuda(z, 0.1)
+    loss_p, lse_p, inv_p = N.ntxent_forward_plain(z, 0.1)
+    dz = N.ntxent_backward_cuda(z, lse, inv, g, 0.1)
+    dz_p = N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)
+    log(f"[{tag}] K2 ntxent z {tuple(shape)} ({path})")
+    fwd_err = check_close("K2f loss", loss, loss_p, **K2F_TOL)
+    check_close("K2f lse", lse, lse_p, **K2F_TOL)
+    bwd_err = check_close("K2b dz", dz, dz_p, **K2B_TOL)
+    s_flops = 2 * shape[0] * shape[1] ** 2 * shape[2]
+    return {
+        "ntxent_fwd": timed(
+            dict(name="ntxent_fwd", path=path, shape=list(shape),
+                 dtype="float32", max_abs_err=fwd_err,
+                 **bound(nbytes(z, loss, lse, inv), s_flops, "f32")),
+            lambda: N.ntxent_forward_cuda(z, 0.1),
+            lambda: N.ntxent_forward_plain(z, 0.1)),
+        "ntxent_bwd": timed(
+            dict(name="ntxent_bwd", path=path, shape=list(shape),
+                 dtype="float32", max_abs_err=bwd_err,
+                 **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32")),
+            lambda: N.ntxent_backward_cuda(z, lse, inv, g, 0.1),
+            lambda: N.ntxent_backward_plain(z, lse_p, inv_p, g, 0.1)),
+    }
 
 
 def k3_at_path_shape(shape, dtypes, path: str, tag: str, what: str,
@@ -1253,6 +1277,92 @@ def phase_transfer() -> dict:
             0.0 <= best["AUC_AVG"] <= 1.0):
         raise AssertionError(f"transfer probe: {best}, epochs {epoch_ms}")
     return launches
+
+
+# the learning demo at its defaults: 20 SSL epochs, the full pipeline (40
+# stage-2 and 25 eval epochs); K1 and K2 at its shapes: a view of a
+# modality at batch 48, 96 x 96; four NT-Xent terms (v32, one group) of
+# 2 x 48 rows of the 64-wide projection
+LEARN_ARGV = ["--device", "cuda", "--full-pipeline"]
+LEARN_K1_SHAPE = (48, 96, 96, 3)
+LEARN_K2_SHAPE = (4, 96, 64)
+# 134 train cases at batch 48: 3 steps an epoch; K1 twice a step in the
+# probes' train passes (15 epochs each), four times a SSL step, twice a
+# batch in stage 2's init pass and steps (40 epochs) and in the eval's
+# train steps (25 epochs)
+LEARN_SSL_STEPS = 20 * 3
+LEARN_K1 = 2 * (2 * 15 * 3) + 4 * LEARN_SSL_STEPS + 2 * 3 * 41 + 2 * 25 * 3
+
+
+def phase_learn() -> tuple:
+    """tools/demo_synthetic_e2e_torch.py's main at its defaults on the card,
+    its output in LOGS/learn/demo.log, with every kernel count set to 0 just
+    before and read just after: the three AUCs, the SSL epoch losses, each
+    stage's seconds, the launches. Then K1 and K2 at the demo's shapes
+    against their plain versions. Returns (launches, {kernel: [rows]})."""
+    import importlib.util
+
+    from sm3x_torch.ops import augment_cuda as K
+
+    log_path = os.path.join(LOGS, "learn")
+    shutil.rmtree(log_path, ignore_errors=True)
+    os.makedirs(log_path)
+    spec = importlib.util.spec_from_file_location(
+        "demo_synthetic_e2e_torch",
+        os.path.join(ROOT, "tools", "demo_synthetic_e2e_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    out_file = os.path.join(log_path, "demo.log")
+    reset_counters()
+    t0 = time.perf_counter()
+    with open(out_file, "w") as f, contextlib.redirect_stdout(f):
+        res = demo.main(LEARN_ARGV + ["--log-path", log_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters, _ = kernel_counters()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    variants = dict(K.photometric_cuda.variants)
+    with open(out_file) as f:
+        said = [ln.rstrip() for ln in f if ln.startswith((
+            "data:", "random-init probe:", "SSL ", "SSL-pretrained probe:",
+            "RESULT:", "MLC ", "FULL-PIPELINE RESULT:"))]
+    log(f"[learn] tools/demo_synthetic_e2e_torch.py {' '.join(LEARN_ARGV)} "
+        f"(resnet18 at 96, batch 48, 20 SSL epochs, 40 stage-2 and 25 eval "
+        f"epochs) in {wall:.1f} s; the demo's lines:")
+    for ln in said:
+        log(f"  {ln}")
+    losses = res["ssl_losses"]
+    sec = res["seconds"]
+    log(f"  AUC_AVG: random-init probe {res['auc_random']:.4f}, SSL probe "
+        f"{res['auc_ssl']:.4f}, stage-2 eval {res['auc_eval']:.4f} (random "
+        f"< SSL {res['auc_random'] < res['auc_ssl']}, SSL < stage 2 "
+        f"{res['auc_ssl'] < res['auc_eval']}; not gated)")
+    log(f"  SSL epoch loss: first {losses[0]:.4f}, last {losses[-1]:.4f} "
+        f"({len(losses)} epochs)")
+    log(f"  seconds: random-init probe {sec['random-init probe']:.1f}, SSL "
+        f"fit {sec['ssl']:.1f}, SSL probe {sec['SSL-pretrained probe']:.1f}, "
+        f"stage 2 {sec['mlc']:.1f}, eval {sec['eval']:.1f}")
+    log(f"  kernel launches: {launches}; K1 by kernel {variants}")
+    values = [res["auc_random"], res["auc_ssl"], res["auc_eval"]] + losses
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"[learn] a loss or AUC is not finite: {values}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[learn] the last SSL epoch loss {losses[-1]} "
+                             f"is not below the first {losses[0]}")
+    # the SSL probe above the random-init one is not gated: seed 0 misses
+    # it on the card (PERF.md §6)
+    want = dict.fromkeys(launches, 0)
+    want.update(photometric_cuda=LEARN_K1, ntxent_forward_cuda=LEARN_SSL_STEPS,
+                ntxent_backward_cuda=LEARN_SSL_STEPS)
+    if launches != want or variants["scratch"]:
+        raise AssertionError(f"[learn] launches {launches}, K1 {variants}: "
+                             f"expected {want}, K1 band only")
+    rows = {"photometric": [k1_at_path_shape(
+        LEARN_K1_SHAPE, "learn", "learn", "a view of the demo's batch")]}
+    rows.update({key: [row] for key, row in k2_at_path_shape(
+        LEARN_K2_SHAPE, "learn", "learn",
+        np.random.default_rng(12)).items()})
+    return launches, rows
 
 
 # stage 2 at run.sh's recipe: 1024 synthetic cases, 4 steps an epoch
@@ -3182,7 +3292,8 @@ def main(argv=None) -> int:
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
                  "crop": phase_crop, "tri": phase_tri,
-                 "transfer": phase_transfer, "tp": phase_tp}
+                 "transfer": phase_transfer, "tp": phase_tp,
+                 "learn": phase_learn}
         for name in args.only.split(","):
             alone[name]()
         log(f"[only] {args.only}: done (a partial run prints no result)")
@@ -3210,6 +3321,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tp = phase_tp()
     for key, rows in tp["k3"].items():
+        kernels[key]["path_shapes"] += rows
+    torch.cuda.empty_cache()
+    learn_launches, learn_rows = phase_learn()
+    for key, rows in learn_rows.items():
         kernels[key]["path_shapes"] += rows
     copy_launches = phase_copy()
     for mod in ("jax", "sm3x"):
@@ -3252,6 +3367,7 @@ def main(argv=None) -> int:
                  launches_crop=crop_launches[counter],
                  launches_tri=tri_launches[counter],
                  launches_transfer=transfer_launches[counter],
+                 launches_learn=learn_launches[counter],
                  launches_feed={f: feed[f]["launches"][counter]
                                 for f in FEEDS},
                  launches_per_step={

@@ -5,7 +5,10 @@
 # All four stages with the reference hyperparameters. --world-size 2
 # reproduces the reference's per-GPU contrastive-negative pools (it trained
 # SSL on two GPUs); the port runs on one device. DEVICE=cpu runs the same
-# chain on the CPU.
+# chain on the CPU. STAGES picks the stages to run, in the order given
+# (default: the four of run.sh); stage1_control is stage1_eval's recipe on
+# randomly initialised encoders, the control a probe of SSL features is
+# read against.
 set -euo pipefail
 
 DATA="${DATA:-./data/7PC}"
@@ -38,6 +41,13 @@ stage1_eval() {  # linear eval of selected SSL checkpoints
     done
 }
 
+stage1_control() {  # linear eval of random-init encoders (no pretrain)
+    python tools/backbone_eval_torch.py "${BASE[@]}" \
+        --epochs 50 -b 128 -lr 1e-3 --finetune fc --amp \
+        --log-path "$SSL_LOG/control" \
+        --proj-name sm3_r50_backbone_eval
+}
+
 stage2_mlc() {
     python tools/mlc_train_torch.py "${BASE[@]}" \
         --epochs 150 -b 256 -lr 1e-4 --temperature 1 \
@@ -65,7 +75,11 @@ stage2_eval() {  # supervised finetune/eval of selected MLC checkpoints
 # per-stage wall-clock markers
 stamp() { echo "=== $1 $(date +%s) $(date -u +%FT%TZ) ==="; }
 
-stamp stage1_ssl:start;  stage1_ssl;  stamp stage1_ssl:end
-stamp stage1_eval:start; stage1_eval; stamp stage1_eval:end
-stamp stage2_mlc:start;  stage2_mlc;  stamp stage2_mlc:end
-stamp stage2_eval:start; stage2_eval; stamp stage2_eval:end
+STAGES="${STAGES:-stage1_ssl stage1_eval stage2_mlc stage2_eval}"
+for stage in $STAGES; do
+    case "$stage" in
+        stage1_ssl|stage1_eval|stage1_control|stage2_mlc|stage2_eval) ;;
+        *) echo "unknown stage $stage" >&2; exit 2 ;;
+    esac
+    stamp "$stage:start"; "$stage"; stamp "$stage:end"
+done

@@ -15,7 +15,7 @@ ops       NT-Xent, augmentation, attention, copy: plain versions and CUDA
 losses    stage-1 SSL loss assembly, the cluster cross-entropy of stage 2
 train     the stage-1 and stage-2 trainers
 data      Derm7pt metadata, decode-once canvas cache, dataset registry,
-          in-memory synthetic paired canvases
+          in-memory synthetic paired canvases, synthetic Derm7pt trees
 utils     weight bridge from Flax trees, run helpers, device clocks
 cli       argparse surface and the stage-1 and stage-2 apps
 """
@@ -30,3 +30,9 @@ METRICS_NAME = ["AUC", "Recall", "Spec", "Prec"]
 CLASSES_NAME = ["DIAG", "PN", "BWV", "VS", "PIG", "STR", "DaG", "RS"]
 NUM_CLASSES = [5, 3, 2, 3, 3, 3, 3, 2]
 CLS_WEIGHTS = [2, 2, 1, 2, 2, 2, 2, 1]
+# one name a class, "DIAG-1" .. "RS-2", in the labels' order
+CLASSES_NAME_2 = [
+    f"{CLASSES_NAME[i]}-{j + 1}"
+    for i in range(len(CLASSES_NAME))
+    for j in range(NUM_CLASSES[i])
+]

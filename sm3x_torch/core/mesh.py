@@ -33,8 +33,6 @@ from typing import Any, Optional
 
 import torch
 
-from sm3x_torch.parallel.collectives import is_distributed, process_info
-
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -241,3 +239,9 @@ def batch_rows(rows: Optional[Rows]):
 
 def current_rows() -> Optional[Rows]:
     return getattr(_state, "rows", None)
+
+
+# imported last: sm3x_torch.parallel re-exports this module's names, so the
+# package may start from here and must find them defined
+from sm3x_torch.parallel.collectives import (  # noqa: E402
+    is_distributed, process_info)

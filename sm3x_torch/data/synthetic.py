@@ -1,5 +1,12 @@
-"""In-memory paired canvases for runs without a dataset (counterpart of
-sm3x/data/synthetic.py `synthetic_canvas_batch`, made with numpy alone).
+"""Synthetic data for runs without the Derm7pt images (counterpart of
+sm3x/data/synthetic.py, made with numpy, pandas and OpenCV alone).
+
+`make_fake_derm7pt` writes a dataset tree in the release's on-disk layout
+(meta.csv, the three index CSVs, images/); `render_label_texture` draws the
+label-correlated images of its `structured=True` trees and of
+tools/demo_synthetic_e2e_torch.py. Both make the same numpy random calls
+in the same order as the JAX package's functions, so one seed writes the
+same tree byte for byte.
 
 `synthetic_canvas_batch` draws the same canvases, valid sizes and labels as
 the JAX package's function for the same arguments. `SyntheticPairedData`
@@ -18,8 +25,11 @@ labels do not depend on them.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from sm3x_torch.data.derm7pt import GROUPED_SCHEMA, LABEL_ORD
 from sm3x_torch.data.pipeline import (Batch, PairedImageData,
                                       iter_batch_selections)
 
@@ -33,6 +43,98 @@ def synthetic_meta_codes(n: int, seed: int = 0,
     rng = np.random.default_rng([seed, 2])
     return np.stack([rng.integers(0, v, n) for v in vocab_sizes],
                     axis=1).astype(np.int32)
+
+
+def render_label_texture(rng: np.random.Generator, label, modality_shift: float,
+                         size: int) -> np.ndarray:
+    """A (size, size, 3) uint8 grey image whose luminance texture encodes
+    the 8 labels: a grating's orientation and three frequencies from
+    labels 0, 1, 3 and 4, a checkerboard where label 2 (BWV) is set. Each
+    parameter is jittered around its label's value, so instance
+    discrimination has to encode it, and texture survives the colour
+    augmentations of stage 1."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    phase = rng.uniform(0, 2 * np.pi, 4)
+    theta = np.pi * (label[0] + rng.uniform(0.1, 0.9)) / 5.0 + modality_shift
+    f1 = 6 + 3 * (label[1] + rng.uniform(0.1, 0.9))
+    f2 = 4 + 4 * (label[3] + rng.uniform(0.1, 0.9))
+    f3 = 5 + 5 * (label[4] + rng.uniform(0.1, 0.9))
+    u = xx * np.cos(theta) + yy * np.sin(theta)
+    tex = 0.5 * np.sin(2 * np.pi * f1 * u + phase[0])
+    tex += 0.4 * np.sin(2 * np.pi * f2 * yy + phase[1])
+    tex += 0.3 * np.sin(2 * np.pi * f3 * xx + phase[2])
+    if label[2]:  # BWV: a checkerboard
+        tex += rng.uniform(0.3, 0.5) * np.sign(
+            np.sin(2 * np.pi * 8 * xx + phase[3])
+            * np.sin(2 * np.pi * 8 * yy))
+    base = 128 + 55 * tex / 1.6
+    img = np.stack([base, base, base], axis=-1)
+    noise = rng.normal(0, 10, img.shape)
+    return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def make_fake_derm7pt(root: str, n_cases: int = 24, img_size: int = 160,
+                      seed: int = 0, splits=None, structured: bool = False,
+                      ext: str = "png") -> str:
+    """Write a synthetic Derm7pt tree under `root`: meta.csv,
+    {train,valid,test}_indexes.csv and images/case{i:04d}_{derm,clinic}.ext,
+    each image `img_size` +- 16 pixels a side. Returns `root`.
+
+    splits: (n_train, n_valid, n_test) summing to n_cases, e.g. the
+      release's (413, 203, 395); by default n/2, n/4 and the rest.
+    structured: `render_label_texture` images instead of uniform noise,
+      so that what SSL learns can be measured.
+    ext: the image container ("jpg" goes through the libjpeg loader where
+      it builds, OpenCV elsewhere)."""
+    import cv2
+    import pandas as pd
+
+    if splits is None:
+        n_tr, n_va = n_cases // 2, n_cases // 4
+    else:
+        n_tr, n_va, n_te = splits
+        if n_tr + n_va + n_te != n_cases:
+            raise ValueError(f"splits {splits} must sum to n_cases={n_cases}")
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+
+    rows = []
+    for i in range(n_cases):
+        row = {}
+        nums = []
+        for abbrev in LABEL_ORD:
+            cat = GROUPED_SCHEMA[abbrev]
+            lab = cat.labels[int(rng.integers(cat.n_classes))]
+            nums.append(lab.num)
+            names = (lab.names if isinstance(lab.names, (tuple, list))
+                     else (lab.names,))
+            row[cat.colname] = names[int(rng.integers(len(names)))]
+        for kind, shift in (("derm", 0.0), ("clinic", 0.07)):
+            h = img_size + int(rng.integers(-16, 16))
+            w = img_size + int(rng.integers(-16, 16))
+            if structured:
+                img = render_label_texture(rng, nums, shift,
+                                           max(h, w))[:h, :w]
+            else:
+                img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            rel = f"case{i:04d}_{kind}.{ext}"
+            cv2.imwrite(os.path.join(img_dir, rel), img)
+            row[kind] = rel
+        row.update({"elevation": "flat", "sex": "male", "location": "back"})
+        rows.append(row)
+
+    pd.DataFrame(rows).to_csv(os.path.join(root, "meta.csv"), index=False)
+    perm = rng.permutation(n_cases)
+    split_files = {
+        "train_indexes.csv": perm[:n_tr],
+        "valid_indexes.csv": perm[n_tr:n_tr + n_va],
+        "test_indexes.csv": perm[n_tr + n_va:],
+    }
+    for fname, idx in split_files.items():
+        pd.DataFrame({"indexes": idx}).to_csv(os.path.join(root, fname),
+                                              index=False)
+    return root
 
 
 def synthetic_canvas_batch(batch_size: int, canvas: int = 320, seed: int = 0):

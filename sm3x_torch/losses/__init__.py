@@ -1,12 +1,16 @@
 """Loss APIs of the port (counterpart of sm3x/losses/__init__.py): the
 stage-1 SSL loss assembly is in `sm3x_torch.losses.ssl`; the cluster
 cross-entropy of stage 2 and the per-label weighted cross-entropy of the
-supervised stages are here."""
+supervised stages are here, and NT-Xent is re-exported from
+`sm3x_torch.ops.ntxent`."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from sm3x_torch.ops.ntxent import (  # noqa: F401
+    grouped_ntxent_loss, ntxent_logits, ntxent_loss, ntxent_loss_from_logits)
 
 
 def cluster_ce(logits: torch.Tensor, assignments: torch.Tensor,

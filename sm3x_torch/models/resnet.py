@@ -19,6 +19,7 @@ running statistics alone.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
@@ -184,3 +185,16 @@ def build_resnet(arch: str, num_classes: Optional[int] = None,
 
 def feat_dim(arch: str) -> int:
     return FEAT_DIMS[arch]
+
+
+# torchvision-style constructors, as the reference looks an arch up by name
+resnet18 = partial(build_resnet, "resnet18")
+resnet34 = partial(build_resnet, "resnet34")
+resnet50 = partial(build_resnet, "resnet50")
+resnet101 = partial(build_resnet, "resnet101")
+resnet152 = partial(build_resnet, "resnet152")
+resnext50_32x4d = partial(build_resnet, "resnext50_32x4d")
+resnext101_32x8d = partial(build_resnet, "resnext101_32x8d")
+resnext101_64x4d = partial(build_resnet, "resnext101_64x4d")
+wide_resnet50_2 = partial(build_resnet, "wide_resnet50_2")
+wide_resnet101_2 = partial(build_resnet, "wide_resnet101_2")

@@ -97,3 +97,11 @@ def grouped_ntxent_loss(z1: torch.Tensor, z2: torch.Tensor,
     negatives), averaged over groups."""
     return ntxent_problems(group_problems(z1, z2, groups),
                            temperature)[0].mean()
+
+
+def ntxent_loss_from_logits(logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of `logits` (N, C) against integer `labels` (N,)
+    in at least float32: the loss of `ntxent_logits`' explicit layout."""
+    logp = torch.log_softmax(_at_least_f32(logits), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()

@@ -7,3 +7,4 @@ from sm3x_torch.parallel.collectives import (  # noqa: F401
     distributed_initialize, gather_list, gather_objects, gather_rows,
     gather_rows_autograd, group_info, host_gather, host_gather_tree,
     is_distributed, is_main_process, max_over_ranks, process_info, shutdown)
+from sm3x_torch.core.mesh import DATA_AXIS, MODEL_AXIS, make_mesh  # noqa: F401

@@ -16,6 +16,7 @@ key surgery and no conversion:
 from __future__ import annotations
 
 import re
+import shutil
 
 import torch
 
@@ -58,6 +59,11 @@ def load_encoder_state(path: str) -> dict:
     prefixes = tuple(f"{mod}.encoder." for mod in MODALITIES)
     return {k: v for k, v in load_state_dict_file(path).items()
             if k.startswith(prefixes)}
+
+
+def copy_best(src: str, dst: str) -> None:
+    """Copy a checkpoint file to `dst` (the `best_eval.pth` convention)."""
+    shutil.copyfile(src, dst)
 
 
 def export_backbone(state: dict) -> dict:

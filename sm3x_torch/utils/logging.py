@@ -1,6 +1,7 @@
 """The optional TensorBoard / wandb sink, the epoch summary table and the
 rate-limited log helpers (counterpart of sm3x/utils/logging.py; the logger
-itself is `sm3x_torch.utils.misc.setup_logger`).
+itself is `sm3x_torch.utils.misc.setup_logger`, re-exported here under the
+reference's module).
 
 `tensorboard` and `wandb` are optional packages. A `StatWriter` asked for
 one that cannot be imported or started says so once, through its logger,
@@ -14,6 +15,7 @@ import os
 import time
 from typing import Optional
 
+from sm3x_torch.utils.misc import setup_logger  # noqa: F401
 
 _LOG_COUNTS: dict = {}
 _LOG_TIMES: dict = {}

@@ -1,14 +1,18 @@
 """bench_torch.py, the port's headline benchmark, as far as a machine
 without a card can hold it: with `--device cpu` at a toy size (resnet18,
 56x56, 2 steps) it prints one JSON line with bench.py's keys and the
-port's beside them, the device's keys null; without a card and without
-that flag it exits non-zero with a message and prints no result."""
+port's beside them, the device's keys null, for stage 1 and for each
+`--stage`; without a card and without that flag it exits non-zero with a
+message and prints no result. And tools/bench_serve_soak_torch.py at a
+toy size prints its JSON line with the reference's keys."""
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,3 +55,46 @@ def test_bench_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     assert res.returncode != 0
     assert "runs on an NVIDIA GPU" in res.stderr
     assert res.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("stage", ["mlc_train", "mlc_eval", "backbone_eval"])
+def test_bench_prints_one_json_line_a_stage_on_the_cpu(tmp_path, stage):
+    res = _run(["4", "2", "resnet18", "--stage", stage, "--img-sz", "32",
+                "32", "--canvas", "48", "--device", "cpu"], str(tmp_path))
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 1, res.stdout
+    out = json.loads(lines[0])
+    assert out["metric"] == f"{stage}_images_per_sec_per_chip"
+    assert (out["stage"], out["batch"], out["steps"], out["arch"]) == (
+        stage, 4, 2, "resnet18")
+    assert out["value"] > 0 and 0 < out["step_ms_min"] <= out["step_ms"]
+    # one view a modality: 2 images a case
+    assert out["images_per_sec"] == pytest.approx(2 * 4 / out["step_ms"]
+                                                  * 1e3)
+    assert out["device"] == "cpu" and out["vs_baseline"] is None
+    assert out["device_busy_ms"] is None and out["peak_memory_gib"] is None
+    assert os.listdir(tmp_path) == []
+
+
+def test_serve_soak_prints_the_reference_s_keys_on_the_cpu(capsys):
+    spec = importlib.util.spec_from_file_location(
+        "bench_serve_soak_torch",
+        os.path.join(REPO, "tools", "bench_serve_soak_torch.py"))
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    out = soak.main(["--device", "cpu", "--arch", "resnet18", "--test-sz",
+                     "32", "--requests", "8", "--clients", "2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == out
+    for key in ("metric", "arch", "test_sz", "mlc_proj_dim", "sa_dim_ff",
+                "value", "requests", "clients", "burst_n",
+                "burst_coalesced_ms", "burst_serialized_ms",
+                "coalescing_ratio", "latency_ms_p50", "latency_ms_p99",
+                "device"):
+        assert key in out, key
+    assert out["metric"] == "serve_soak_cases_per_sec"
+    assert (out["requests"], out["clients"], out["burst_n"]) == (8, 2, 8)
+    assert out["value"] > 0 and out["coalescing_ratio"] > 0
+    assert 0 < out["latency_ms_p50"] <= out["latency_ms_p99"]
+    assert out["device"] == "cpu"

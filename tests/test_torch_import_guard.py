@@ -25,11 +25,13 @@ _PROBE = textwrap.dedent("""
     mods += ["chip_smoke", "bench_torch", "inference_torch"]
     for m in mods:
         importlib.import_module(m)
-    for path in sorted(glob.glob(os.path.join("tools", "*_torch.py"))):
+    for path in sorted(glob.glob(os.path.join("tools", "*_torch.py"))
+                       + glob.glob(os.path.join("tools", "misc",
+                                                "*_torch.py"))):
         name = os.path.splitext(os.path.basename(path))[0]
         spec = importlib.util.spec_from_file_location(name, path)
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
-        mods.append("tools/" + name)
+        mods.append(os.path.relpath(os.path.splitext(path)[0]))
     banned = ("sm3x", "jax", "flax", "optax")
     print(json.dumps({"modules": mods, "loaded": sorted(
         k for k in sys.modules
@@ -83,7 +85,12 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.data.multihost", "tools/dryrun_multigpu_torch",
               "sm3x_torch.models.trimodal", "sm3x_torch.models.layers",
               "sm3x_torch.train.transfer_probe",
-              "tools/transfer_probe_torch"):
+              "tools/transfer_probe_torch", "sm3x_torch.data.synthetic",
+              "sm3x_torch.cli", "sm3x_torch.core", "sm3x_torch.data",
+              "sm3x_torch.models", "sm3x_torch.native", "sm3x_torch.ops",
+              "sm3x_torch.train", "sm3x_torch.utils",
+              "tools/demo_synthetic_e2e_torch", "tools/misc/cal_mean_std_torch",
+              "tools/bench_serve_soak_torch", "tools/recipe_synthetic_torch"):
         assert m in res["modules"]
     assert res["loaded"] == [], (
         f"modules of the JAX package or of JAX loaded: {res['loaded']}")
@@ -98,6 +105,7 @@ def test_port_sources_name_no_module_of_the_jax_package():
     files = (glob.glob(os.path.join(ROOT, "sm3x_torch", "**", "*.py"),
                        recursive=True)
              + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
+             + glob.glob(os.path.join(ROOT, "tools", "misc", "*_torch.py"))
              + [os.path.join(ROOT, "chip_smoke.py"),
                 os.path.join(ROOT, "bench_torch.py"),
                 os.path.join(ROOT, "inference_torch.py")])
