@@ -2,10 +2,11 @@
 package's: `make_fake_derm7pt` writes the same tree byte for byte (plain
 and structured, PNG), the demo's `make_structured_dataset` draws the same
 canvases, labels and metadata codes, `cal_mean_std_torch` computes the
-reference's channel statistics, and the demo and the recipe summary run
-at a toy size."""
+reference's channel statistics, and the demo, the recipe summary and
+`tools/compare_ssl_loss.py` run at a toy size."""
 
 import importlib.util
+import json
 import math
 import os
 import re
@@ -137,6 +138,37 @@ def test_demo_runs_at_a_toy_size(tmp_path, capsys):
     assert all(math.isfinite(v) for v in res["ssl_losses"])
     assert set(res["seconds"]) == {"random-init probe", "ssl",
                                    "SSL-pretrained probe", "mlc", "eval"}
+
+
+def test_compare_ssl_loss_reports_the_seed_table_keys(tmp_path,
+                                                     monkeypatch, capsys):
+    tool = _load("tools/compare_ssl_loss.py", "compare_toy")
+    monkeypatch.setattr(tool, "DATA_N", 24)
+    monkeypatch.setattr(tool, "IMG_SZ", 32)
+    monkeypatch.setattr(tool, "BATCH", 8)
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # beside the suite's other workers
+    try:
+        out = tool.main(["torch", "3", "bf16", "--seed", "1", "--device",
+                         "cpu", "--log-path", str(tmp_path)])
+    finally:
+        torch.set_num_threads(threads)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert set(out) == {"package", "precision", "seed", "device",
+                        "cudnn_tf32", "at", "L10", "losses"}
+    assert (out["package"], out["precision"], out["seed"],
+            out["device"]) == ("torch", "bf16", 1, "cpu")
+    losses = out["losses"]
+    assert len(losses) == 3 and all(math.isfinite(v) for v in losses)
+    assert out["at"] == {"0": losses[0], "2": losses[2]}
+    assert out["L10"] == pytest.approx(sum(losses) / 3)
+    # the marks and L10 of a longer run
+    mark = tool.summarize([float(e) for e in range(200)])
+    assert mark == {"at": {"0": 0.0, "50": 50.0, "100": 100.0,
+                           "150": 150.0, "199": 199.0}, "L10": 194.5}
 
 
 def test_demo_refuses_a_bn_stat_freq_above_one(tmp_path):
