@@ -37,7 +37,9 @@ Phases, each printing its lines:
            one element, timed as `device_ms` (the bounds of K2f and K2b lie
            below what any launch costs, so their rows are read against it)
   step     one fp32 step of a small model on the card against the same step
-           on the CPU (plain versions), from the same weights and views
+           on the CPU (plain versions), from the same weights and views:
+           resnet18 at 64x64, then vit_t16 (--use-checkpoint flash, K3 in
+           float32) under multi-crop, 32x32 globals and 16x16 locals
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
            T 0.1, global batch 96, --world-size 2, lr 1e-6, AdamW eps 1e-5,
            bf16 autocast, 224x224) over in-memory synthetic canvases: per-step
@@ -87,20 +89,28 @@ Phases, each printing its lines:
            once a train batch (band), ms an epoch, AUC_AVG finite in [0, 1],
            peak memory
   infer    sm3x_torch.api on `eval`'s best_eval.pth: build_evaluator,
-           load_weights, predict_fn at batch 1 and 64 in float32, equal to
-           the trainer's eval step on the same images and to the same
-           forward on the CPU; latency a call
-  serve    sm3x_torch.serve.Predictor on `eval`'s best_eval.pth at the
-           defaults (two resnet50, 224x224, canvas 320, buckets 1 / 8 / 32 /
-           128, float32 with TF32 off): a CUDA graph a bucket in one memory
-           pool; requests of 1, 5, 8, 33 and 300 cases of raw uint8 images
-           against the eager forward on the same canvases, rows summing to
-           1, a padded request against the case alone, the 300 against its
-           chunks, one device-to-host copy a dispatch (torch.profiler),
-           latency at 1 / 8 / 32 / 128 cases, replay against eager; then
-           the HTTP server on 127.0.0.1: /healthz, /labels, 400, 413, 16
-           threads through the batcher, POST /predict where PIL or cv2 is
-           there, stop()
+           load_weights, predict_fn at batch 1 and 64, at the default bf16
+           (the encoders under bf16 autocast, the head float32, as the JAX
+           package's dtype=jnp.bfloat16) and in float32 (amp=False): float32
+           equal to the trainer's eval step on the same images and to the
+           same forward on the CPU, bf16 within BF16_LOGITS_REL /
+           BF16_PROB_ATOL of the eval step, and a planted fault (the head
+           in bf16 too) outside them; latency a call of each
+  serve    sm3x_torch.serve.Predictor on `eval`'s best_eval.pth (two
+           resnet50, 224x224, canvas 320, buckets 1 / 8 / 32 / 128, TF32
+           off), float32 (amp=False) and then at its default, bf16: a CUDA
+           graph a bucket in one memory pool, autocast's weight cache off
+           while capturing; requests of 1, 5, 8, 33 and 300 cases of raw
+           uint8 images against the eager forward on the same canvases,
+           rows summing to 1, latency at 1 / 8 / 32 / 128 cases and the
+           pool's size; a padded request against the case alone, the 300
+           against its chunks, one device-to-host copy a dispatch
+           (torch.profiler), and the HTTP server on 127.0.0.1: /healthz,
+           /labels, 400, 413, 16 threads through the batcher, POST /predict
+           where PIL or cv2 is there, stop(); each leg at its own bound
+           (SERVE_BATCH_TOL), over cases whose rows lie further apart
+           than it and the error read; then bf16 probabilities against
+           float32
   feed     `main`'s recipe over 1024 synthetic cases under --device-feed
            host, resident and prefetch from the same seed: 8 steps each with
            bit-identical batches and losses, K1 4 launches a step (band),
@@ -113,6 +123,12 @@ Phases, each printing its lines:
            --use-checkpoint flash): attention through K3 forward and
            backward, 48 launches of each a step, every one the tensor-core
            kernel; losses, launch counts, step time, images/s, peak memory
+  crop_vit `crop`'s recipe on `vit`'s model (vit_b16, batch 64, flash,
+           bf16): 3 steps through fit, K1 4 and K2 1 a step, K3 192 a step
+           (12 blocks x (4 global + 12 local passes)), 48 at S = 197 and
+           144 at S = 37, every one the tensor-core kernel; then K3 at the
+           step's two (B, S, H, D) in bf16 against its plain versions (the
+           times at both shapes are `kernels`')
   tri      --arch-version trimodal on vit_b16, batch 64, --use-checkpoint
            flash, the metadata vocabularies from the synthetic data's codes:
            3 steps through fit with `vit`'s launch counts (9 NT-Xent terms x
@@ -131,8 +147,14 @@ Phases, each printing its lines:
            leg B, two
            processes on the one card over gloo with CUDA tensors, one
            float32 step each at 48 rows against the one-process step, both
-           ranks' states identical; leg C, two NCCL ranks where two cards
-           are there
+           ranks' states identical, the global-batch BatchNorm against
+           F.batch_norm; leg D, two processes on the one card
+           over gloo, bf16: `crop`'s recipe (resnet50, global batch 96) and
+           `tri`'s (vit_b16 flash, global batch 64), 2 steps each through
+           fit against the one-process run (losses within 1.5e-2, Adam's
+           bound), both ranks' states identical, the launches, step times
+           and peak memory of each rank; leg C, two NCCL ranks where two
+           cards are there
   tp       tensor parallelism (--mesh-model 2): one-process runs of vit_b16
            stage 1 (v32, proj 128, global batch 32, 224x224, flash; 2 bf16
            steps and 1 float32 step through fit) and of one stage-2 step
@@ -158,8 +180,10 @@ Phases, each printing its lines:
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
-crop, tri, transfer, tp, learn)
+crop, crop_vit, tri, transfer, tp, learn, and serve: main, stage2 and eval
+for the weights, then infer and serve)
 only those phases run after device and build, and no result is printed.
+Each phase prints the seconds it took.
 
 With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
 also write the device-time tables of three traced steps to
@@ -177,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -770,12 +795,56 @@ def k2_at_path_shape(shape, path: str, tag: str, rng) -> dict:
     }
 
 
+def k3_against_plain(shape, dtype, rng, tag: str, what: str) -> tuple:
+    """K3f, K3b-dq and K3b-dkv at `shape` in `dtype` on seeded inputs
+    against the plain forward and backward at the [kernels] tolerances, the
+    lines under `[tag]`: ((q, k, v, do, out, lse, delta), {kernel name:
+    error})."""
+    from sm3x_torch.ops import attention as A3
+    from sm3x_torch.ops import attention_cuda as K3
+
+    scale = 1.0 / math.sqrt(shape[-1])
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).cuda().to(dtype)
+        for _ in range(4))
+    out_k, lse = K3.flash_forward_cuda(q, k, v, scale)
+    dq, delta = K3.flash_backward_dq_cuda(q, k, v, out_k, do, lse, scale)
+    dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = A3.attention_plain(*f[:3], scale)
+    grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p, scale)
+    name = str(dtype).replace("torch.", "")
+    log(f"[{tag}] K3 flash attention {shape} {name} ({what})")
+    errs = {}
+    if dtype == torch.float32:
+        errs["flash_fwd"] = check_close("K3f out", out_k, out_p, **K3F_TOL)
+        check_close("K3f lse", lse, lse_p, **K3F_TOL)
+        for key, got_g, want_g in zip(
+                ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                (dq, dk, dv), grads_p):
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"K3b {key[10:]}", got_g, want_g, **K3B_TOL))
+    else:
+        e = float((out_k.float() - out_p).abs().max())
+        rels = [float((got_g.float() - want_g).norm() / want_g.norm())
+                for got_g, want_g in zip((dq, dk, dv), grads_p)]
+        log(f"  K3f out (bf16): max abs err {e:.3e} against float32 "
+            f"(bound {K3_BF16_FWD}); K3b dq / dk / dv relative Frobenius "
+            f"err {[f'{r:.3e}' for r in rels]} (bound {K3_BF16_REL})")
+        if not (e < K3_BF16_FWD and max(rels) < K3_BF16_REL):
+            raise AssertionError(f"K3 in bf16 at {shape} disagrees")
+        check_close("K3f lse (bf16) against float32", lse, lse_p,
+                    **K3F_LSE_TOL)
+        errs = {"flash_fwd": e, "flash_bwd_dq": rels[0],
+                "flash_bwd_dkv": max(rels[1:])}
+    return (q, k, v, do, out_k, lse, delta), errs
+
+
 def k3_at_path_shape(shape, dtypes, path: str, tag: str, what: str,
                      rng) -> dict:
-    """K3f, K3b-dq and K3b-dkv at `shape` in each of `dtypes` against the
-    plain forward and backward at the [kernels] tolerances, with the times,
-    the bound and the library's attention of each: {kernel name: [rows]}
-    of `path`, the lines under `[tag]`."""
+    """k3_against_plain at `shape` in each of `dtypes`, with the bound, the
+    times and the library's attention of each: {kernel name: [rows]} of
+    `path`."""
     import torch.nn.functional as F
 
     from sm3x_torch.ops import attention as A3
@@ -786,41 +855,9 @@ def k3_at_path_shape(shape, dtypes, path: str, tag: str, what: str,
     scale = 1.0 / math.sqrt(d)
     qk_flops = 2 * b * h * s * s * d
     for dtype in dtypes:
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            shape, dtype=np.float32)).cuda().to(dtype)
-            for _ in range(4))
-        out_k, lse = K3.flash_forward_cuda(q, k, v, scale)
-        dq, delta = K3.flash_backward_dq_cuda(q, k, v, out_k, do, lse, scale)
-        dk, dv = K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
-        f = [t.float() for t in (q, k, v, do)]
-        out_p, lse_p = A3.attention_plain(*f[:3], scale)
-        grads_p = A3.attention_backward_plain(*f[:3], out_p, f[3], lse_p,
-                                              scale)
+        (q, k, v, do, out_k, lse, delta), errs = k3_against_plain(
+            shape, dtype, rng, tag, what)
         name = str(dtype).replace("torch.", "")
-        log(f"[{tag}] K3 flash attention {shape} {name} ({what})")
-        errs = {}
-        if dtype == torch.float32:
-            errs["flash_fwd"] = check_close("K3f out", out_k, out_p,
-                                            **K3F_TOL)
-            check_close("K3f lse", lse, lse_p, **K3F_TOL)
-            for key, got_g, want_g in zip(
-                    ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
-                    (dq, dk, dv), grads_p):
-                errs[key] = max(errs.get(key, 0.0), check_close(
-                    f"K3b {key[10:]}", got_g, want_g, **K3B_TOL))
-        else:
-            e = float((out_k.float() - out_p).abs().max())
-            rels = [float((got_g.float() - want_g).norm() / want_g.norm())
-                    for got_g, want_g in zip((dq, dk, dv), grads_p)]
-            log(f"  K3f out (bf16): max abs err {e:.3e} against float32 "
-                f"(bound {K3_BF16_FWD}); K3b dq / dk / dv relative Frobenius "
-                f"err {[f'{r:.3e}' for r in rels]} (bound {K3_BF16_REL})")
-            if not (e < K3_BF16_FWD and max(rels) < K3_BF16_REL):
-                raise AssertionError(f"K3 in bf16 at {shape} disagrees")
-            check_close("K3f lse (bf16) against float32", lse, lse_p,
-                        **K3F_LSE_TOL)
-            errs = {"flash_fwd": e, "flash_bwd_dq": rels[0],
-                    "flash_bwd_dkv": max(rels[1:])}
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         lib_in = [t.transpose(1, 2) for t in leaves]
         out_l = F.scaled_dot_product_attention(*lib_in, scale=scale)
@@ -851,10 +888,9 @@ def k3_at_path_shape(shape, dtypes, path: str, tag: str, what: str,
              bound(nbytes(q, k, v, do, stats, stats, k, v), 4 * qk_flops,
                    "bf16" if dtype == torch.bfloat16 else "f32")))
         for key, fn, plain, lib, bnd in rows:
-            out[key].append(timed(
-                dict(name=key, path=path, shape=list(shape),
-                     dtype=name, max_abs_err=errs[key], **bnd),
-                fn, plain, lib))
+            row = dict(name=key, path=path, shape=list(shape), dtype=name,
+                       max_abs_err=errs[key], **bnd)
+            out[key].append(timed(row, fn, plain, lib))
         del out_l, leaves, lib_in, lib_det
     return out
 
@@ -889,40 +925,37 @@ def k4_kernel() -> dict:
                                                         "f32"))
 
 
-def phase_step() -> None:
-    """One fp32 step of resnet18 / v32 at 64x64, batch 8, world size 2: the
-    CUDA path (kernels) against the CPU path (plain versions) on the same
-    weights and the same augmented views (made on the card with K1)."""
-    from sm3x_torch.models.simclr import build_ssl_model
-    from sm3x_torch.ops.augment import SSL_AUG, ssl_augment_batch
+def step_against_cpu(tag: str, arch: str, size: int, make_views,
+                     remat=False, local_weight: float = 1.0) -> None:
+    """One float32 step of `arch` / v32 (projection 32) at `size` x `size`,
+    batch 8, world size 2: the CUDA path (kernels) against the CPU path
+    (plain versions) on the same weights and the same views, which
+    `make_views(data)` makes on the card with K1: ((derm globals), (clinic
+    globals), (derm locals), (clinic locals)). Loss parts within rtol 1e-4
+    / atol 1e-5, parameters within 3 x lr."""
     from sm3x_torch.data.synthetic import SyntheticPairedData
+    from sm3x_torch.models.simclr import build_ssl_model
     from sm3x_torch.train.backbone_train import ssl_update
     from sm3x_torch.train.common import make_adamw
-    import dataclasses
 
     torch.manual_seed(0)
-    cpu_model, style = build_ssl_model("v32", "resnet18", 32)
-    gpu_model, _ = build_ssl_model("v32", "resnet18", 32)
+    cpu_model, style = build_ssl_model("v32", arch, 32, remat=remat,
+                                       img_size=size)
+    gpu_model, _ = build_ssl_model("v32", arch, 32, remat=remat,
+                                   img_size=size)
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model.cuda()
-    data = SyntheticPairedData(8, canvas=96, seed=4)
-    cfg = dataclasses.replace(SSL_AUG, out_size=(64, 64))
-    views = []
-    for k, (canv, hw) in enumerate(((data.derm, data.derm_hw),
-                                    (data.clinic, data.clinic_hw)) * 2):
-        gen = torch.Generator(device="cuda").manual_seed(10 + k)
-        views.append(ssl_augment_batch(gen, torch.from_numpy(canv).cuda(),
-                                       torch.from_numpy(hw).cuda(), MEAN,
-                                       STD, cfg))
-    d, c = (views[0], views[2]), (views[1], views[3])
+    views = make_views(SyntheticPairedData(8, canvas=96, seed=4))
     out = {}
     for name, model, dev in (("cpu", cpu_model, "cpu"),
                              ("cuda", gpu_model, "cuda")):
         opt = make_adamw(model.parameters(), 1e-3, 5e-2, eps=1e-5)
-        out[name] = ssl_update(model, opt, tuple(v.to(dev) for v in d),
-                               tuple(v.to(dev) for v in c), style, 0.1, 2)
-    log("[step] resnet18/v32 64x64 b8 fp32, one step, CUDA vs CPU")
-    for k in ("loss", "derm", "clinic", "cross"):
+        d, c, dl, cl = (tuple(v.to(dev) for v in group) for group in views)
+        out[name] = ssl_update(model, opt, d, c, style, 0.1, 2,
+                               derm_locals=dl, clinic_locals=cl,
+                               local_weight=local_weight)
+    log(f"[step] {tag}, one step, CUDA vs CPU")
+    for k in out["cpu"]:
         check_close(f"step {k}", out["cuda"][k], out["cpu"][k],
                     rtol=1e-4, atol=1e-5)
     worst = 0.0
@@ -934,6 +967,43 @@ def phase_step() -> None:
     log(f"  step params: max abs diff {worst:.3e} (bound 3 x lr = 3e-3)")
     if worst > 3e-3:
         raise AssertionError("parameters after one step disagree")
+
+
+def phase_step() -> None:
+    """resnet18 / v32 at 64x64 with two global views; then a ViT (vit_t16,
+    --use-checkpoint flash, so attention is K3 in float32 on the card)
+    under multi-crop: 32x32 globals and two 16x16 locals a modality, where
+    the locals' pos_embed is the 2 x 2 grid shrunk to 1 x 1."""
+    import dataclasses
+
+    from sm3x_torch.ops.augment import (SSL_AUG, multicrop_augment_batch,
+                                        ssl_augment_batch)
+
+    def two_views(data):
+        cfg = dataclasses.replace(SSL_AUG, out_size=(64, 64))
+        views = []
+        for k, (canv, hw) in enumerate(((data.derm, data.derm_hw),
+                                        (data.clinic, data.clinic_hw)) * 2):
+            gen = torch.Generator(device="cuda").manual_seed(10 + k)
+            views.append(ssl_augment_batch(
+                gen, torch.from_numpy(canv).cuda(),
+                torch.from_numpy(hw).cuda(), MEAN, STD, cfg))
+        return (views[0], views[2]), (views[1], views[3]), (), ()
+
+    def crops(data):
+        per = [multicrop_augment_batch(
+            20 + k, torch.from_numpy(canv).cuda(),
+            torch.from_numpy(hw).cuda(), MEAN, STD, size_crops=(32, 16),
+            nmb_crops=(2, 2)) for k, (canv, hw) in enumerate(
+                ((data.derm, data.derm_hw), (data.clinic, data.clinic_hw)))]
+        return (tuple(per[0][:2]), tuple(per[1][:2]), tuple(per[0][2:]),
+                tuple(per[1][2:]))
+
+    step_against_cpu("resnet18/v32 64x64 b8 fp32", "resnet18", 64,
+                     two_views)
+    step_against_cpu("vit_t16/v32 flash, multi-crop 2 x 32x32 + 2 x 16x16 "
+                     "a modality, b8 fp32", "vit_t16", 32, crops,
+                     remat="flash")
 
 
 def profile_steps(step, n: int, out_dir: str, name: str) -> dict:
@@ -981,6 +1051,8 @@ def reset_counters() -> None:
         fn.launches = 0
     for fn in k3 + counters[:1]:
         fn.variants = dict.fromkeys(fn.variants, 0)
+    for fn in k3:
+        fn.shapes = {}
 
 
 def timed_steps(steps) -> list:
@@ -1012,6 +1084,11 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
                                                             True, 1)
     cfg.data.img_sz, cfg.data.mean, cfg.data.std = (224, 224), MEAN, STD
     r.world_size, r.device, r.print_freq = 2, "cuda", 10 ** 6
+    if tag != "main":
+        # ckp_0.pth alone; [main] writes checkpoint.pth too. A call's
+        # machine takes 45 GiB of writes to its disk, deleted files
+        # included, and two ViT-B/16 with their moments are 2 GiB a file
+        r.ckpt_freq = 100
     r.log_path = os.path.join(LOGS, tag)
     shutil.rmtree(r.log_path, ignore_errors=True)
     return cfg
@@ -1019,14 +1096,15 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
               per_step: dict, profile_dir=None, profile_name=None,
-              tweak=None, busy: bool = False) -> dict:
+              tweak=None, busy: bool = False) -> tuple:
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
     steps through SSLTrainer.fit with every kernel count set to 0 just
     before and read just after (each must equal `per_step` x steps), then
     the step time over two more epochs and the loss's parts of the last of
     them. `tweak(cfg, data)` changes the recipe (the multi-crop and
     tri-modal phases); with `busy` the device's busy time of three traced
-    steps is printed too."""
+    steps is printed too. Returns the launches in fit by wrapper and each
+    K3 wrapper's by (B, S, H, D)."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -1048,6 +1126,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     variants = {fn.__name__: dict(fn.variants) for fn in k3}
+    shapes = {fn.__name__: dict(fn.shapes) for fn in k3}
     k1_variants = dict(K.photometric_cuda.variants)
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
@@ -1060,6 +1139,8 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     log(f"  K1 launches by kernel (band: one read and one write of each "
         f"image; scratch: the general-shape path): {k1_variants}")
     log(f"  K3 launches by kernel (fma float32, mma bf16): {variants}")
+    if launches["flash_forward_cuda"]:
+        log(f"  K3 launches by (B, S, H, D): {shapes}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
@@ -1072,8 +1153,21 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     # bf16 autocast: every K3 launch is a tensor-core kernel
     if any(v != {"fma": 0, "mma": launches[n]} for n, v in variants.items()):
         raise AssertionError(f"K3 kernels {variants}, expected mma only")
-    if not os.path.exists(os.path.join(r.log_path, "ckp_0.pth")):
-        raise AssertionError("fit wrote no ckp_0.pth")
+    written = sorted(f for f in os.listdir(r.log_path) if f.endswith(".pth"))
+    # [main] writes checkpoint.pth too, from ckp_0.pth's snapshot
+    want_files = ["ckp_0.pth"] + (["checkpoint.pth"] if r.ckpt_freq == 1
+                                  else [])
+    if written != sorted(want_files):
+        raise AssertionError(f"fit wrote {written}, expected {want_files}")
+    if r.ckpt_freq == 1:
+        a, b = (torch.load(os.path.join(r.log_path, f), weights_only=True,
+                           mmap=True) for f in want_files)
+        if a["epoch"] != b["epoch"] or not all(
+                torch.equal(a["state_dict"][k], v)
+                for k, v in b["state_dict"].items()):
+            raise AssertionError("checkpoint.pth differs from ckp_0.pth")
+        log("  fit wrote ckp_0.pth and checkpoint.pth from one snapshot: "
+            "the same epoch and weights")
 
     def device_batches(epoch):
         # the tri-modal step's metadata codes stay on the host
@@ -1116,7 +1210,7 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
                 f"{res['wall_ms']:.1f} ms on the host clock under the "
                 f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
                 f"busy), {res['launches']:.0f} kernels and copies a step")
-    return launches
+    return launches, shapes
 
 
 # kernel launches a step on each path, by wrapper
@@ -1128,14 +1222,14 @@ VIT_PER_STEP = dict(MAIN_PER_STEP, flash_forward_cuda=48,
 
 def phase_main(profile_dir=None) -> dict:
     return phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
-                     MAIN_PER_STEP, profile_dir, "profile_step.txt")
+                     MAIN_PER_STEP, profile_dir, "profile_step.txt")[0]
 
 
 def phase_vit(profile_dir=None) -> dict:
     """vit_b16 with --use-checkpoint flash: 12 blocks x 4 encoder passes
     give 48 launches of each K3 kernel a step."""
     return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
-                     VIT_PER_STEP, profile_dir, "profile_vit.txt")
+                     VIT_PER_STEP, profile_dir, "profile_vit.txt")[0]
 
 
 # multi-crop at the CLI defaults: globals 224 (scales 0.5-1), six locals of
@@ -1145,19 +1239,69 @@ CROP_PER_STEP = dict(MAIN_PER_STEP)
 TRI_STEPS, TRI_BATCH = 3, 64
 
 
-def phase_crop() -> dict:
-    """run.sh's stage 1 under --data-name SevenPCSwavDataset at the CLI's
-    multi-crop defaults: 2 x 224 and 6 x 96 views a modality, local weight
-    1.0; 16 NT-Xent terms in 2 groups, one K2 call a step."""
-    def tweak(cfg, data):
-        d = cfg.data
-        d.data_name = "SevenPCSwavDataset"
-        d.size_crops, d.nmb_crops = (224, 96), (2, 6)
-        d.min_scale_crops, d.max_scale_crops = (0.5, 0.14), (1.0, 0.5)
-        cfg.model.local_loss_weight = 1.0
+def crop_tweak(cfg, data) -> None:
+    """--data-name SevenPCSwavDataset at the CLI's multi-crop defaults: 2 x
+    224 and 6 x 96 views a modality, local weight 1.0."""
+    d = cfg.data
+    d.data_name = "SevenPCSwavDataset"
+    d.size_crops, d.nmb_crops = (224, 96), (2, 6)
+    d.min_scale_crops, d.max_scale_crops = (0.5, 0.14), (1.0, 0.5)
+    cfg.model.local_loss_weight = 1.0
 
+
+def tri_tweak(cfg, data) -> None:
+    """--arch-version trimodal, the metadata vocabularies from the
+    synthetic Derm7pt's codes."""
+    cfg.model.arch_version = "trimodal"
+    cfg.model.meta_vocab_sizes = tuple(data.meta_vocab_sizes)
+
+
+def phase_crop() -> dict:
+    """run.sh's stage 1 under the multi-crop recipe (crop_tweak); 16
+    NT-Xent terms in 2 groups, one K2 call a step."""
     return phase_fit("crop", "resnet50", MAIN_BATCH, CROP_STEPS, False,
-                     CROP_PER_STEP, tweak=tweak, busy=True)
+                     CROP_PER_STEP, tweak=crop_tweak, busy=True)[0]
+
+
+# [crop]'s recipe on [vit]'s model: each view is its own encoder pass (the
+# two globals of a modality, then its six locals one by one), so K3 runs 12
+# blocks x (4 global + 12 local passes) a step, at S = 197 (224 / 16 = 14
+# patches a side, and the class token) and S = 37 (96 / 16 = 6: the locals'
+# pos_embed is the 14 x 14 grid shrunk to 6 x 6); K1 and K2 as in [crop]
+VIT_CROP_STEPS = 3
+VIT_CROP_PASSES = {197: 4, 37: 12}
+VIT_CROP_PER_STEP = dict(
+    CROP_PER_STEP, **{name: 12 * sum(VIT_CROP_PASSES.values()) for name in
+                      ("flash_forward_cuda", "flash_backward_dq_cuda",
+                       "flash_backward_dkv_cuda")})
+
+
+def phase_crop_vit() -> tuple:
+    """[crop]'s recipe on vit_b16 with --use-checkpoint flash, batch 64, 3
+    steps through fit: the launch counts, K3's launches at each S, then K3
+    at the step's (B, S, H, D) in bf16 against its plain versions (timed
+    at both shapes in [kernels]): (the launches, {kernel name: [rows]})."""
+    launches, shapes = phase_fit("crop_vit", "vit_b16", VIT_BATCH,
+                                 VIT_CROP_STEPS, "flash", VIT_CROP_PER_STEP,
+                                 tweak=crop_tweak, busy=True)
+    for name, by_shape in shapes.items():
+        want = {(VIT_BATCH, s, 12, 64): 12 * n * VIT_CROP_STEPS
+                for s, n in VIT_CROP_PASSES.items()}
+        log(f"  {name}: {by_shape.get(VIT_SHAPE, 0)} launches at S = 197, "
+            f"{by_shape.get(K3_LOCAL_SHAPE, 0)} at S = 37")
+        if by_shape != want:
+            raise AssertionError(f"{name} by shape {by_shape}, expected "
+                                 f"{want}")
+    rows = {}
+    rng = np.random.default_rng(13)
+    for shape in sorted(shapes["flash_forward_cuda"]):
+        _, errs = k3_against_plain(shape, torch.bfloat16, rng, "crop_vit",
+                                   f"the step's S = {shape[1]}")
+        for key, err in errs.items():
+            rows.setdefault(key, []).append(dict(
+                name=key, path="crop_vit", shape=list(shape),
+                dtype="bfloat16", max_abs_err=err))
+    return launches, rows
 
 
 def phase_tri() -> dict:
@@ -1169,12 +1313,11 @@ def phase_tri() -> dict:
     sizes = []
 
     def tweak(cfg, data):
-        cfg.model.arch_version = "trimodal"
-        cfg.model.meta_vocab_sizes = tuple(data.meta_vocab_sizes)
+        tri_tweak(cfg, data)
         sizes.append(cfg.model.meta_vocab_sizes)
 
     launches = phase_fit("tri", "vit_b16", TRI_BATCH, TRI_STEPS, "flash",
-                         VIT_PER_STEP, tweak=tweak, busy=True)
+                         VIT_PER_STEP, tweak=tweak, busy=True)[0]
     ckpt = torch.load(os.path.join(LOGS, "tri", "ckp_0.pth"),
                       weights_only=True)
     model = TriModalSimCLR("vit_b16", 128, sizes[0], remat="flash",
@@ -1856,67 +1999,146 @@ def phase_probe(profile_dir=None) -> dict:
     return launches
 
 
-def phase_infer(reference: dict) -> None:
-    """The inference API on [eval]'s best_eval.pth, float32 with TF32 off:
-    against the trainer's eval step on the same images (`reference`, from
-    [eval]) and the same forward on the CPU, at batch 1 and 64; latency a
-    call."""
+# bf16 serving and inference (the encoders under bf16 autocast, the head in
+# float32) against the float32 forward of the same weights, on [eval]'s
+# model, whose heads lean on their biases: the encoders' bf16 rounding
+# reaches its logits at 2.5e-5 relative and its probabilities at 1.3e-4
+# (H100). A planted fault, the head run in bf16 too, reads 1.8e-3 to
+# 2.0e-3 and 9.2e-3 to 9.4e-3. Bounds between the two: the eight heads'
+# logits within 2e-4 relative (Frobenius), each probability within 1e-3;
+# [infer] plants the fault in every run and fails unless they catch it
+BF16_LOGITS_REL, BF16_PROB_ATOL = 2e-4, 1e-3
+
+
+def head_in_bf16(model, derm, clinic) -> list:
+    """The planted fault: `model`'s forward with its head under bf16
+    autocast too (a misplaced autocast region); the eight logits in
+    float32."""
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        return [t.float() for t in model(derm, clinic)[1]]
+
+
+def bf16_against_float32(logits16, logits32) -> tuple:
+    """(relative Frobenius error of the eight heads' logits, max abs error
+    of their probabilities) of a bf16 forward against the float32 one."""
+    a = torch.cat([t.float().cpu() for t in logits16], dim=-1)
+    b = torch.cat([t.float().cpu() for t in logits32], dim=-1)
+    rel = float((a - b).norm() / b.norm())
+    probs = [torch.softmax(t.float().cpu(), -1) - torch.softmax(
+        u.float().cpu(), -1) for t, u in zip(logits16, logits32)]
+    return rel, max(float(d.abs().max()) for d in probs)
+
+
+def phase_infer(reference: dict) -> dict:
+    """The inference API on [eval]'s best_eval.pth at the JAX package's
+    default, bf16 (`build_evaluator()`), and in float32 (`amp=False`, TF32
+    off): float32 against the trainer's eval step on the same images
+    (`reference`, from [eval]) and the same forward on the CPU, bf16
+    against the float32 eval step's logits, at batch 1 and 64; latency a
+    call of each."""
     from sm3x_torch import api
     from sm3x_torch.ops.augment import eval_resize_batch
 
     path, args = reference["path"], reference["canvases"]
-    model = api.load_weights(api.build_evaluator(), path, "cuda")
-    cpu_model = api.load_weights(api.build_evaluator(), path, "cpu")
-    predict, predict_cpu = api.predict_fn(model), api.predict_fn(cpu_model)
+    models = {"bf16": api.load_weights(api.build_evaluator(), path, "cuda"),
+              "float32": api.load_weights(api.build_evaluator(amp=False),
+                                          path, "cuda")}
+    if not models["bf16"].extractor.amp or models["float32"].extractor.amp:
+        raise AssertionError("build_evaluator() must default to bf16")
+    cpu_model = api.load_weights(api.build_evaluator(amp=False), path, "cpu")
+    predict = {k: api.predict_fn(m) for k, m in models.items()}
+    predict_cpu = api.predict_fn(cpu_model)
     counters, _ = kernel_counters()
     reset_counters()
     log("[infer] sm3x_torch.api on [eval]'s best_eval.pth: build_evaluator, "
-        "load_weights, predict_fn; float32 (TF32 off), NHWC float batches")
+        "load_weights, predict_fn on NHWC float batches; the default bf16 "
+        "(encoders under bf16 autocast, head float32) and amp=False "
+        "(float32, TF32 off)")
+    latency = {}
     for n in (1, 64):
         # the images the eval step makes of these canvases
         d = eval_resize_batch(args[0][:n], args[1][:n], MEAN, STD, (224, 224))
         c = eval_resize_batch(args[2][:n], args[3][:n], MEAN, STD, (224, 224))
-        got, want = predict(d, c), reference["logits"][n]
+        want = reference["logits"][n]
+        got = {k: fn(d, c) for k, fn in predict.items()}
         t0 = time.perf_counter()
         on_cpu = predict_cpu(d.cpu().numpy(), c.cpu().numpy())
         cpu_s = time.perf_counter() - t0
-        if len(got) != 8 or got[0].shape != (n, 5) or got[0].requires_grad:
-            raise AssertionError("predict_fn: eight logit tensors expected")
+        for k, out in got.items():
+            if (len(out) != 8 or out[0].shape != (n, 5)
+                    or out[0].requires_grad
+                    or out[0].dtype != torch.float32):
+                raise AssertionError(f"predict_fn ({k}): eight float32 "
+                                     f"logit tensors expected")
         for i in range(8):
-            check_close(f"batch {n}, label {i}, against the eval step",
-                        got[i], want[i], rtol=1e-5, atol=1e-5)
-            check_close(f"batch {n}, label {i}, against the CPU",
-                        got[i], on_cpu[i], rtol=1e-3, atol=1e-4)
-        call = lambda: predict(d, c)
-        host = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3)
-        log(f"  batch {n}: latency a call {statistics.median(host):.2f} ms "
-            f"on the host clock (median of 10, synchronised; min "
-            f"{min(host):.2f}), {device_ms(call, 20):.2f} ms device time (20 "
-            f"calls in a row); the same forward on the CPU {cpu_s:.2f} s")
+            check_close(f"batch {n}, label {i}, float32 against the eval "
+                        f"step", got["float32"][i], want[i], rtol=1e-5,
+                        atol=1e-5)
+            check_close(f"batch {n}, label {i}, float32 against the CPU",
+                        got["float32"][i], on_cpu[i], rtol=1e-3, atol=1e-4)
+        rel, prob = bf16_against_float32(got["bf16"], want)
+        log(f"  batch {n}: bf16 against the float32 eval step: logits "
+            f"{rel:.3e} relative (bound {BF16_LOGITS_REL:g}), probabilities "
+            f"max abs err {prob:.3e} (bound {BF16_PROB_ATOL:g})")
+        if not (rel <= BF16_LOGITS_REL and prob <= BF16_PROB_ATOL):
+            raise AssertionError(f"bf16 inference at batch {n} is off the "
+                                 f"float32 forward")
+        rel_f, prob_f = bf16_against_float32(
+            head_in_bf16(models["bf16"], d, c), want)
+        log(f"  batch {n}: a planted fault, the head in bf16 too: logits "
+            f"{rel_f:.3e} relative, probabilities max abs err {prob_f:.3e}")
+        if rel_f <= BF16_LOGITS_REL and prob_f <= BF16_PROB_ATOL:
+            raise AssertionError("the bf16 bounds let a bf16 head pass")
+        for k, fn in predict.items():
+            call = lambda fn=fn: fn(d, c)
+            host = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            dev = device_ms(call, 20)
+            latency[k, n] = dict(host_ms=statistics.median(host),
+                                 host_ms_min=min(host), device_ms=dev)
+            log(f"  batch {n}, {k}: latency a call "
+                f"{statistics.median(host):.2f} ms on the host clock (median "
+                f"of 10, synchronised; min {min(host):.2f}), {dev:.2f} ms "
+                f"device time (20 calls in a row)")
+        log(f"  batch {n}: the float32 forward on the CPU {cpu_s:.2f} s")
     if any(fn.launches for fn in counters):
         raise AssertionError("inference launches none of the kernels")
     log("  kernel launches at inference: none (no view is made)")
+    return latency
 
 
 # requests of raw images: the sizes of each call, and the buckets they take
 SERVE_REQUESTS = {1: [1], 5: [8], 8: [8], 33: [128], 300: [128, 128, 128]}
 SERVE_TOL = dict(rtol=1e-5, atol=1e-5)     # [infer]'s bound on its logits
-SERVE_BATCH_TOL = dict(rtol=1e-4, atol=1e-5)  # another batch size's programs
+# a case's probabilities in another batch size's programs, against the case
+# alone. float32 (TF32 off): summation order only. bf16: another batch
+# size's cuDNN algorithms round an entry the other way here and there; on
+# [eval]'s model that moves a probability by at most 3.0e-5 (H100, the
+# batcher's 16 cases in bucket 32 against bucket 1), so the bound is 1e-4.
+# Each check also holds its cases' rows apart by more than its bound plus
+# the error it read, so that a row given to the wrong case cannot pass
+SERVE_BATCH_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+                   "bf16": dict(rtol=0.0, atol=1e-4)}
 
 
 def raw_images(n: int, seed: int) -> list:
     """Random uint8 RGB images of mixed sizes that fit canvas 320 once the
-    25-pixel border is cropped (no resize on the host, so no decoder)."""
+    25-pixel border is cropped (no resize on the host, so no decoder): each
+    a colour of its own under noise of its own strength, so that the
+    model's outputs tell the cases apart (uniform noise looks alike to it)."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, 256, (int(rng.integers(100, 371)),
-                                  int(rng.integers(100, 371)), 3),
-                         dtype=np.uint8) for _ in range(n)]
+    out = []
+    for _ in range(n):
+        shape = (int(rng.integers(100, 371)), int(rng.integers(100, 371)), 3)
+        colour, noise = rng.uniform(0, 255, 3), rng.uniform(0, 96)
+        out.append(np.clip(colour + noise * rng.standard_normal(
+            shape, dtype=np.float32), 0, 255).astype(np.uint8))
+    return out
 
 
 def image_decoder():
@@ -1964,38 +2186,18 @@ def host_ms(fn, reps: int = 20) -> tuple:
     return statistics.median(times), min(times)
 
 
-def phase_serve(reference: dict) -> dict:
-    """The serving path on [eval]'s best_eval.pth: `Predictor` at its
-    defaults (a CUDA graph a bucket), then `PredictionServer`."""
-    import json as _json
-    import threading
-    import urllib.error
-    import urllib.request
+def describe_predictor(predictor, tag: str, held0: int, reserved0: int,
+                       built_s: float) -> float:
+    """The lines of a Predictor just built: its graphs, their memory pool
+    and what the device holds; returns the pool's GiB."""
+    from sm3x_torch import NUM_CLASSES
 
-    from sm3x_torch import CLASSES_NAME, NUM_CLASSES
-    from sm3x_torch.ops.augment import eval_resize_batch
-    from sm3x_torch.serve import FIELDS, Predictor
-    from sm3x_torch.serve_http import PredictionServer
-    from sm3x_torch.utils.timing import _profile, device_events
-
-    counters, _ = kernel_counters()
-    reset_counters()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    t0 = time.perf_counter()
-    predictor = Predictor.from_checkpoint(reference["path"], mean=MEAN,
-                                          std=STD, device="cuda")
-    torch.cuda.synchronize()
-    built_s = time.perf_counter() - t0
     gib = 2 ** 30
     weights = sum(p.numel() * p.element_size()
                   for p in predictor.model.state_dict().values())
-    log(f"[serve] sm3x_torch.serve.Predictor.from_checkpoint on [eval]'s "
-        f"best_eval.pth: two resnet50, 224x224, canvas {predictor.canvas}, "
-        f"crop {predictor.crop_amount}, buckets {predictor.buckets}, float32 "
-        f"(TF32 off); weights, warm-ups and captures in {built_s:.2f} s")
+    log(f"  {tag}: two resnet50, 224x224, canvas {predictor.canvas}, crop "
+        f"{predictor.crop_amount}, buckets {predictor.buckets}; weights, "
+        f"warm-ups and captures in {built_s:.2f} s")
     for b in predictor.buckets:
         g = predictor._graphs[b]
         log(f"  bucket {b}: one CUDA graph over static inputs "
@@ -2009,31 +2211,42 @@ def phase_serve(reference: dict) -> dict:
     segments = torch.cuda.memory_snapshot()
     in_pool = sum(s["total_size"] for s in segments
                   if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
-    log(f"  the graphs' memory pool holds {in_pool / gib:.2f} GiB of "
+    log(f"  {tag}: the graphs' memory pool holds {in_pool / gib:.2f} GiB of "
         f"segments (torch.cuda.memory_snapshot), the allocator's other "
         f"segments {(sum(s['total_size'] for s in segments) - in_pool) / gib:.2f}"
         f" GiB")
-    log(f"  device memory: {(torch.cuda.memory_allocated() - held0) / gib:.2f}"
+    log(f"  {tag}: device memory {(torch.cuda.memory_allocated() - held0) / gib:.2f}"
         f" GiB held by the weights ({weights / gib:.2f} GiB), the four "
         f"graphs' pool and the static buffers; peak while warming up and "
         f"capturing {(torch.cuda.max_memory_allocated() - held0) / gib:.2f} "
         f"GiB; reserved {(torch.cuda.memory_reserved() - reserved0) / gib:.2f}"
         f" GiB after the warm-ups' cache was given back")
+    return in_pool / gib
 
-    def eager_packed(arrays) -> torch.Tensor:
-        """The eager forward of [infer] on canvases as `_call` gets them:
-        eval_resize_batch, api.predict_fn's forward, a softmax a head."""
-        from sm3x_torch import api
 
-        derm, derm_hw, clinic, clinic_hw = (
-            torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
-        d = eval_resize_batch(derm, derm_hw, MEAN, STD, (224, 224))
-        c = eval_resize_batch(clinic, clinic_hw, MEAN, STD, (224, 224))
-        logits = api.predict_fn(predictor.model)(d, c)
-        return torch.cat([torch.softmax(p.float(), dim=-1) for p in logits],
-                         dim=-1)
+def eager_packed(predictor, arrays) -> torch.Tensor:
+    """[infer]'s eager forward of `predictor.model` on canvases as `_call`
+    gets them: eval_resize_batch, api.predict_fn's forward, a softmax a
+    head."""
+    from sm3x_torch import api
+    from sm3x_torch.ops.augment import eval_resize_batch
 
-    # every dispatch of the requests below, as `_call` saw it
+    derm, derm_hw, clinic, clinic_hw = (
+        torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+    d = eval_resize_batch(derm, derm_hw, MEAN, STD, (224, 224))
+    c = eval_resize_batch(clinic, clinic_hw, MEAN, STD, (224, 224))
+    logits = api.predict_fn(predictor.model)(d, c)
+    return torch.cat([torch.softmax(p.float(), dim=-1) for p in logits],
+                     dim=-1)
+
+
+def serve_requests(predictor, sizes, tag: str) -> dict:
+    """Requests of `sizes` cases of raw images through `predict`, each
+    dispatch against the eager forward on the same canvases at SERVE_TOL,
+    the buckets each took as SERVE_REQUESTS says, rows summing to 1:
+    {n: (derm, clinic, outputs)}."""
+    from sm3x_torch import NUM_CLASSES
+
     seen = []
     call = predictor._call
 
@@ -2044,68 +2257,45 @@ def phase_serve(reference: dict) -> dict:
 
     predictor._call = spy
     results = {}
-    for n, want_buckets in SERVE_REQUESTS.items():
-        derm, clinic = raw_images(n, 100 + n), raw_images(n, 200 + n)
-        seen.clear()
-        out = predictor.predict(derm, clinic)
-        results[n] = (derm, clinic, out)
-        took = [b for b, _, _ in seen]
-        if took != want_buckets:
-            raise AssertionError(f"{n} cases took buckets {took}, expected "
-                                 f"{want_buckets}")
-        if [p.shape for p in out] != [(n, c) for c in NUM_CLASSES]:
-            raise AssertionError(f"{n} cases: shapes {[p.shape for p in out]}")
-        sums = np.stack([p.sum(axis=-1) for p in out])
-        if not (np.isfinite(sums).all() and np.abs(sums - 1).max() < 1e-5):
-            raise AssertionError(f"{n} cases: rows do not sum to 1")
-        worst = 0.0
-        for k, (b, arrays, packed) in enumerate(seen):
-            worst = max(worst, check_close(
-                f"{n} cases, dispatch {k} (bucket {b}): graph against the "
-                f"eager forward on the same canvases",
-                torch.from_numpy(packed), eager_packed(arrays), **SERVE_TOL))
-        log(f"  {n} cases -> buckets {took}; rows sum to 1 within "
-            f"{np.abs(sums - 1).max():.1e}; max abs err {worst:.3e}")
-    del predictor._call
+    try:
+        for n in sizes:
+            want_buckets = SERVE_REQUESTS[n]
+            derm, clinic = raw_images(n, 100 + n), raw_images(n, 200 + n)
+            seen.clear()
+            out = predictor.predict(derm, clinic)
+            results[n] = (derm, clinic, out)
+            took = [b for b, _, _ in seen]
+            if took != want_buckets:
+                raise AssertionError(f"{n} cases took buckets {took}, "
+                                     f"expected {want_buckets}")
+            if [p.shape for p in out] != [(n, c) for c in NUM_CLASSES]:
+                raise AssertionError(f"{n} cases: shapes "
+                                     f"{[p.shape for p in out]}")
+            sums = np.stack([p.sum(axis=-1) for p in out])
+            if not (np.isfinite(sums).all()
+                    and np.abs(sums - 1).max() < 1e-5):
+                raise AssertionError(f"{n} cases: rows do not sum to 1")
+            worst = 0.0
+            for k, (b, arrays, packed) in enumerate(seen):
+                worst = max(worst, check_close(
+                    f"{tag}, {n} cases, dispatch {k} (bucket {b}): graph "
+                    f"against the eager forward on the same canvases",
+                    torch.from_numpy(packed),
+                    eager_packed(predictor, arrays), **SERVE_TOL))
+            log(f"  {tag}: {n} cases -> buckets {took}; rows sum to 1 "
+                f"within {np.abs(sums - 1).max():.1e}; graph against eager "
+                f"max abs err {worst:.3e}")
+    finally:
+        del predictor._call
+    return results
 
-    # a padded request against the same case alone (bucket 8 against 1)
-    derm, clinic, out5 = results[5]
-    alone = predictor.predict(derm[2:3], clinic[2:3])
-    check_close("case 2 of the 5-case request against the case alone",
-                torch.from_numpy(np.concatenate([p[2:3] for p in out5], -1)),
-                torch.from_numpy(np.concatenate(alone, -1)), **SERVE_BATCH_TOL)
-    # the 300 cases against their chunks of 128
-    derm, clinic, out300 = results[300]
-    chunks = [predictor.predict(derm[s:s + 128], clinic[s:s + 128])
-              for s in (0, 128, 256)]
-    joined = [np.concatenate([c[h] for c in chunks]) for h in range(8)]
-    same = all(np.array_equal(a, b) for a, b in zip(out300, joined))
-    log(f"  300 cases against their chunks of 128, 128 and 44: identical "
-        f"bits {same}")
-    if not same:
-        raise AssertionError("a chunked request differs from its chunks")
 
-    # copies of a dispatch under the profiler, over three dispatches
-    derm, clinic, _ = results[5]
-    predictor.predict(derm, clinic)
-    n_prof = 3
-    prof, _ = _profile(lambda _: predictor.predict(derm, clinic), n_prof)
-    rows, _field = device_events(prof)
-    d2h = sum(e.count for e in rows if "memcpy dtoh" in e.key.lower())
-    h2d = sum(e.count for e in rows if "memcpy htod" in e.key.lower())
-    kernels = sum(e.count for e in rows if "memcpy" not in e.key.lower()
-                  and "memset" not in e.key.lower())
-    log(f"  {n_prof} dispatches of 5 cases under torch.profiler: {d2h} "
-        f"device-to-host copies (one a dispatch), {h2d} host-to-device "
-        f"copies (four a dispatch queued; the profiler does not always "
-        f"report the first ones of its window), {kernels / n_prof:.0f} "
-        f"kernels a graph")
-    if d2h != n_prof or h2d > 4 * n_prof:
-        raise AssertionError(f"{n_prof} dispatches made {d2h} device-to-host "
-                             f"and {h2d} host-to-device copies, expected "
-                             f"{n_prof} and at most {4 * n_prof}")
+def serve_latency(predictor, tag: str) -> dict:
+    """Latency at 1 / 8 / 32 / 128 cases: the whole predict call, the
+    upload + replay + fetch, the eager forward; the device's busy time of
+    each."""
+    from sm3x_torch.ops.augment import eval_resize_batch
 
-    # latency: the whole predict call, the replay alone, the eager forward
     serve_ms = {}
     for n in (1, 8, 32, 128):
         derm, clinic = raw_images(n, 300 + n), raw_images(n, 400 + n)
@@ -2136,18 +2326,98 @@ def phase_serve(reference: dict) -> dict:
                            eager_busy_ms=busy_e["busy_ms"],
                            replay_launches=busy_g["launches"],
                            eager_launches=busy_e["launches"])
-        log(f"  {n} cases, latency a call on the host clock (median of 20, "
-            f"min): predict {whole[0]:.2f} / {whole[1]:.2f} ms (crop and "
-            f"letterbox on the host included); upload + graph replay + fetch "
-            f"{replay[0]:.2f} / {replay[1]:.2f} ms, device busy "
+        log(f"  {tag}, {n} cases, latency a call on the host clock (median "
+            f"of 20, min): predict {whole[0]:.2f} / {whole[1]:.2f} ms (crop "
+            f"and letterbox on the host included); upload + graph replay + "
+            f"fetch {replay[0]:.2f} / {replay[1]:.2f} ms, device busy "
             f"{busy_g['busy_ms']:.2f} ms in {busy_g['launches']:.0f} kernels "
             f"and copies; eager forward + fetch, canvases already on the "
             f"card, {plain[0]:.2f} / {plain[1]:.2f} ms, device busy "
             f"{busy_e['busy_ms']:.2f} ms in {busy_e['launches']:.0f}")
+    return serve_ms
+
+
+def least_gap(rows) -> float:
+    """The least max-abs distance between two of `rows` (packed
+    probabilities, a case each)."""
+    rows = [np.asarray(r, dtype=np.float64).ravel() for r in rows]
+    return min(float(np.abs(a - b).max())
+               for i, a in enumerate(rows) for b in rows[i + 1:])
+
+
+def rows_apart(what: str, rows, tol: dict, err: float) -> None:
+    """Fails unless every two of `rows` are further apart than `tol`'s
+    bound on a probability plus `err`, the error its check read: a row of
+    another case, off its own by about `err`, then fails the check."""
+    gap, reach = least_gap(rows), tol["atol"] + tol["rtol"] + err
+    log(f"  {what}: the least distance between two cases' rows {gap:.3e} "
+        f"(must exceed the bound plus the error read, {reach:.3e})")
+    if not gap > reach:
+        raise AssertionError(f"{what}: the cases' rows are too alike for "
+                             f"the check to tell them apart")
+
+
+def serve_batching(predictor, results: dict, tag: str) -> None:
+    """On a Predictor that served `results` (serve_requests): a padded
+    request against the case alone and the 300 cases against their chunks
+    at SERVE_BATCH_TOL[tag], one device-to-host copy a dispatch
+    (torch.profiler), then the HTTP server on 127.0.0.1: /healthz, /labels,
+    400, 404, 413, 16 threads through the batcher and POST /predict (where
+    PIL or cv2 is there) against a direct predict of each case, stop()."""
+    import json as _json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sm3x_torch import CLASSES_NAME, NUM_CLASSES
+    from sm3x_torch.serve_http import PredictionServer
+    from sm3x_torch.utils.timing import _profile, device_events
+
+    tol = SERVE_BATCH_TOL[tag]
+    # a padded request against the same case alone (bucket 8 against 1)
+    derm, clinic, out5 = results[5]
+    alone = predictor.predict(derm[2:3], clinic[2:3])
+    err = check_close(f"{tag}, case 2 of the 5-case request against the "
+                      f"case alone", torch.from_numpy(np.concatenate(
+                          [p[2:3] for p in out5], -1)),
+                      torch.from_numpy(np.concatenate(alone, -1)), **tol)
+    rows_apart(f"{tag}, the 5-case request", np.concatenate(out5, -1), tol,
+               err)
+    # the 300 cases against their chunks of 128
+    derm, clinic, out300 = results[300]
+    chunks = [predictor.predict(derm[s:s + 128], clinic[s:s + 128])
+              for s in (0, 128, 256)]
+    joined = [np.concatenate([c[h] for c in chunks]) for h in range(8)]
+    same = all(np.array_equal(a, b) for a, b in zip(out300, joined))
+    log(f"  {tag}: 300 cases against their chunks of 128, 128 and 44: "
+        f"identical bits {same}")
+    if not same:
+        raise AssertionError("a chunked request differs from its chunks")
+
+    # copies of a dispatch under the profiler, over three dispatches
+    derm, clinic, _ = results[5]
+    predictor.predict(derm, clinic)
+    n_prof = 3
+    prof, _ = _profile(lambda _: predictor.predict(derm, clinic), n_prof)
+    rows, _field = device_events(prof)
+    d2h = sum(e.count for e in rows if "memcpy dtoh" in e.key.lower())
+    h2d = sum(e.count for e in rows if "memcpy htod" in e.key.lower())
+    kernels = sum(e.count for e in rows if "memcpy" not in e.key.lower()
+                  and "memset" not in e.key.lower())
+    log(f"  {tag}: {n_prof} dispatches of 5 cases under torch.profiler: "
+        f"{d2h} device-to-host copies (one a dispatch), {h2d} host-to-device "
+        f"copies (four a dispatch queued; the profiler does not always "
+        f"report the first ones of its window), {kernels / n_prof:.0f} "
+        f"kernels a graph")
+    if d2h != n_prof or h2d > 4 * n_prof:
+        raise AssertionError(f"{n_prof} dispatches made {d2h} device-to-host "
+                             f"and {h2d} host-to-device copies, expected "
+                             f"{n_prof} and at most {4 * n_prof}")
 
     # the HTTP server
     decoder = image_decoder()
-    log(f"  image decoder on this machine: {decoder or 'neither PIL nor cv2'}")
+    log(f"  {tag}: image decoder on this machine: "
+        f"{decoder or 'neither PIL nor cv2'}")
     dispatched = []
     direct_predict = predictor.predict
 
@@ -2179,9 +2449,9 @@ def phase_serve(reference: dict) -> dict:
         big = status(f"http://127.0.0.1:{capped.port}/predict",
                      _json.dumps({"cases": [{"derm": "x" * 4096,
                                              "clinic": "x" * 4096}]}).encode())
-        log(f"  server on 127.0.0.1:{server.port}: /healthz {health}, /labels "
-            f"{labels[0]}, a malformed body {bad[0]}, an unknown path "
-            f"{missing[0]}, a body over a 1 KiB cap {big[0]}")
+        log(f"  {tag}: server on 127.0.0.1:{server.port}: /healthz {health}, "
+            f"/labels {labels[0]}, a malformed body {bad[0]}, an unknown "
+            f"path {missing[0]}, a body over a 1 KiB cap {big[0]}")
         if (health != (200, {"status": "ok", "labels": 8})
                 or labels != (200, {"labels": list(CLASSES_NAME),
                                     "num_classes": list(NUM_CLASSES)})
@@ -2213,23 +2483,26 @@ def phase_serve(reference: dict) -> dict:
             t.join(120)
         if errors or any(g is None for g in got):
             raise AssertionError(f"batched callers failed: {errors[:3]}")
-        worst = 0.0
+        worst, err = 0.0, 0.0
         for i in range(n_callers):
             a = np.concatenate(got[i], -1)
             b = np.concatenate(want[i], -1)
             if a.shape != b.shape:
                 raise AssertionError(f"caller {i} got {a.shape}")
-            bound_ = SERVE_BATCH_TOL["atol"] + SERVE_BATCH_TOL["rtol"] * np.abs(b)
-            worst = max(worst, float((np.abs(a - b) / bound_).max()))
-        log(f"  {n_callers} threads through the batcher at once: "
+            err = max(err, float(np.abs(a - b).max()))
+            worst = max(worst, float((np.abs(a - b) / (
+                tol["atol"] + tol["rtol"] * np.abs(b))).max()))
+        log(f"  {tag}: {n_callers} threads through the batcher at once: "
             f"{len(dispatched)} dispatches of {dispatched} cases; each "
-            f"caller's rows against a direct predict of its case, worst "
-            f"err/bound {worst:.3f} (rtol {SERVE_BATCH_TOL['rtol']:g}, atol "
-            f"{SERVE_BATCH_TOL['atol']:g})")
+            f"caller's rows against a direct predict of its case, max abs "
+            f"err {err:.3e}, worst err/bound {worst:.3f} (rtol "
+            f"{tol['rtol']:g}, atol {tol['atol']:g})")
         if worst > 1.0 or sum(dispatched) != n_callers \
                 or not len(dispatched) < n_callers:
             raise AssertionError("the batcher must give every caller its own "
                                  "rows in fewer dispatches than callers")
+        rows_apart(f"{tag}, the {n_callers} callers' cases",
+                   [np.concatenate(w, -1) for w in want], tol, err)
 
         if decoder:
             import base64
@@ -2245,16 +2518,16 @@ def phase_serve(reference: dict) -> dict:
                 raise AssertionError(f"POST /predict: {code} {body}")
             png = np.concatenate([body["predictions"][0][name]
                                   for name in CLASSES_NAME])
-            check_close("POST /predict, the PNG case against a direct "
-                        "predict (lossless)", torch.from_numpy(png),
+            check_close(f"{tag}, POST /predict, the PNG case against a "
+                        f"direct predict (lossless)", torch.from_numpy(png),
                         torch.from_numpy(np.concatenate(want[0], -1)[0]),
-                        **SERVE_BATCH_TOL)
+                        **tol)
             jpg = body["predictions"][1]
             if set(jpg) != set(CLASSES_NAME) or not all(
                     abs(sum(v) - 1) < 1e-4 for v in jpg.values()):
                 raise AssertionError("POST /predict: the JPEG case's rows")
-            log("  POST /predict with a PNG and a JPEG case: 200, eight named "
-                "rows a case, each summing to 1")
+            log(f"  {tag}: POST /predict with a PNG and a JPEG case: 200, "
+                f"eight named rows a case, each summing to 1")
         else:
             log("  POST /predict with encoded images: not run here (no "
                 "encoder to make the bodies); the CPU tests hold the round "
@@ -2270,15 +2543,77 @@ def phase_serve(reference: dict) -> dict:
         batcher.predict(derm[:1], clinic[:1])
         raise AssertionError("a stopped batcher took a request")
     except RuntimeError as e:
-        log(f"  stop() returned, no handler left waiting; a later request "
-            f"is refused: {e}")
+        log(f"  {tag}: stop() returned, no handler left waiting; a later "
+            f"request is refused: {e}")
+
+
+def phase_serve(reference: dict) -> dict:
+    """The serving path on [eval]'s best_eval.pth: `Predictor` (a CUDA graph
+    a bucket) in float32 (`amp=False`), then at its default, bf16
+    (`from_checkpoint`): each against its eager forward, serve_batching at
+    its tolerance, bf16 against float32."""
+    from sm3x_torch import api
+    from sm3x_torch.serve import Predictor
+
+    counters, _ = kernel_counters()
+    reset_counters()
+    log("[serve] sm3x_torch.serve.Predictor on [eval]'s best_eval.pth: "
+        "float32 (amp=False, TF32 off), then the default, bf16 (the encoders "
+        "under bf16 autocast, the head and softmax float32)")
+    pool, latency, outputs = {}, {}, {}
+    for tag in ("float32", "bf16"):
+        t_leg = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        if tag == "bf16":
+            predictor = Predictor.from_checkpoint(reference["path"], mean=MEAN,
+                                                  std=STD, device="cuda")
+            if not predictor.model.extractor.amp:
+                raise AssertionError("Predictor.from_checkpoint must serve "
+                                     "bf16 by default")
+        else:
+            predictor = Predictor(api.load_weights(
+                api.build_evaluator(amp=False), reference["path"], "cuda"),
+                MEAN, STD)
+        torch.cuda.synchronize()
+        pool[tag] = describe_predictor(predictor, tag, held0, reserved0,
+                                       time.perf_counter() - t0)
+        outputs[tag] = serve_requests(predictor, tuple(SERVE_REQUESTS), tag)
+        latency[tag] = serve_latency(predictor, tag)
+        t_batching = time.perf_counter()
+        serve_batching(predictor, outputs[tag], tag)
+        log(f"  {tag}: the leg took {time.perf_counter() - t_leg:.1f} s, "
+            f"serve_batching {time.perf_counter() - t_batching:.1f} s of it")
+        del predictor
+        gc.collect()    # the server's reference cycles hold the graphs
+    for n in SERVE_REQUESTS:
+        a = np.concatenate(outputs["bf16"][n][2], -1)
+        b = np.concatenate(outputs["float32"][n][2], -1)
+        err = float(np.abs(a - b).max())
+        log(f"  {n} cases: bf16 probabilities against float32 max abs err "
+            f"{err:.3e} (bound {BF16_PROB_ATOL:g})")
+        if not err <= BF16_PROB_ATOL:
+            raise AssertionError("bf16 serving is off the float32 forward")
+    for n in (1, 8, 32, 128):
+        log(f"  {n} cases, bf16 against float32: predict "
+            f"{latency['bf16'][n]['predict_ms']:.2f} against "
+            f"{latency['float32'][n]['predict_ms']:.2f} ms, upload + replay "
+            f"+ fetch {latency['bf16'][n]['replay_ms']:.2f} against "
+            f"{latency['float32'][n]['replay_ms']:.2f} ms, replay busy "
+            f"{latency['bf16'][n]['replay_busy_ms']:.2f} against "
+            f"{latency['float32'][n]['replay_busy_ms']:.2f} ms")
+    log(f"  the graphs' pool: bf16 {pool['bf16']:.2f} GiB against float32 "
+        f"{pool['float32']:.2f} GiB")
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  kernel launches while serving: {launches} (no view is made)")
     if any(launches.values()):
         raise AssertionError("serving launches none of the kernels")
-    del predictor, server, capped
     torch.cuda.empty_cache()
-    return dict(launches=launches, latency=serve_ms)
+    return dict(launches=launches, latency=latency, pool_gib=pool)
 
 
 FEED_CASES, FEED_STEPS = 1024, 8
@@ -2901,7 +3236,7 @@ def phase_dist(profile_dir=None) -> dict:
     del one, ddp, runs
     torch.cuda.empty_cache()
 
-    def worker_results(res, leg):
+    def worker_results(res, leg) -> list:
         out = []
         for r, (rc, text) in enumerate(res):
             line = [ln for ln in text.splitlines()
@@ -2918,33 +3253,65 @@ def phase_dist(profile_dir=None) -> dict:
         if len({got["digest"] for got in out}) != 1:
             raise AssertionError(f"{leg}: the ranks' states differ")
         log(f"  {leg}: both ranks' states identical bit for bit")
+        return out
 
     env = dict(os.environ, PYTHONPATH=ROOT)
-    cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker"]
+
+    def worker(backend: str, legs: str) -> list:
+        return [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                backend, "--dist-legs", legs]
+
     t = time.perf_counter()
     log("[dist] leg B: two processes on this card over gloo with CUDA "
         f"tensors, one float32 step of the same recipe at "
         f"{MAIN_BATCH // 2} rows a rank against the one-process step; the "
         f"global-batch BatchNorm against F.batch_norm on the whole batch")
-    worker_results(launch_local(cmd + ["gloo"], 2, 400, env=env, cwd=ROOT),
-                   "leg B")
+    worker_results(launch_local(worker("gloo", "main"), 2, 400, env=env,
+                                cwd=ROOT), "leg B")
     log(f"  leg B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log(f"[dist] leg D: two processes on this card over gloo with CUDA "
+        f"tensors, bf16 autocast: [crop]'s recipe (resnet50, global batch "
+        f"{MAIN_BATCH}) and [tri]'s (vit_b16 flash, global batch "
+        f"{TRI_BATCH}), {DIST_RECIPES['crop'][-1]} steps each through fit, "
+        f"against the one-process run of the same seed and views (rank 0 "
+        f"runs it first)")
+    legd = worker_results(launch_local(worker("gloo", "crop,tri"), 2, 900,
+                                       env=env, cwd=ROOT), "leg D")
+    log(f"  leg D: {time.perf_counter() - t:.1f} s")
     if torch.cuda.device_count() >= 2:
         log("[dist] leg C: two NCCL ranks, a card each")
-        worker_results(launch_local(cmd + ["nccl"], 2, 400, env=env,
-                                    cwd=ROOT), "leg C")
+        worker_results(launch_local(worker("nccl", "main"), 2, 400,
+                                    env=env, cwd=ROOT), "leg C")
     else:
         log(f"[dist] leg C: needs two cards, this machine has "
             f"{torch.cuda.device_count()}; not run")
     log(f"  [dist] took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, legd[0]["launches"]
 
 
-def dist_worker(backend: str) -> int:
-    """A rank of [dist]'s leg B (gloo, both ranks on card 0) or leg C
-    (NCCL, a card each): one float32 step in one process first, then the
-    same step as this rank of two, then bn_world_check; one DIST_WORKER
-    line with the results."""
+# the recipes of [dist]'s two-rank legs: name -> (encoder, global batch,
+# --use-checkpoint, recipe tweak, launches a step, bf16 autocast, steps).
+# Legs B and C: [main]'s, one float32 step. Leg D: [crop]'s and [tri]'s,
+# 2 steps each (3 in [crop] and [tri]: the collectives copy every gradient
+# through the host, ~690 MB a step for two ViT-B/16)
+DIST_RECIPES = {"main": ("resnet50", MAIN_BATCH, False, None, MAIN_PER_STEP,
+                         False, 1),
+                "crop": ("resnet50", MAIN_BATCH, False, crop_tweak,
+                         CROP_PER_STEP, True, 2),
+                "tri": ("vit_b16", TRI_BATCH, "flash", tri_tweak,
+                        VIT_PER_STEP, True, 2)}
+
+
+def dist_worker(backend: str, legs: list) -> int:
+    """A rank of [dist]'s leg B (gloo, both ranks on card 0), leg C (NCCL,
+    a card each) or leg D (gloo), running the DIST_RECIPES named in `legs`:
+    a one-process run of each first (every rank of [main]'s, rank 0 alone
+    of the others); then both run it as the two ranks, every count set to
+    0 just before fit, and a rank that made the one-process run holds its
+    run against it (dist_check); after [main]'s recipe both ranks run
+    bn_world_check. One DIST_WORKER line with the results, the
+    launches of each run, its steps' times and the rank's peak memory."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.parallel import collectives as C
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -2955,29 +3322,72 @@ def dist_worker(backend: str) -> int:
     rank = int(os.environ["RANK"])
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    data = synthetic_paired_data(MAIN_BATCH, canvas=320, seed=0)
-    one = SSLTrainer(dist_cfg(f"dist_one_{backend}_r{rank}", False))
-    one_losses = one.fit(data)[0]["step_losses"]
+
+    def make(name: str, run: str):
+        arch, batch, remat, tweak, _, amp, steps = DIST_RECIPES[name]
+        data = synthetic_paired_data(batch * steps, canvas=320, seed=0)
+        cfg = stage1_cfg(f"dist_{name}_{backend}_{run}_r{rank}", arch, batch,
+                         remat)
+        cfg.optim.amp = amp
+        if tweak is not None:
+            tweak(cfg, data)
+        return SSLTrainer(cfg), data
+
+    one = {}
+    for name in legs:
+        # rank 1 waits in distributed_initialize while rank 0 runs leg D's:
+        # a ViT-B/16 pair's checkpoint is 2 GiB of the machine's 45 GiB of
+        # disk writes a call
+        if rank == 0 or name == "main":
+            tr, data = make(name, "one")
+            one[name] = tr, tr.fit(data)[0]["step_losses"]
     C.distributed_initialize(backend=backend)
-    trainer = SSLTrainer(dist_cfg(f"dist_two_{backend}_r{rank}", False))
     counters, _ = kernel_counters()
-    reset_counters()
-    t = time.perf_counter()
-    hist = trainer.fit(data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = {fn.__name__: fn.launches for fn in counters}
-    lines = []
-    ok = dist_check(f"{backend} rank {rank}", one, one_losses, trainer,
-                    hist[0]["step_losses"], "float32", say=lines.append)
-    want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) for fn in counters}
-    lines.append(f"kernel launches in the step at {MAIN_BATCH // 2} rows: "
-                 f"{launches}; fit {wall:.2f} s")
-    del one
-    ok &= bn_world_check(lines.append)
+    lines, ok, digests, launches = [], True, [], {}
+    for name in legs:
+        arch, batch, _, _, per_step, amp, steps = DIST_RECIPES[name]
+        trainer, data = make(name, "two")
+        step = trainer.train_step
+        times = []
+
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        trainer.train_step = timed_step
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        hist = trainer.fit(data)
+        torch.cuda.synchronize()
+        launches[name] = {fn.__name__: fn.launches for fn in counters}
+        want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
+                for fn in counters}
+        ok &= launches[name] == want
+        lines.append(
+            f"{name} ({arch}, global batch {batch}, {batch // 2} rows a "
+            f"rank, {'bf16' if amp else 'float32'}): kernel launches in fit "
+            f"{launches[name]} (expected {want}); steps "
+            f"{[round(t, 1) for t in times]} ms (host clock, synchronised; "
+            f"the first with its warm-ups); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on this "
+            f"rank")
+        if name in one:
+            ok &= dist_check(f"{name} rank {rank} against one process",
+                             *one.pop(name), trainer,
+                             hist[0]["step_losses"],
+                             "bf16" if amp else "float32", say=lines.append)
+        digests.append(state_digest(trainer.model))
+        del trainer
+        torch.cuda.empty_cache()
+        if name == "main":
+            ok &= bn_world_check(lines.append)
     print("DIST_WORKER " + json.dumps({
-        "rank": rank, "lines": lines, "ok": bool(ok and launches == want),
-        "digest": state_digest(trainer.model)}), flush=True)
+        "rank": rank, "lines": lines, "ok": bool(ok),
+        "digest": "".join(digests), "launches": launches}), flush=True)
     C.shutdown()
     return 0
 
@@ -2997,7 +3407,6 @@ def tp_cfg(tag: str, amp: bool, model: int, log_dir: str):
     cfg = stage1_cfg(tag, "vit_b16", TP_BATCH, "flash")
     cfg.optim.amp = amp
     cfg.run.mesh_model, cfg.run.log_path = model, log_dir
-    cfg.run.ckpt_freq = 100   # ckp_0.pth alone
     return cfg
 
 
@@ -3261,6 +3670,16 @@ def phase_copy() -> dict:
     return {"copy_cuda": C.copy_cuda.launches}
 
 
+def phase_serving() -> None:
+    """`--only serve`: [main], [stage2] and [eval] for the weights, then
+    [infer] and [serve] on them."""
+    phase_main()
+    phase_stage2()
+    reference = phase_eval()[1]
+    phase_infer(reference)
+    phase_serve(reference)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
@@ -3272,61 +3691,74 @@ def main(argv=None) -> int:
                    "build (a quick check; the full run takes every phase)")
     p.add_argument("--dist-worker", metavar="BACKEND", default=None,
                    help=argparse.SUPPRESS)
+    p.add_argument("--dist-legs", metavar="RECIPES", default="main",
+                   help=argparse.SUPPRESS)
     p.add_argument("--tp-worker", metavar="BACKEND", default=None,
                    help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
     if args.dist_worker:
-        return dist_worker(args.dist_worker)
+        return dist_worker(args.dist_worker, args.dist_legs.split(","))
     if args.tp_worker:
         return tp_worker(args.tp_worker)
 
-    smi = phase_device()
+    seconds = {}
+
+    def run(name, fn, *a):
+        """fn(*a), its seconds logged; the allocator's cache given back
+        after it."""
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"[{name}] phase took {seconds[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    smi = run("device", phase_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    run("build", phase_build)
     if args.only:
         alone = {"kernels": phase_kernels, "step": phase_step,
                  "main": lambda: phase_main(args.profile), "feed": phase_feed,
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
-                 "crop": phase_crop, "tri": phase_tri,
-                 "transfer": phase_transfer, "tp": phase_tp,
-                 "learn": phase_learn}
+                 "crop": phase_crop, "crop_vit": phase_crop_vit,
+                 "tri": phase_tri, "transfer": phase_transfer,
+                 "tp": phase_tp, "learn": phase_learn,
+                 "serve": phase_serving}
         for name in args.only.split(","):
-            alone[name]()
+            run(name, alone[name])
         log(f"[only] {args.only}: done (a partial run prints no result)")
         return 0
-    kernels, floor = phase_kernels()
-    phase_step()
-    launches = phase_main(args.profile)
-    torch.cuda.empty_cache()
-    crop_launches = phase_crop()
-    torch.cuda.empty_cache()
-    feed = phase_feed()
-    stage2_launches = phase_stage2(args.profile)
-    eval_launches, eval_reference = phase_eval(args.profile)
-    probe_launches = phase_probe(args.profile)
-    transfer_launches = phase_transfer()
-    phase_infer(eval_reference)
-    serve = phase_serve(eval_reference)
+    kernels, floor = run("kernels", phase_kernels)
+    run("step", phase_step)
+    launches = run("main", phase_main, args.profile)
+    crop_launches = run("crop", phase_crop)
+    feed = run("feed", phase_feed)
+    stage2_launches = run("stage2", phase_stage2, args.profile)
+    eval_launches, eval_reference = run("eval", phase_eval, args.profile)
+    probe_launches = run("probe", phase_probe, args.profile)
+    transfer_launches = run("transfer", phase_transfer)
+    run("infer", phase_infer, eval_reference)
+    serve = run("serve", phase_serve, eval_reference)
     del eval_reference
-    torch.cuda.empty_cache()
-    vit_launches = phase_vit(args.profile)
-    torch.cuda.empty_cache()
-    tri_launches = phase_tri()
-    torch.cuda.empty_cache()
-    dist_launches = phase_dist(args.profile)
-    torch.cuda.empty_cache()
-    tp = phase_tp()
+    vit_launches = run("vit", phase_vit, args.profile)
+    crop_vit_launches, crop_vit_rows = run("crop_vit", phase_crop_vit)
+    for key, rows in crop_vit_rows.items():
+        kernels[key]["path_shapes"] += rows
+    tri_launches = run("tri", phase_tri)
+    dist_launches, recipe_launches = run("dist", phase_dist, args.profile)
+    tp = run("tp", phase_tp)
     for key, rows in tp["k3"].items():
         kernels[key]["path_shapes"] += rows
-    torch.cuda.empty_cache()
-    learn_launches, learn_rows = phase_learn()
+    learn_launches, learn_rows = run("learn", phase_learn)
     for key, rows in learn_rows.items():
         kernels[key]["path_shapes"] += rows
-    copy_launches = phase_copy()
+    copy_launches = run("copy", phase_copy)
+    log(f"[time] seconds a phase: {seconds}; in all "
+        f"{sum(seconds.values()):.1f} s")
     for mod in ("jax", "sm3x"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -3365,7 +3797,10 @@ def main(argv=None) -> int:
                  launches_dist=dist_launches[counter],
                  launches_tp=tp["launches"][counter],
                  launches_crop=crop_launches[counter],
+                 launches_crop_vit=crop_vit_launches[counter],
                  launches_tri=tri_launches[counter],
+                 launches_dist_crop=recipe_launches["crop"][counter],
+                 launches_dist_tri=recipe_launches["tri"][counter],
                  launches_transfer=transfer_launches[counter],
                  launches_learn=learn_launches[counter],
                  launches_feed={f: feed[f]["launches"][counter]
@@ -3380,7 +3815,10 @@ def main(argv=None) -> int:
                      "dist": MAIN_PER_STEP.get(counter, 0),
                      "tp": TP_PER_STEP.get(counter, 0),
                      "crop": CROP_PER_STEP.get(counter, 0),
+                     "crop_vit": VIT_CROP_PER_STEP.get(counter, 0),
                      "tri": VIT_PER_STEP.get(counter, 0),
+                     "dist_crop": CROP_PER_STEP.get(counter, 0),
+                     "dist_tri": VIT_PER_STEP.get(counter, 0),
                      "transfer": int(counter == "photometric_cuda")},
                  **kernels[name])
             for name, (src, rep, counter, counts) in meta.items()]

@@ -5,7 +5,8 @@ inference.py).
 Rebuilds the released SM3 model (dual ResNet-50 extractor, 8 per-label
 projectors, 1 transformer-encoder mixing layer, 8 prototype heads), loads
 `best_linear.pth` / `best_finetune.pth` (or a `best_eval.pth` of the port's
-eval stage) strictly, and runs a dummy forward on the GPU:
+eval stage) strictly, and runs a dummy forward on the GPU, the encoders in
+bf16 as the JAX package's script runs them:
 
     python inference_torch.py [best_finetune.pth] [--device cuda]
 """

@@ -6,7 +6,10 @@
     preds = predict_fn(model)(derm, clinic)         # 8 logit tensors
 
 `predict_fn` takes NHWC float batches, as the reference does, and runs an
-`eval()`, `inference_mode` forward on the device the weights are on.
+`eval()`, `inference_mode` forward on the device the weights are on. As in
+the JAX package (`dtype=jnp.bfloat16`), the encoders run in bf16 by default
+(`amp=True`: bf16 autocast) and the head in float32; `amp=False` runs the
+whole model in float32.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from sm3x_torch.utils.checkpoint import load_pretrained_state
 
 def build_evaluator(arch="resnet50", mlc_proj_dim=512, num_labels=8,
                     l2_norm=False, num_heads=1, sa_dim_ff=128, sa_dropout=0.1,
-                    amp=False, img_size=224) -> MLCModel:
+                    amp=True, img_size=224) -> MLCModel:
     """The released configuration: dual extractor, v4 projectors, one
-    transformer layer, prototype heads with a bias."""
+    transformer layer, prototype heads with a bias; the encoders under bf16
+    autocast unless `amp=False`."""
     return MLCModel(
         arch=arch, proj_dim=mlc_proj_dim, num_labels=num_labels,
         mlc_proj="v4", l2_norm=l2_norm, n_heads=num_heads,

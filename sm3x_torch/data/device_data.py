@@ -46,7 +46,7 @@ class DeviceData:
         return self._host.epoch_order(epoch, seed, shuffle)
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
-                shuffle: bool = True) -> Iterator[Batch]:
+                shuffle: bool = True, pad: str = "wrap") -> Iterator[Batch]:
         order = self.epoch_order(epoch, seed, shuffle)
         rows = slice(None)
         if self.local:

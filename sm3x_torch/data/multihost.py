@@ -60,7 +60,7 @@ class LocalRows:
         return self._host.epoch_order(epoch, seed, shuffle)
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
-                shuffle: bool = True) -> Iterator[Batch]:
+                shuffle: bool = True, pad: str = "wrap") -> Iterator[Batch]:
         host = self._host
         rows = local_batch_rows(current_mesh(), batch_size)
         if not (isinstance(host, PairedImageData)

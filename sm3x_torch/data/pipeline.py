@@ -184,9 +184,10 @@ class PairedImageData:
         return idx
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
-                shuffle: bool = True):
+                shuffle: bool = True, pad: str = "wrap"):
         """Yield fixed-size Batches; see iter_batch_selections for the
-        padding."""
+        padding. `pad` is the JAX package's parameter, whose one mode,
+        "wrap", is the padding there is; every feed takes it."""
         order = self.epoch_order(epoch, seed, shuffle)
         for sel, mask in iter_batch_selections(order, batch_size):
             yield Batch(

@@ -186,7 +186,7 @@ class PrefetchData:
             for f in DEVICE_FIELDS}), None
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
-                shuffle: bool = True) -> Iterator[Batch]:
+                shuffle: bool = True, pad: str = "wrap") -> Iterator[Batch]:
         on_card = self.device.type == "cuda"
         if on_card and self._ring is None:
             self._ring = _PinnedRing(self.depth + 1, self.device)

@@ -93,7 +93,7 @@ class StreamingPairedData:
         )
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
-                shuffle: bool = True):
+                shuffle: bool = True, pad: str = "wrap"):
         from sm3x_torch.data.prefetch import iter_with_producer
 
         order = self.epoch_order(epoch, seed, shuffle)

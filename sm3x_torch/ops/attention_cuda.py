@@ -71,8 +71,11 @@ def _check_rows_aligned(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _count(fn, q: torch.Tensor) -> None:
+    """One launch of `fn`'s kernel: its count, by kernel and by
+    (B, S, H, D)."""
     fn.launches += 1
     fn.variants["mma" if q.dtype == torch.bfloat16 else "fma"] += 1
+    fn.shapes[tuple(q.shape)] = fn.shapes.get(tuple(q.shape), 0) + 1
 
 
 def _rowstats(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
@@ -112,6 +115,7 @@ def flash_forward_cuda(q, k, v, scale: float):
 
 flash_forward_cuda.launches = 0
 flash_forward_cuda.variants = {"fma": 0, "mma": 0}
+flash_forward_cuda.shapes = {}
 
 
 def flash_backward_dq_cuda(q, k, v, out, dout, lse, scale: float):
@@ -133,6 +137,7 @@ def flash_backward_dq_cuda(q, k, v, out, dout, lse, scale: float):
 
 flash_backward_dq_cuda.launches = 0
 flash_backward_dq_cuda.variants = {"fma": 0, "mma": 0}
+flash_backward_dq_cuda.shapes = {}
 
 
 def flash_backward_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
@@ -156,3 +161,4 @@ def flash_backward_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
 
 flash_backward_dkv_cuda.launches = 0
 flash_backward_dkv_cuda.variants = {"fma": 0, "mma": 0}
+flash_backward_dkv_cuda.shapes = {}

@@ -16,8 +16,13 @@ and two (b, 2) int32 sizes) with one static output. The graphs share one
 memory pool and the largest bucket is captured first, so together they hold
 about what the largest needs. The eight heads leave the device as one packed
 (b, sum C_i) float32 tensor in one transfer, softmax inside the graph. The
-graph is the only path there: a capture that fails raises. The arithmetic
-is float32 with TF32 off, at capture and so at every replay.
+graph is the only path there: a capture that fails raises. The encoders
+run under bf16 autocast where the model was built with `amp` (the default of
+`sm3x_torch.api.build_evaluator`, as the JAX package serves in bf16); the
+head, the softmax and a model built with `amp=False` run in float32 with
+TF32 off, at capture and so at every replay. Autocast's cache of cast
+weights is off in the forward, so no cast made in a warm-up outlives it
+into a capture: each graph holds its own casts.
 
 On the CPU (`device="cpu"`, the tests) the same forward runs eagerly under
 `inference_mode`; there is no graph.
@@ -114,6 +119,13 @@ class BucketedPredictor:
         return [np.asarray(p)[:n] for p in preds]
 
 
+def _no_autocast_cache(device: torch.device):
+    """Autocast's weight-cast cache off for everything inside: an autocast
+    region opened within (the encoders') inherits the setting. Autocast
+    itself stays off here, so the head runs in float32."""
+    return torch.autocast(device.type, enabled=False, cache_enabled=False)
+
+
 @contextlib.contextmanager
 def _tf32_off():
     saved = (torch.backends.cuda.matmul.allow_tf32,
@@ -145,7 +157,8 @@ class _BucketGraph:
         self.pinned = {k: torch.zeros(shape, dtype=dt, pin_memory=True)
                        for k, (shape, dt) in shapes.items()}
         args = [self.static[k] for k in FIELDS]
-        # warm-up on a side stream: lazy initialisation and the choice of
+        # warm-up on a side stream, the same (bf16 or float32) forward as
+        # the capture's: lazy initialisation and cuDNN's choice of
         # algorithms must not fall into the capture
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -189,7 +202,8 @@ class Predictor(BucketedPredictor):
         """Canvases and sizes on the device -> the packed (b, sum C_i)
         float32 probabilities."""
         size = (self.test_sz, self.test_sz)
-        with torch.inference_mode(), _tf32_off():
+        with (torch.inference_mode(), _tf32_off(),
+              _no_autocast_cache(self.device)):
             d = eval_resize_batch(derm, derm_hw, self.mean, self.std, size)
             c = eval_resize_batch(clinic, clinic_hw, self.mean, self.std,
                                   size)

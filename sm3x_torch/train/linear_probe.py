@@ -36,12 +36,13 @@ from sm3x_torch.utils.misc import setup_logger
 
 
 class LinearProbe:
-    """Probe a frozen `extract_feats` with one linear head a label.
-    `classes_name` / `cls_weights` default to the Derm7pt 8-label schema."""
+    """Probe a frozen `extract_feats` with one linear head a label, on the
+    card unless `device` says otherwise. `classes_name` / `cls_weights`
+    default to the Derm7pt 8-label schema."""
 
     def __init__(self, feat_dim: int, ft_lr: float = 1e-3, wd: float = 5e-2,
                  num_classes=tuple(NUM_CLASSES), seed: int = 3407,
-                 device="cpu", classes_name=None, cls_weights=None):
+                 device="cuda", classes_name=None, cls_weights=None):
         self.device = torch.device(device)
         self.seed = seed
         self.num_classes = tuple(num_classes)
@@ -73,10 +74,12 @@ class LinearProbe:
 
     def run(self, extract_feats, train_data, val_data, batch_size: int,
             epochs: int = 50, label_weights=(1.0,) * 8, seed: int = 3407,
-            logger=None) -> dict:
+            logger=None, train_aug=PROBE_AUG) -> dict:
         """`extract_feats(batch, seed, train)` -> (b, feat_dim) frozen
         features of this rank's rows of the batch (all B on one process)
-        on the probe's device. Returns the best val stats."""
+        on the probe's device. Returns the best val stats. `train_aug` is
+        taken and unused, as in the JAX package: `extract_feats` makes the
+        views (`make_ssl_extract_fn(..., train_aug)`)."""
         logger = logger or setup_logger(None, "sm3x_torch.probe")
         rows = local_rows(batch_size)
         best = None

@@ -45,6 +45,7 @@ import time
 
 import torch
 
+from sm3x_torch import NUM_CLASSES
 from sm3x_torch.core import prng
 from sm3x_torch.core.mesh import batch_rows, data_group
 from sm3x_torch.data.prefetch import to_device, wrap_from_config
@@ -170,7 +171,7 @@ def make_embed_step(model, mean, std, aug_cfg, joint_aug: bool = False,
 
 @torch.no_grad()
 def cluster_and_update(seed: int, bank: torch.Tensor, model,
-                       num_classes, iters: int = 10,
+                       num_classes=tuple(NUM_CLASSES), iters: int = 10,
                        init_idx=None) -> torch.Tensor:
     """Spherical k-means a label, on `bank[i % heads]` with
     `num_classes[i]` clusters; the centroids are copied into

@@ -19,11 +19,13 @@ import numpy as np
 import torch
 
 
-def increment_path(path, sep: str = "_") -> Path:
-    """runs/exp -> runs/exp, runs/exp_2, runs/exp_3, ...; makes the
-    directory."""
+def increment_path(path, exist_ok: bool = False, sep: str = "_",
+                   mkdir: bool = True) -> Path:
+    """runs/exp -> runs/exp, runs/exp_2, runs/exp_3, ...; `path` itself
+    where it is free or `exist_ok`. With `mkdir` makes the directory (the
+    path's parent where it has a suffix)."""
     path = Path(path)
-    if path.exists():
+    if path.exists() and not exist_ok:
         suffix = path.suffix
         stem_path = path.with_suffix("")
         nums = []
@@ -33,7 +35,8 @@ def increment_path(path, sep: str = "_") -> Path:
                 nums.append(int(m.group(1)))
         path = Path(f"{stem_path}{sep}{max(nums) + 1 if nums else 2}{suffix}")
     directory = path if path.suffix == "" else path.parent
-    directory.mkdir(parents=True, exist_ok=True)
+    if mkdir:
+        directory.mkdir(parents=True, exist_ok=True)
     return path
 
 
@@ -58,6 +61,9 @@ class AverageMeter:
     def __init__(self, name: str, fmt: str = ":f"):
         self.name = name
         self.fmt = fmt
+        self.reset()
+
+    def reset(self):
         self.val = self.avg = self.sum = 0.0
         self.count = 0
 

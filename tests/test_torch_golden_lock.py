@@ -110,7 +110,7 @@ def test_both_key_forms_load_to_the_same_model(golden):
     assert not any(k.startswith("module.")
                    for k in load_state_dict_file(golden["pth"]))
     models = [api.load_weights(api.build_evaluator(
-        "resnet18", mlc_proj_dim=32, sa_dim_ff=16), path, "cpu")
+        "resnet18", mlc_proj_dim=32, sa_dim_ff=16, amp=False), path, "cpu")
         for path in (golden["pth"], golden["stripped"])]
     a, b = (m.state_dict() for m in models)
     assert all(torch.equal(a[k], b[k]) for k in a)
@@ -120,7 +120,8 @@ def test_predict_fn_gives_the_oracle_s_logits(golden):
     """NHWC float batches in, eight logit tensors out, from an eval-mode
     forward without a graph; the oracle takes the same images as NCHW."""
     model = api.load_weights(api.build_evaluator(
-        "resnet18", mlc_proj_dim=32, sa_dim_ff=16), golden["pth"], "cpu")
+        "resnet18", mlc_proj_dim=32, sa_dim_ff=16, amp=False), golden["pth"],
+        "cpu")
     rng = np.random.default_rng(5)
     derm, clinic = (rng.standard_normal((3, 64, 64, 3)).astype(np.float32)
                     for _ in range(2))
@@ -138,4 +139,5 @@ def test_predict_fn_gives_the_oracle_s_logits(golden):
 def test_a_wrong_shape_fails_the_strict_load(golden):
     with pytest.raises(RuntimeError, match="size mismatch"):
         api.load_weights(api.build_evaluator(
-            "resnet18", mlc_proj_dim=64, sa_dim_ff=16), golden["pth"], "cpu")
+            "resnet18", mlc_proj_dim=64, sa_dim_ff=16, amp=False),
+            golden["pth"], "cpu")

@@ -58,15 +58,14 @@ def _views():
     return glob, loc
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _jax_multicrop(arch: str, remat=False):
     """Initial weights, then the JAX package's multi-crop forward, loss and
     one AdamW step in float64: (init state dict, views, outputs, loss,
     parts, state dict after the step)."""
     glob, loc = _views()
     with jax.enable_x64(True):
-        jm = JaxSimCLRSkinV3(arch="resnet18", proj_dim=16, dtype=jnp.float64,
-                             shared_cross_proj=False)
+        jm = JaxSimCLRSkinV3(arch=arch, proj_dim=16, dtype=jnp.float64,
+                             shared_cross_proj=False, remat=remat)
         x = jnp.zeros((2, SIZE, SIZE, 3), jnp.float64)
         v = jm.init(jax.random.key(0), (x, x), (x, x), train=False)
         state = jax_common.create_train_state(
@@ -100,8 +99,34 @@ def reference():
             {k: float(p) for k, p in parts.items()}, after)
 
 
-def _port(init, dtype):
-    model, style = build_ssl_model("v32", "resnet18", 16)
+@pytest.fixture(scope="module")
+def reference():
+    return _jax_multicrop("resnet18")
+
+
+# a narrow ViT in both packages' tables: patch 8, so that the 32 x 32
+# globals are a 4 x 4 grid (17 tokens) and the 16 x 16 locals a 2 x 2 grid
+# (5 tokens), where `pos_embed` is shrunk, antialiased, from its 4 x 4
+VIT_NARROW = dict(patch=8, dim=64, depth=2, n_heads=2)
+
+
+@pytest.fixture(scope="module")
+def vit_reference():
+    """`vit_narrow` registered in both packages while the module's tests
+    run, and the JAX package's float64 multi-crop step on it under
+    `remat="flash"` (on the CPU its attention is the plain one)."""
+    from sm3x.models import vit as jax_vit
+    from sm3x_torch.models import vit
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_vit, vit):
+            mp.setitem(mod.VIT_SPECS, "vit_narrow", VIT_NARROW)
+            mp.setitem(mod.VIT_FEAT_DIMS, "vit_narrow", VIT_NARROW["dim"])
+        yield _jax_multicrop("vit_narrow", remat="flash")
+
+
+def _port(init, dtype, arch="resnet18", **kw):
+    model, style = build_ssl_model("v32", arch, 16, img_size=SIZE, **kw)
     assert style == 0
     model.load_state_dict(weights.to_tensors(init), strict=True)
     return model.to(dtype).train()
@@ -164,6 +189,58 @@ def test_multicrop_step_matches_jax_in_float64(reference):
     for k, p in model.named_parameters():
         p = p.detach().numpy()
         np.testing.assert_allclose(p, after[k], atol=3 * LR, err_msg=k)
+        far += int((np.abs(p - after[k]) > 1e-2 * LR).sum())
+        total += p.size
+    assert far <= 1e-4 * total, f"{far} of {total} entries beyond 1e-2 x lr"
+    for k, buf in model.named_buffers():
+        if "running" in k:
+            np.testing.assert_allclose(buf.numpy(), after[k], atol=1e-6,
+                                       err_msg=k)
+
+
+def test_vit_multicrop_forward_loss_and_step_match_jax(vit_reference):
+    """The narrow ViT under multi-crop, float64, `--use-checkpoint flash`
+    (attention through the K3 wrappers, their plain versions on the CPU):
+    the forward's projections at FWD_TOL, the loss and its parts at rtol
+    1e-5, then one `ssl_update` held as the resnet18 step is. The locals'
+    `pos_embed` is the globals' 4 x 4 grid shrunk to 2 x 2."""
+    init, views, outs, loss, parts, after = vit_reference
+    model = _port(init, torch.float64, "vit_narrow", remat="flash")
+    assert model.derm_backbone.encoder.grid == (4, 4)
+    got = model.multicrop(*_inputs(views, torch.float64))
+    for key in ("derm_z", "clinic_z"):
+        _close(got[key], outs[key], **FWD_TOL)
+    for key in ("cross_derm_z", "cross_clinic_z", "derm_local_z",
+                "clinic_local_z"):
+        assert len(got[key]) == len(outs[key])
+        for g, w in zip(got[key], outs[key]):
+            _close(g, w, **FWD_TOL)
+    total, got_parts = ssl_loss(got, 0, T, GROUPS,
+                                local_weight=LOCAL_WEIGHT)
+    np.testing.assert_allclose(float(total.detach()), loss, rtol=1e-5)
+    for k, v in parts.items():
+        np.testing.assert_allclose(float(got_parts[k]), v, rtol=1e-5,
+                                   err_msg=k)
+
+    model = _port(init, torch.float64, "vit_narrow", remat="flash")
+    opt = make_adamw(model.parameters(), LR, WD, eps=EPS)
+    d, c, dl, cl = _inputs(views, torch.float64)
+    step = ssl_update(model, opt, d, c, 0, T, GROUPS, derm_locals=dl,
+                      clinic_locals=cl, local_weight=LOCAL_WEIGHT)
+    np.testing.assert_allclose(float(step["loss"]), loss, rtol=1e-5)
+    far = total = 0
+    for k, p in model.named_parameters():
+        p = p.detach().numpy()
+        np.testing.assert_allclose(p, after[k], atol=3 * LR, err_msg=k)
+        if k.endswith("encoder.ln_final.bias"):
+            # its gradient is 0: the class token's shift reaches only the
+            # projectors, whose batch norm after the first Linear removes
+            # it. The JAX package rounds the feature to float32
+            # (sm3x/models/vit.py: `x[:, 0].astype(jnp.float32)`), and
+            # Adam turns that rounding's ~5e-7 residue into updates of up
+            # to 0.05 x lr; the port's float64 step moves it by ~1e-10 x lr
+            assert np.abs(p).max() < 1e-6 * LR, k
+            continue
         far += int((np.abs(p - after[k]) > 1e-2 * LR).sum())
         total += p.size
     assert far <= 1e-4 * total, f"{far} of {total} entries beyond 1e-2 x lr"

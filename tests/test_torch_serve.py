@@ -81,11 +81,25 @@ def pair():
          "batch_stats": _randomise(jax.tree.map(np.asarray,
                                                 v["batch_stats"]), rng)}
     ref = JaxPredictor(jm, v, mean=MEAN, std=STD, **KW)
-    model = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16)
+    model = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16,
+                            amp=False)
     sd = torch_export.export_mlc_model(v["params"], v["batch_stats"],
                                        "resnet18", "v4")
     model.load_state_dict(weights.to_tensors(sd), strict=True)
     return ref, Predictor(model, MEAN, STD, **KW)
+
+
+@pytest.fixture(scope="module")
+def bf16_pair(pair):
+    """(the JAX package's Predictor, the port's) at both packages' default
+    bf16, on the float32 pair's weights."""
+    ref, port = pair
+    jm = JaxMLCModel(arch="resnet18", proj_dim=32, sa_dim_ff=16,
+                     use_prototype_bias=True)
+    model = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16)
+    model.load_state_dict(port.model.state_dict(), strict=True)
+    return (JaxPredictor(jm, ref.variables, mean=MEAN, std=STD, **KW),
+            Predictor(model, MEAN, STD, **KW))
 
 
 @pytest.fixture(scope="module")
@@ -118,6 +132,68 @@ def test_probabilities_match_the_jax_predictor(pair, n):
         assert g.shape == (n, c) and g.dtype == np.float32
         np.testing.assert_allclose(g, w, **MODEL)
         np.testing.assert_allclose(g.sum(axis=-1), 1.0, rtol=1e-5)
+
+
+def test_build_evaluator_runs_bf16_where_the_jax_package_does():
+    """`build_evaluator()` runs the encoders in bf16 and the head in
+    float32 by default, as `sm3x.api.build_evaluator()` (dtype bfloat16,
+    the head float32) does; `amp=False` is the JAX package's
+    `dtype=jnp.float32`."""
+    import inspect
+
+    from sm3x import api as jax_api
+
+    assert jax_api.build_evaluator().dtype == jnp.bfloat16
+    assert inspect.signature(build_evaluator).parameters["amp"].default
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    for amp, want in ((None, torch.bfloat16), (False, torch.float32)):
+        kw = {} if amp is None else {"amp": amp}
+        model = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16,
+                                **kw).eval()
+        conv = next(m for m in model.extractor.modules()
+                    if isinstance(m, torch.nn.Conv2d))
+        seen = []
+        conv.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+        with torch.no_grad():
+            feats, preds = model(x, x)
+        assert seen == [want]
+        assert feats.dtype == torch.float32
+        assert all(p.dtype == torch.float32 for p in preds)
+
+
+# bf16 serving against float32 (the float32 pair's JAX Predictor), relative
+# L2 error of the 12 cases' packed probabilities, with the values measured
+# when the bounds were set: the port's error is BF16_RATIO times the JAX
+# package's (measured 2.31e-4 against 1.91e-4: 1.21x); the port against the
+# JAX package's bf16 within BF16_PORT_TO_JAX (measured 2.62e-4). A port in
+# float32 reads ~0x: below 0.5x its encoders ran in another precision.
+BF16_RATIO = (0.5, 1.5)
+BF16_PORT_TO_JAX = 1e-3
+
+
+def test_bf16_probabilities_against_the_jax_package_s(pair, bf16_pair):
+    """Both packages' default bf16 Predictors on the same weights and raw
+    images, each held against the float32 run by the ratio of their
+    errors, and to each other."""
+    ref32 = pair[0]
+    jax16, port16 = bf16_pair
+    requests = [(_mixed(30 + k)[:4], _mixed(40 + k)[:4]) for k in range(3)]
+
+    def packed(p):
+        return np.concatenate([np.concatenate(p.predict(d, c), -1)
+                               for d, c in requests]).astype(np.float64)
+
+    truth, jax_bf16, port_bf16 = packed(ref32), packed(jax16), packed(port16)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    e_jax, e_port = rel(jax_bf16, truth), rel(port_bf16, truth)
+    assert BF16_RATIO[0] * e_jax <= e_port <= BF16_RATIO[1] * e_jax
+    assert rel(port_bf16, jax_bf16) <= BF16_PORT_TO_JAX
+    np.testing.assert_allclose(port_bf16.reshape(12, -1)[:, :5].sum(-1), 1.0,
+                               rtol=1e-5)
 
 
 def test_canvases_match_the_jax_predictor(pair):
@@ -223,8 +299,13 @@ def test_from_checkpoint_pth(tmp_path, predictor):
     p = Predictor.from_checkpoint(
         path, arch="resnet18", mean=MEAN, std=STD, mlc_proj_dim=32,
         sa_dim_ff=16, device="cpu", test_sz=48, buckets=(1, 2), canvas=64)
+    # the JAX package's default: the encoders in bf16
+    assert p.model.extractor.amp
+    bf16 = build_evaluator("resnet18", mlc_proj_dim=32, sa_dim_ff=16)
+    bf16.load_state_dict(predictor.model.state_dict(), strict=True)
     d, c = _imgs(2, 11), _imgs(2, 12)
-    got, want = p.predict(d, c), predictor.predict(d, c)
+    got = p.predict(d, c)
+    want = Predictor(bf16, MEAN, STD, **KW).predict(d, c)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, **MODEL)
 
