@@ -111,6 +111,20 @@ Phases, each printing its lines:
            (SERVE_BATCH_TOL), over cases whose rows lie further apart
            than it and the error read; then bf16 probabilities against
            float32
+  export   sm3x_torch.export on `eval`'s best_eval.pth: the CLI at its
+           defaults (bf16, buckets 1 / 8 / 32, on the card), each bucket's
+           export and write seconds and MB; a float32 artifact of bucket 8
+           and one for the CPU, which ExportedPredictor must refuse on the
+           card; a fresh interpreter (--export-worker) loads the artifacts
+           with no model code imported (load and capture seconds, a CUDA
+           graph a bucket, the stem weight's strides) and serves 1 / 8 /
+           32 / 37 cases, held against the live Predictor on the same
+           images at [serve]'s bounds between batches (bf16 atol 1e-4,
+           float32 rtol 1e-4 / atol 1e-5), and its graphs' pool beside the
+           live Predictor's; upload + replay + fetch and busy ms at 1 / 8 /
+           32 cases of the artifact and the live Predictor in this process,
+           in turns; `python -m sm3x_torch.serve_http --exported-path` on
+           127.0.0.1 answers a POST of two PNG cases as the direct call
   feed     `main`'s recipe over 1024 synthetic cases under --device-feed
            host, resident and prefetch from the same seed: 8 steps each with
            bit-identical batches and losses, K1 4 launches a step (band),
@@ -180,8 +194,8 @@ Phases, each printing its lines:
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
-crop, crop_vit, tri, transfer, tp, learn, and serve: main, stage2 and eval
-for the weights, then infer and serve)
+crop, crop_vit, tri, transfer, tp, learn; serve: main, stage2 and eval
+for the weights, then infer and serve; export: main, stage2, eval, export)
 only those phases run after device and build, and no result is printed.
 Each phase prints the seconds it took.
 
@@ -207,6 +221,7 @@ import math
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -2186,6 +2201,14 @@ def host_ms(fn, reps: int = 20) -> tuple:
     return statistics.median(times), min(times)
 
 
+def graph_pool_bytes(segments=None) -> int:
+    """Bytes of the allocator's segments that belong to a CUDA graphs'
+    memory pool (torch.cuda.memory_snapshot)."""
+    segments = torch.cuda.memory_snapshot() if segments is None else segments
+    return sum(s["total_size"] for s in segments
+               if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
 def describe_predictor(predictor, tag: str, held0: int, reserved0: int,
                        built_s: float) -> float:
     """The lines of a Predictor just built: its graphs, their memory pool
@@ -2209,8 +2232,7 @@ def describe_predictor(predictor, tag: str, held0: int, reserved0: int,
     if sorted(predictor._graphs) != [1, 8, 32, 128]:
         raise AssertionError("a graph a default bucket expected")
     segments = torch.cuda.memory_snapshot()
-    in_pool = sum(s["total_size"] for s in segments
-                  if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    in_pool = graph_pool_bytes(segments)
     log(f"  {tag}: the graphs' memory pool holds {in_pool / gib:.2f} GiB of "
         f"segments (torch.cuda.memory_snapshot), the allocator's other "
         f"segments {(sum(s['total_size'] for s in segments) - in_pool) / gib:.2f}"
@@ -2614,6 +2636,400 @@ def phase_serve(reference: dict) -> dict:
         raise AssertionError("serving launches none of the kernels")
     torch.cuda.empty_cache()
     return dict(launches=launches, latency=latency, pool_gib=pool)
+
+
+# [export]: the exporter's default buckets, the requests the fresh
+# interpreter serves from the artifact and the buckets each takes (37: a
+# chunk of 32 and one of 5 padded to 8), the float32 leg's one bucket, and
+# what loading and serving an artifact must not import
+EXPORT_BUCKETS = (1, 8, 32)
+EXPORT_REQUESTS = {1: [1], 8: [8], 32: [32], 37: [32, 8]}
+EXPORT_FLOAT32 = {5: [8], 8: [8]}
+MODEL_CODE = ("sm3x_torch.models", "sm3x_torch.train", "sm3x_torch.api",
+              "sm3x", "jax")
+EXPORT_DIR = os.path.join(LOGS, "export")
+
+
+def export_images(n: int) -> tuple:
+    return raw_images(n, 700 + n), raw_images(n, 800 + n)
+
+
+def http_images() -> tuple:
+    return raw_images(2, 900), raw_images(2, 901)
+
+
+def model_code_loaded() -> list:
+    return sorted(m for m in sys.modules
+                  if any(m == k or m.startswith(k + ".") for k in MODEL_CODE))
+
+
+def graph_latency(predictor, sizes, busy: bool) -> dict:
+    """Upload + graph replay + fetch at each of `sizes` cases (host clock,
+    median and minimum of 20) and, with `busy`, the replay's device busy
+    time (torch.profiler, 5 calls), on canvases made once."""
+    out = {}
+    for n in sizes:
+        dc, dhw = predictor._canvases(raw_images(n, 300 + n))
+        cc, chw = predictor._canvases(raw_images(n, 400 + n))
+        arrays = (dc, dhw, cc, chw)
+        replay = host_ms(lambda: predictor._call(n, *arrays))
+        out[n] = dict(replay_ms=replay[0], replay_ms_min=replay[1])
+        if busy:
+            prof = profile_device(lambda _: predictor._call(n, *arrays), 5)
+            out[n].update(replay_busy_ms=prof["busy_ms"],
+                          replay_launches=prof["launches"])
+    return out
+
+
+def serve_export_requests(predictor, requests: dict, save=None) -> dict:
+    """{n: packed probabilities} of `requests` (n -> the buckets it must
+    take) through `predict`; with `save`, each also to save % n."""
+    seen, outs = [], {}
+    call = predictor._call
+
+    def spy(b, *arrays):
+        seen.append(b)
+        return call(b, *arrays)
+
+    predictor._call = spy
+    try:
+        for n, want in requests.items():
+            seen.clear()
+            outs[n] = np.concatenate(predictor.predict(*export_images(n)), -1)
+            if seen != want:
+                raise AssertionError(f"{n} cases took buckets {seen}, "
+                                     f"expected {want}")
+            if save:
+                np.save(save % n, outs[n])
+    finally:
+        del predictor._call
+    return outs
+
+
+def conv_weight(params) -> dict:
+    """Shape, strides and layout of the first 4-D parameter (the derm
+    encoder's stem convolution)."""
+    w = next(v for v in params if v.dim() == 4)
+    return dict(shape=list(w.shape), stride=list(w.stride()),
+                channels_last=w.is_contiguous(
+                    memory_format=torch.channels_last), dtype=str(w.dtype))
+
+
+def export_worker(art: str) -> int:
+    """`--export-worker DIR`, [export]'s fresh interpreter: ExportedPredictor
+    on DIR/bf16 and DIR/float32, with no model code imported; the requests'
+    probabilities to DIR/*.npy, the load and capture seconds, the graphs,
+    the memory and the modules loaded to DIR/worker.json."""
+    from sm3x_torch.export import ExportedPredictor
+
+    marks = []
+    start = ExportedPredictor._start
+
+    def timed_start(self):
+        marks.append(time.perf_counter())
+        start(self)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ExportedPredictor._start = timed_start
+    out = {}
+    t0 = time.perf_counter()
+    p = ExportedPredictor(os.path.join(art, "bf16"))
+    out["load_s"], out["capture_s"] = marks[0] - t0, marks[1] - marks[0]
+    out["pool_gib"] = graph_pool_bytes() / 2 ** 30
+    out["held_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    out["graphs"] = {b: [list(g.static["derm"].shape), list(g.out.shape),
+                         str(g.out.dtype)] for b, g in p._graphs.items()}
+    out["conv_weight"] = conv_weight(p._programs[1].parameters())
+    serve_export_requests(p, EXPORT_REQUESTS,
+                          os.path.join(art, "bf16_%d.npy"))
+    np.save(os.path.join(art, "bf16_http.npy"),
+            np.concatenate(p.predict(*http_images()), -1))
+    del p
+    p32 = ExportedPredictor(os.path.join(art, "float32"))
+    serve_export_requests(p32, EXPORT_FLOAT32,
+                          os.path.join(art, "float32_%d.npy"))
+    out["model_code_loaded"] = model_code_loaded()
+    with open(os.path.join(art, "worker.json"), "w") as f:
+        json.dump(out, f)
+    return 1 if out["model_code_loaded"] else 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_export_server(path: str, log_path: str):
+    """`python -m sm3x_torch.serve_http --exported-path PATH` on a free
+    loopback port, its output to `log_path`: (process, base url)."""
+    port = free_port()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sm3x_torch.serve_http",
+             "--exported-path", path, "--port", str(port)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+            stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def post_to_export_server(proc, base: str, log_path: str, decoder):
+    """Wait for the server's /healthz, then POST the two http_images()
+    cases as PNG: the packed (2, sum C_i) answer."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    from sm3x_torch import CLASSES_NAME
+
+    deadline = time.perf_counter() + 300
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited ({proc.returncode}): "
+                                 f"{open(log_path).read()[-2000:]}")
+        try:
+            with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
+                if r.status == 200:
+                    break
+        except (urllib.error.URLError, OSError):
+            pass
+        if time.perf_counter() > deadline:
+            raise AssertionError("the server did not answer /healthz")
+        time.sleep(0.5)
+    derm, clinic = http_images()
+    cases = [{"derm": base64.b64encode(encode_image(
+                  derm[i], "PNG", decoder)).decode(),
+              "clinic": base64.b64encode(encode_image(
+                  clinic[i], "PNG", decoder)).decode()} for i in range(2)]
+    req = urllib.request.Request(
+        f"{base}/predict", data=json.dumps({"cases": cases}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = json.load(r)
+    return np.array([np.concatenate([case[name] for name in CLASSES_NAME])
+                     for case in body["predictions"]], dtype=np.float32)
+
+
+def phase_export(reference: dict) -> dict:
+    """The AOT artifact of [eval]'s best_eval.pth: sm3x_torch.export's CLI
+    at its defaults (bf16, buckets 1 / 8 / 32, on the card), a float32
+    artifact of bucket 8 and one for the CPU, which the card must refuse;
+    a fresh interpreter serves the artifacts (a CUDA graph a bucket, no
+    model code imported), the HTTP server serves it over the loopback, and
+    both are held against the live Predictor on the same images, beside
+    whose latency and pool theirs are printed."""
+    from sm3x_torch import api, export
+    from sm3x_torch.serve import Predictor
+
+    counters, _ = kernel_counters()
+    reset_counters()
+    art = EXPORT_DIR
+    shutil.rmtree(art, ignore_errors=True)
+    log("[export] sm3x_torch.export on [eval]'s best_eval.pth (two resnet50, "
+        "224x224, canvas 320): the CLI at its defaults, bf16, buckets "
+        f"{list(EXPORT_BUCKETS)}, on the card")
+    marks = []
+    real_export, real_save = torch.export.export, torch.export.save
+
+    def export_spy(*a, **k):
+        marks.append(time.perf_counter())
+        return real_export(*a, **k)
+
+    def save_spy(*a, **k):
+        marks.append(time.perf_counter())
+        real_save(*a, **k)
+        marks.append(time.perf_counter())
+
+    torch.export.export, torch.export.save = export_spy, save_spy
+    t0 = time.perf_counter()
+    try:
+        export.main(["--pretrain-path", reference["path"], "--out",
+                     os.path.join(art, "bf16")])
+    finally:
+        torch.export.export, torch.export.save = real_export, real_save
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(art, "bf16", "manifest.json")) as f:
+        manifest = json.load(f)
+    keys = {"buckets", "image_size", "canvas", "crop_amount", "mean", "std",
+            "num_classes", "platforms"}     # sm3x/export.py's manifest
+    if (set(manifest) != keys or manifest["buckets"] != list(EXPORT_BUCKETS)
+            or manifest["platforms"] != ["cuda"]):
+        raise AssertionError(f"manifest {manifest}")
+    mb = {}
+    for i, b in enumerate(EXPORT_BUCKETS):
+        t_export, t_save, t_saved = marks[3 * i:3 * i + 3]
+        mb[b] = os.path.getsize(os.path.join(
+            art, "bf16", f"fwd_b{b}_cuda.pt2")) / 1e6
+        log(f"  bucket {b}: export and lowering to ATen "
+            f"{t_save - t_export:.2f} s, write {t_saved - t_save:.2f} s, "
+            f"fwd_b{b}_cuda.pt2 {mb[b]:.1f} MB")
+    log(f"  the CLI took {cli_s:.2f} s in all (the weights' load "
+        f"included); the artifact {sum(mb.values()):.1f} MB")
+
+    decoder = image_decoder()
+    server = None
+    if decoder:
+        log_path = os.path.join(art, "server.log")
+        server, base = start_export_server(os.path.join(art, "bf16"),
+                                           log_path)
+        log(f"  started python -m sm3x_torch.serve_http --exported-path "
+            f"... on {base}")
+    try:
+        model32 = api.load_weights(api.build_evaluator(amp=False),
+                                   reference["path"], "cuda")
+        t0 = time.perf_counter()
+        export.export_predictor(model32, os.path.join(art, "float32"),
+                                buckets=(8,))
+        del model32
+        # the planted fault's artifact: any model will do, the refusal
+        # comes before a program is read
+        t1 = time.perf_counter()
+        small = api.build_evaluator("resnet18", mlc_proj_dim=32,
+                                    sa_dim_ff=16).cuda()
+        export.export_predictor(small, os.path.join(art, "cpu"),
+                                buckets=(1,), image_size=48, canvas=64,
+                                platforms=("cpu",))
+        log(f"  float32 (amp=False), bucket 8, on the card: "
+            f"{t1 - t0:.2f} s; a ResNet-18 evaluator on the card exported "
+            f"for the CPU, bucket 1: {time.perf_counter() - t1:.2f} s")
+        del small
+        try:
+            export.ExportedPredictor(os.path.join(art, "cpu"), device="cuda")
+            raise AssertionError("an artifact for the CPU loaded on the card")
+        except ValueError as e:
+            log(f"  planted fault, the CPU's artifact on the card: refused: "
+                f"{e}")
+        posted = None
+        if server is not None:
+            posted = post_to_export_server(server, base, log_path, decoder)
+    finally:
+        if server is not None:
+            server.terminate()
+            try:
+                server.wait(30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait(30)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--export-worker", art], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    worker_s = time.perf_counter() - t0
+    with open(os.path.join(art, "worker.json")) as f:
+        got = json.load(f)
+    log(f"  a fresh interpreter ({worker_s:.1f} s in all): ExportedPredictor"
+        f" loaded the three programs in {got['load_s']:.2f} s and warmed and "
+        f"captured their graphs in {got['capture_s']:.2f} s; model code "
+        f"loaded: {got['model_code_loaded'] or 'none'} (of {list(MODEL_CODE)})")
+    if res.returncode != 0 or got["model_code_loaded"]:
+        raise AssertionError(f"the fresh interpreter failed (rc "
+                             f"{res.returncode}) or loaded model code")
+    for b, (static, out, dtype) in sorted(got["graphs"].items()):
+        log(f"  bucket {b}: one CUDA graph over static inputs {static} uint8 "
+            f"x 2 and int32 sizes, static output {out} {dtype}")
+    if sorted(int(b) for b in got["graphs"]) != list(EXPORT_BUCKETS):
+        raise AssertionError("a graph a bucket expected")
+
+    def load(tag, n):
+        return np.load(os.path.join(art, f"{tag}_{n}.npy"))
+
+    t0 = time.perf_counter()
+    held0, pool0 = torch.cuda.memory_allocated(), graph_pool_bytes()
+    live = Predictor.from_checkpoint(reference["path"], mean=MEAN, std=STD,
+                                     buckets=EXPORT_BUCKETS, device="cuda")
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+    live_pool = (graph_pool_bytes() - pool0) / 2 ** 30
+    live_held = (torch.cuda.memory_allocated() - held0) / 2 ** 30
+    live_conv = conv_weight(live.model.parameters())
+    log(f"  the stem convolution's weight: exported {got['conv_weight']}, "
+        f"live {live_conv}")
+    tol = SERVE_BATCH_TOL["bf16"]
+    want = serve_export_requests(live, EXPORT_REQUESTS)
+    err = 0.0
+    for n in EXPORT_REQUESTS:
+        err = max(err, check_close(
+            f"bf16, {n} cases: the exported graphs against the live "
+            f"Predictor's", torch.from_numpy(load("bf16", n)),
+            torch.from_numpy(want[n]), **tol))
+    rows_apart("bf16, the 37 cases", want[37], tol, err)
+    if posted is not None:
+        direct = load("bf16", "http")
+        check_close("POST /predict of 2 PNG cases to the server over the "
+                    "artifact against the fresh interpreter's direct call",
+                    torch.from_numpy(posted), torch.from_numpy(direct), **tol)
+    else:
+        log("  POST /predict: not run here (neither PIL nor cv2 to encode "
+            "the bodies); tests/test_torch_aot_export.py holds it")
+    # the latency of both in this process, in turns after a warm-up:
+    # exported, live, live, exported (the device busy time in the first
+    # turn of each)
+    t0 = time.perf_counter()
+    exported = export.ExportedPredictor(os.path.join(art, "bf16"))
+    log(f"  the artifact loaded and captured here too, in "
+        f"{time.perf_counter() - t0:.2f} s, for the latency")
+    sizes = (1, 8, 32)
+    for p in (exported, live):  # the clocks up after the load's idle card
+        graph_latency(p, sizes[-1:], False)
+    turns = [graph_latency(exported, sizes, True),
+             graph_latency(live, sizes, True),
+             graph_latency(live, sizes, False),
+             graph_latency(exported, sizes, False)]
+    latency = {}
+    for tag, (a, b) in (("exported", (turns[0], turns[3])),
+                        ("live", (turns[1], turns[2]))):
+        latency[tag] = {n: dict(a[n], replay_ms=(a[n]["replay_ms"]
+                                                 + b[n]["replay_ms"]) / 2,
+                                turns_ms=[a[n]["replay_ms"],
+                                          b[n]["replay_ms"]])
+                        for n in sizes}
+    for n in sizes:
+        a, b = latency["exported"][n], latency["live"][n]
+        log(f"  {n} cases, exported against live: upload + replay + fetch "
+            f"{a['replay_ms']:.2f} against {b['replay_ms']:.2f} ms (the "
+            f"mean of two turns' medians of 20: {a['turns_ms'][0]:.2f}, "
+            f"{a['turns_ms'][1]:.2f} against {b['turns_ms'][0]:.2f}, "
+            f"{b['turns_ms'][1]:.2f}; {a['replay_ms'] / b['replay_ms']:.3f}x"
+            f"), replay busy {a['replay_busy_ms']:.2f} against "
+            f"{b['replay_busy_ms']:.2f} ms "
+            f"({a['replay_busy_ms'] / b['replay_busy_ms']:.3f}x) in "
+            f"{a['replay_launches']:.0f} against {b['replay_launches']:.0f} "
+            f"kernels and copies")
+    log(f"  the graphs' pool: exported {got['pool_gib']:.2f} GiB against "
+        f"live {live_pool:.2f} GiB (graph pools held before it, not "
+        f"counted: {pool0 / 2 ** 30:.2f} GiB); device memory held "
+        f"{got['held_gib']:.2f}"
+        f" against {live_held:.2f} GiB (a program holds its own weights, "
+        f"a bucket each); the live Predictor built in {live_s:.2f} s")
+    del live, exported
+    gc.collect()
+    torch.cuda.empty_cache()
+    live32 = Predictor(api.load_weights(api.build_evaluator(amp=False),
+                                        reference["path"], "cuda"),
+                       MEAN, STD, buckets=(8,))
+    want32 = serve_export_requests(live32, EXPORT_FLOAT32)
+    for n in EXPORT_FLOAT32:
+        check_close(f"float32, {n} cases: the exported graph against the "
+                    f"live Predictor's", torch.from_numpy(load("float32", n)),
+                    torch.from_numpy(want32[n]),
+                    **SERVE_BATCH_TOL["float32"])
+    del live32
+    gc.collect()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  kernel launches while exporting and serving: {launches} (no "
+        f"view is made)")
+    if any(launches.values()):
+        raise AssertionError("the export path launches none of the kernels")
+    shutil.rmtree(art, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, latency=latency,
+                pool_gib=dict(exported=got["pool_gib"], live=live_pool))
 
 
 FEED_CASES, FEED_STEPS = 1024, 8
@@ -3680,6 +4096,14 @@ def phase_serving() -> None:
     phase_serve(reference)
 
 
+def phase_exporting() -> None:
+    """`--only export`: [main], [stage2] and [eval] for the weights, then
+    [export] on them."""
+    phase_main()
+    phase_stage2()
+    phase_export(phase_eval()[1])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR", default=None,
@@ -3695,6 +4119,8 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)
     p.add_argument("--tp-worker", metavar="BACKEND", default=None,
                    help=argparse.SUPPRESS)
+    p.add_argument("--export-worker", metavar="DIR", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import sm3x_torch  # noqa: F401  fails outside a checkout of the repo
 
@@ -3702,6 +4128,8 @@ def main(argv=None) -> int:
         return dist_worker(args.dist_worker, args.dist_legs.split(","))
     if args.tp_worker:
         return tp_worker(args.tp_worker)
+    if args.export_worker:
+        return export_worker(args.export_worker)
 
     seconds = {}
 
@@ -3727,7 +4155,7 @@ def main(argv=None) -> int:
                  "crop": phase_crop, "crop_vit": phase_crop_vit,
                  "tri": phase_tri, "transfer": phase_transfer,
                  "tp": phase_tp, "learn": phase_learn,
-                 "serve": phase_serving}
+                 "serve": phase_serving, "export": phase_exporting}
         for name in args.only.split(","):
             run(name, alone[name])
         log(f"[only] {args.only}: done (a partial run prints no result)")
@@ -3743,6 +4171,7 @@ def main(argv=None) -> int:
     transfer_launches = run("transfer", phase_transfer)
     run("infer", phase_infer, eval_reference)
     serve = run("serve", phase_serve, eval_reference)
+    exported = run("export", phase_export, eval_reference)
     del eval_reference
     vit_launches = run("vit", phase_vit, args.profile)
     crop_vit_launches, crop_vit_rows = run("crop_vit", phase_crop_vit)
@@ -3794,6 +4223,7 @@ def main(argv=None) -> int:
                  launches_eval=eval_launches[counter],
                  launches_probe=probe_launches[counter],
                  launches_serve=serve["launches"][counter],
+                 launches_export=exported["launches"][counter],
                  launches_dist=dist_launches[counter],
                  launches_tp=tp["launches"][counter],
                  launches_crop=crop_launches[counter],
@@ -3812,6 +4242,7 @@ def main(argv=None) -> int:
                      "eval": SUPERVISED_PER_STEP.get(counter, 0),
                      "probe": SUPERVISED_PER_STEP.get(counter, 0),
                      "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0,
+                     "export": 0,
                      "dist": MAIN_PER_STEP.get(counter, 0),
                      "tp": TP_PER_STEP.get(counter, 0),
                      "crop": CROP_PER_STEP.get(counter, 0),

@@ -28,7 +28,9 @@ On the CPU (`device="cpu"`, the tests) the same forward runs eagerly under
 `inference_mode`; there is no graph.
 
 `BucketedPredictor` is the request surface (crop, letterbox, bucket, pad,
-chunk, trim); `Predictor` adds the model.
+chunk, trim); `Predictor` adds the model. `ServedForward` is the program
+it serves, which `sm3x_torch.export` exports; the export's
+`ExportedPredictor` serves the exported programs through the same graphs.
 """
 
 from __future__ import annotations
@@ -139,18 +141,47 @@ def _tf32_off():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+class ServedForward(torch.nn.Module):
+    """The served program: two modalities' uint8 (b, canvas, canvas, 3)
+    canvases and (b, 2) int32 valid sizes -> resize and normalise on the
+    device, the model, a float32 softmax a head, packed as one (b, sum C_i)
+    float32 tensor. `Predictor` runs it live and `sm3x_torch.export` exports
+    it, so the two serve one program."""
+
+    def __init__(self, model, mean, std, test_sz: int = 224):
+        super().__init__()
+        self.model = model
+        self.test_sz = test_sz
+        dev = next(model.parameters()).device
+        # made once, on the device: a capturing stream takes no copy from
+        # pageable host memory, and an export bakes them in
+        self.register_buffer("mean", torch.tensor(
+            tuple(mean), dtype=torch.float32, device=dev), persistent=False)
+        self.register_buffer("std", torch.tensor(
+            tuple(std), dtype=torch.float32, device=dev), persistent=False)
+
+    def forward(self, derm, derm_hw, clinic, clinic_hw) -> torch.Tensor:
+        size = (self.test_sz, self.test_sz)
+        d = eval_resize_batch(derm, derm_hw, self.mean, self.std, size)
+        c = eval_resize_batch(clinic, clinic_hw, self.mean, self.std, size)
+        _, preds = self.model(d, c)
+        return torch.cat([torch.softmax(p.float(), dim=-1) for p in preds],
+                         dim=-1)
+
+
 class _BucketGraph:
     """One bucket on the card: static device inputs, the pinned host
-    buffers they are filled from, the captured graph, its static output and
-    the pinned buffer the output comes back in."""
+    buffers they are filled from, the captured graph of `forward`, its
+    static output and the pinned buffer the output comes back in."""
 
-    def __init__(self, predictor: "Predictor", b: int, pool):
-        dev, s = predictor.device, predictor.canvas
+    def __init__(self, forward, device: torch.device, canvas: int, b: int,
+                 pool):
+        s = canvas
         shapes = {"derm": ((b, s, s, 3), torch.uint8),
                   "derm_hw": ((b, 2), torch.int32),
                   "clinic": ((b, s, s, 3), torch.uint8),
                   "clinic_hw": ((b, 2), torch.int32)}
-        self.static = {k: torch.zeros(shape, dtype=dt, device=dev)
+        self.static = {k: torch.zeros(shape, dtype=dt, device=device)
                        for k, (shape, dt) in shapes.items()}
         for k in ("derm_hw", "clinic_hw"):
             self.static[k].fill_(s)  # a whole canvas, for the warm-up
@@ -160,56 +191,37 @@ class _BucketGraph:
         # warm-up on a side stream, the same (bf16 or float32) forward as
         # the capture's: lazy initialisation and cuDNN's choice of
         # algorithms must not fall into the capture
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                predictor._forward(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
+                forward(*args)
+        torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool):
-            self.out = predictor._forward(*args)
+            self.out = forward(*args)
         self.host_out = torch.zeros(self.out.shape, dtype=self.out.dtype,
                                     pin_memory=True)
 
 
-class Predictor(BucketedPredictor):
-    """Serving wrapper around an `MLCModel` with its weights loaded, on the
-    device the weights are on."""
+class _GraphPredictor(BucketedPredictor):
+    """A bucketed predictor that serves a CUDA graph a bucket on the card
+    and runs eagerly on the CPU. Subclasses set `device` and implement
+    `_program(b)`: the callable that takes bucket `b`'s four device
+    tensors to the packed (b, sum C_i) float32 probabilities, with TF32
+    off and under `inference_mode`."""
 
-    def __init__(self, model, mean, std, test_sz: int = 224,
-                 buckets: Sequence[int] = (1, 8, 32, 128),
-                 canvas: int = 320, crop_amount: int = 25):
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
-        self.test_sz = test_sz
-        self.buckets = sorted(buckets)
-        self.canvas = canvas
-        self.crop_amount = crop_amount
-        # made once, on the device: a capturing stream takes no copy from
-        # pageable host memory
-        self.mean = torch.tensor(tuple(mean), dtype=torch.float32,
-                                 device=self.device)
-        self.std = torch.tensor(tuple(std), dtype=torch.float32,
-                                device=self.device)
+    device: torch.device
+
+    def _program(self, b: int):
+        raise NotImplementedError
+
+    def _start(self) -> None:
         # one dispatch at a time: the static buffers are shared
         self._lock = threading.Lock()
         self._graphs = {}
         if self.device.type == "cuda":
             self._capture()
-
-    def _forward(self, derm, derm_hw, clinic, clinic_hw) -> torch.Tensor:
-        """Canvases and sizes on the device -> the packed (b, sum C_i)
-        float32 probabilities."""
-        size = (self.test_sz, self.test_sz)
-        with (torch.inference_mode(), _tf32_off(),
-              _no_autocast_cache(self.device)):
-            d = eval_resize_batch(derm, derm_hw, self.mean, self.std, size)
-            c = eval_resize_batch(clinic, clinic_hw, self.mean, self.std,
-                                  size)
-            _, preds = self.model(d, c)
-            return torch.cat([torch.softmax(p.float(), dim=-1)
-                              for p in preds], dim=-1)
 
     def _capture(self) -> None:
         """One CUDA graph a bucket, the largest first, in one memory pool.
@@ -218,22 +230,10 @@ class Predictor(BucketedPredictor):
         self._stream = torch.cuda.Stream(self.device)
         self._pool = torch.cuda.graph_pool_handle()
         for b in sorted(set(self.buckets), reverse=True):
-            self._graphs[b] = _BucketGraph(self, b, self._pool)
+            self._graphs[b] = _BucketGraph(self._program(b), self.device,
+                                           self.canvas, b, self._pool)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
-
-    @classmethod
-    def from_checkpoint(cls, pretrain_path: str, arch: str = "resnet50",
-                        mean=(0.7833, 0.6712, 0.6026),
-                        std=(0.2139, 0.2472, 0.2571),
-                        mlc_proj_dim: int = 512, sa_dim_ff: int = 128,
-                        num_labels: int = 8, device="cuda", **kw):
-        from sm3x_torch.api import build_evaluator, load_weights
-
-        model = build_evaluator(arch=arch, mlc_proj_dim=mlc_proj_dim,
-                                num_labels=num_labels, sa_dim_ff=sa_dim_ff)
-        load_weights(model, pretrain_path, device=device)
-        return cls(model, mean, std, **kw)
 
     def _replay(self, b: int, arrays) -> np.ndarray:
         """Fill bucket `b`'s static inputs, replay its graph and fetch the
@@ -256,11 +256,51 @@ class Predictor(BucketedPredictor):
             if self.device.type == "cuda":
                 packed = self._replay(b, arrays)
             else:
-                packed = self._forward(*(
+                packed = self._program(b)(*(
                     torch.from_numpy(np.ascontiguousarray(a))
                     for a in arrays)).numpy()
         offs = np.cumsum(self.num_classes)[:-1]
         return np.split(packed, offs, axis=-1)
 
 
-__all__ = ["Predictor", "BucketedPredictor", "crop_border"]
+class Predictor(_GraphPredictor):
+    """Serving wrapper around an `MLCModel` with its weights loaded, on the
+    device the weights are on."""
+
+    def __init__(self, model, mean, std, test_sz: int = 224,
+                 buckets: Sequence[int] = (1, 8, 32, 128),
+                 canvas: int = 320, crop_amount: int = 25):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.served = ServedForward(self.model, mean, std, test_sz)
+        self.test_sz = test_sz
+        self.buckets = sorted(buckets)
+        self.canvas = canvas
+        self.crop_amount = crop_amount
+        self._start()
+
+    def _forward(self, derm, derm_hw, clinic, clinic_hw) -> torch.Tensor:
+        """Canvases and sizes on the device -> the packed (b, sum C_i)
+        float32 probabilities."""
+        with (torch.inference_mode(), _tf32_off(),
+              _no_autocast_cache(self.device)):
+            return self.served(derm, derm_hw, clinic, clinic_hw)
+
+    def _program(self, b: int):
+        return self._forward
+
+    @classmethod
+    def from_checkpoint(cls, pretrain_path: str, arch: str = "resnet50",
+                        mean=(0.7833, 0.6712, 0.6026),
+                        std=(0.2139, 0.2472, 0.2571),
+                        mlc_proj_dim: int = 512, sa_dim_ff: int = 128,
+                        num_labels: int = 8, device="cuda", **kw):
+        from sm3x_torch.api import build_evaluator, load_weights
+
+        model = build_evaluator(arch=arch, mlc_proj_dim=mlc_proj_dim,
+                                num_labels=num_labels, sa_dim_ff=sa_dim_ff)
+        load_weights(model, pretrain_path, device=device)
+        return cls(model, mean, std, **kw)
+
+
+__all__ = ["Predictor", "BucketedPredictor", "ServedForward", "crop_border"]

@@ -16,9 +16,9 @@ the batcher's one thread (or, with ``--no-batching``, one lock) replays one
 bucket's CUDA graph at a time, so the GPU stays the only queue.
 
 CLI: ``python -m sm3x_torch.serve_http --pretrain-path best_eval.pth``
-(also installed as the ``sm3x-torch-serve`` console script). The JAX
-package's ``--exported-path`` serves a StableHLO export, which the port
-does not have (ROADMAP.md, "Do not port"); this parser does not offer it.
+(also installed as the ``sm3x-torch-serve`` console script), or
+``--exported-path <dir>`` to serve an AOT artifact of
+``sm3x_torch.export`` without the model code or the checkpoint.
 """
 
 from __future__ import annotations
@@ -255,9 +255,14 @@ def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser("sm3x_torch HTTP inference server")
-    p.add_argument("--pretrain-path", type=str, required=True,
-                   help="best_eval.pth of an eval stage, or a released "
-                        "best_linear / best_finetune .pth")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--pretrain-path", type=str,
+                     help="best_eval.pth of an eval stage, or a released "
+                          "best_linear / best_finetune .pth")
+    src.add_argument("--exported-path", type=str,
+                     help="AOT artifact directory from "
+                          "sm3x_torch.export.export_predictor (serves "
+                          "without model code or checkpoint)")
     p.add_argument("-a", "--arch", type=str, default="resnet50")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (a CUDA graph a bucket) or cpu (eager)")
@@ -287,12 +292,18 @@ def main(argv=None):
                    help="dispatch each request alone (lock-serialized)")
     args = p.parse_args(argv)
 
-    from sm3x_torch.serve import Predictor
+    if args.exported_path:
+        from sm3x_torch.export import ExportedPredictor
 
-    predictor = Predictor.from_checkpoint(
-        args.pretrain_path, arch=args.arch, mean=args.mean, std=args.std,
-        test_sz=args.test_sz, buckets=tuple(args.buckets),
-        crop_amount=args.crop_amount, device=args.device)
+        predictor = ExportedPredictor(args.exported_path, device=args.device)
+        args.buckets = predictor.buckets
+    else:
+        from sm3x_torch.serve import Predictor
+
+        predictor = Predictor.from_checkpoint(
+            args.pretrain_path, arch=args.arch, mean=args.mean, std=args.std,
+            test_sz=args.test_sz, buckets=tuple(args.buckets),
+            crop_amount=args.crop_amount, device=args.device)
     if args.max_batch is None:
         # coalesce up to the largest warmed bucket: a smaller cap would
         # leave that bucket's program unreachable

@@ -28,9 +28,6 @@ PRNG = f"{DNP}: a jax.random key helper; torch.Generators take its place"
 FILES_NOT_PORTED = {
     "sm3x/core/cache.py": f"{DNP}: the XLA compilation cache",
     "sm3x/core/precision.py": f"{DNP}: the bf16 policy; torch.autocast",
-    "sm3x/export.py": f"{DNP}: StableHLO export",
-    "sm3x/utils/profiling.py": f"{DNP}: xprof; torch.profiler in "
-                               "chip_smoke.py --profile",
     "sm3x/utils/torch_convert.py": f"{DNP}: the port keeps .pth state dicts "
                                    "natively",
     "sm3x/utils/torch_export.py": f"{DNP}: the port keeps .pth state dicts "
@@ -147,6 +144,7 @@ SCRIPTS = {
     "sm3x-torch-backbone-eval": "sm3x_torch.cli.apps:backbone_eval_main",
     "sm3x-torch-reproduce": "sm3x_torch.reproduce:main",
     "sm3x-torch-serve": "sm3x_torch.serve_http:main",
+    "sm3x-torch-export-aot": "sm3x_torch.export:main",
     "sm3x-torch-probe-transfer": "sm3x_torch.train.transfer_probe:main",
 }
 
@@ -387,6 +385,13 @@ SIGNATURE_DIFFERENCES = {
                 "its arch",
     },
     "sm3x/api.py:predict_fn": {"variables": TREE},
+    # `platforms` keeps its name and default (None: where the model is);
+    # its values are torch device types, "cpu" and "cuda", where the JAX
+    # package's are lowering platforms, and each is a program file of its
+    # own. ExportedPredictor.__init__ adds `device`, "cuda" by default as
+    # every port entry point's (test_every_device_parameter_defaults_to_
+    # the_card holds it)
+    "sm3x/export.py:export_predictor": {"variables": TREE},
     "sm3x/cli/parser.py:get_parser": {
         "desc": "the help text's title names the port's program",
     },

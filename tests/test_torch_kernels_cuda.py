@@ -30,6 +30,7 @@ and its lse within rtol / atol 1e-4; the backward <= 7.8e-5 at S = 1 to
 be exact.
 """
 
+import os
 from itertools import permutations
 
 import numpy as np
@@ -886,6 +887,68 @@ def test_graph_replay_is_safe_from_another_thread(small_predictor):
     t.start()
     t.join(60)
     assert got and all(np.array_equal(a, b) for a, b in zip(got[0], want))
+
+
+@pytest.fixture(scope="module")
+def small_artifact(small_predictor, tmp_path_factory):
+    """`small_predictor`'s model (bf16) exported on the card, buckets 1 and
+    4."""
+    from sm3x_torch.export import export_predictor
+
+    path = str(tmp_path_factory.mktemp("aot") / "artifact")
+    export_predictor(small_predictor.model, path, buckets=(1, 4),
+                     image_size=64, mean=MEAN, std=STD, canvas=96)
+    return path
+
+
+@pytest.mark.parametrize("n", [1, 3, 6])
+def test_exported_graphs_serve_what_the_live_predictor_does(
+        small_predictor, small_artifact, n):
+    """The artifact loaded on the card: one CUDA graph a bucket, each
+    against the loaded program run eagerly on the same canvases (rtol /
+    atol 1e-5) and against the live Predictor's graphs (bf16: atol 1e-4,
+    another capture may pick other cuDNN algorithms); 6 cases take bucket 4
+    twice."""
+    from sm3x_torch.export import ExportedPredictor
+
+    p = ExportedPredictor(small_artifact)
+    assert p.device.type == "cuda" and sorted(p._graphs) == [1, 4]
+    seen = []
+    call = p._call
+
+    def spy(b, *arrays):
+        out = call(b, *arrays)
+        seen.append((b, arrays, np.concatenate(out, -1)))
+        return out
+
+    p._call = spy
+    derm, clinic = _raw(n, 70 + n), _raw(n, 90 + n)
+    out = p.predict(derm, clinic)
+    assert [b for b, _, _ in seen] == {1: [1], 3: [4], 6: [4, 4]}[n]
+    for b, arrays, packed in seen:
+        eager = p._program(b)(*(torch.from_numpy(np.ascontiguousarray(a))
+                                .cuda() for a in arrays))
+        _close(torch.from_numpy(packed), eager, rtol=1e-5, atol=1e-5)
+    live = small_predictor.predict(derm, clinic)
+    _close(torch.from_numpy(np.concatenate(out, -1)),
+           torch.from_numpy(np.concatenate(live, -1)), rtol=0, atol=1e-4)
+
+
+def test_an_artifact_for_the_cpu_is_refused_on_the_card(small_predictor,
+                                                        tmp_path):
+    from sm3x_torch.export import ExportedPredictor, export_predictor
+
+    path = str(tmp_path / "cpu")
+    export_predictor(small_predictor.model, path, buckets=(1,),
+                     image_size=64, mean=MEAN, std=STD, canvas=96,
+                     platforms=("cpu",))
+    assert sorted(os.listdir(path)) == ["fwd_b1_cpu.pt2", "manifest.json"]
+    with pytest.raises(ValueError, match="cuda"):
+        ExportedPredictor(path)
+    # and it runs where it was exported for
+    probs = ExportedPredictor(path, device="cpu").predict(_raw(1, 5),
+                                                          _raw(1, 6))
+    np.testing.assert_allclose(probs[0].sum(-1), 1.0, rtol=1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -540,8 +540,9 @@ def test_failing_predictor_gives_each_caller_its_own_exception():
 def test_main_parser_has_device_and_no_exported_path(tmp_path, predictor,
                                                      monkeypatch, capsys):
     """`main` warms every bucket before the socket opens, defaults
-    --max-batch to the largest bucket and passes --device on; the JAX
-    package's --exported-path is not offered."""
+    --max-batch to the largest bucket and passes --device on; it takes
+    --pretrain-path or --exported-path, not both
+    (tests/test_torch_aot_export.py serves an artifact through it)."""
     import sm3x_torch.serve_http as http
 
     path = os.path.join(tmp_path, "best_eval.pth")
@@ -572,4 +573,4 @@ def test_main_parser_has_device_and_no_exported_path(tmp_path, predictor,
     assert made["order"].split("\n")[:3] == [
         "warmed bucket 1", "warmed bucket 2", "serving on 127.0.0.1:0"]
     with pytest.raises(SystemExit):
-        http.main(["--exported-path", "x"])
+        http.main(["--pretrain-path", path, "--exported-path", "x"])
