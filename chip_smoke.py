@@ -132,6 +132,11 @@ Phases, each printing its lines:
            `host`, the bytes the resident feed pins, what `auto` picks; one
            save_async of the stage-1 state against a synchronous save;
            streaming and the libjpeg loader where a JPEG encoder is there
+  prefetch tools/bench_prefetch_torch.py at the JAX tool's defaults (160
+           cases written as a fake Derm7pt tree, batch 32, 4 epochs of 3
+           steps, resnet50, bf16) in a process of its own: the four feeds'
+           images/s (sync, prefetch, resident, stream), each above 0, and
+           each feed's launches (K1 4, K2f and K2b 1 a step, no other)
   vit      the same trainer with a ViT-B/16 encoder pair (vit_b16, v32, proj
            128, T 0.1, batch 64, --world-size 2, bf16 autocast, 224x224,
            --use-checkpoint flash): attention through K3 forward and
@@ -193,8 +198,8 @@ Phases, each printing its lines:
            against their plain versions, under `path_shapes`
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
-With `--only main,dist` (any of kernels, step, main, feed, dist, vit, copy,
-crop, crop_vit, tri, transfer, tp, learn; serve: main, stage2 and eval
+With `--only main,dist` (any of kernels, step, main, feed, prefetch, dist,
+vit, copy, crop, crop_vit, tri, transfer, tp, learn; serve: main, stage2 and eval
 for the weights, then infer and serve; export: main, stage2, eval, export)
 only those phases run after device and build, and no result is printed.
 Each phase prints the seconds it took.
@@ -219,6 +224,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3324,6 +3330,60 @@ def feed_streaming():
     return dict(native=native, decode_ms=decode_s * 1e3)
 
 
+# [prefetch]: tools/bench_prefetch_torch.py at the JAX tool's defaults (160
+# cases, batch 32, 4 epochs, resnet50): 80 train cases, 3 steps an epoch
+PREFETCH_FEEDS = ("sync", "prefetch", "resident", "stream")
+PREFETCH_STEPS = 4 * 3
+PREFETCH_LINE = re.compile(r"^\[(\w+)\] (\d+) epochs of (\d+) steps, timed "
+                           r"seconds \[.*\], kernel launches (\{.*\})$")
+
+
+def phase_prefetch() -> dict:
+    """The feed benchmark in a process of its own, as a user runs it: four
+    JSON lines with the JAX tool's metrics, each rate above 0, and each
+    feed's launches from the tool's standard error (K1 4, K2f and K2b 1 a
+    step, no other kernel); its working directory left empty. Returns
+    {feed: {counter: launches}}."""
+    work = os.path.join(LOGS, "prefetch")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log("[prefetch] tools/bench_prefetch_torch.py at its defaults (160 "
+        "cases, batch 32, 4 epochs, resnet50)")
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "bench_prefetch_torch.py")],
+        cwd=work, capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines() + res.stderr.splitlines()[-20:]:
+        log(f"  {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"bench_prefetch_torch.py exited {res.returncode}")
+    lines = [json.loads(line) for line in res.stdout.splitlines()]
+    if [line.get("metric") for line in lines] != [
+            f"ssl_feed_{f}_images_per_sec" for f in PREFETCH_FEEDS]:
+        raise AssertionError("bench_prefetch_torch.py did not print the four "
+                             "feeds' lines")
+    if not all(line["value"] > 0 for line in lines):
+        raise AssertionError("a feed's rate is not above 0")
+    if os.listdir(work):
+        raise AssertionError(f"the tool left {os.listdir(work)} behind")
+    counters, _ = kernel_counters()
+    launches = {}
+    for match in map(PREFETCH_LINE.match, res.stderr.splitlines()):
+        if match:
+            epochs, steps = int(match[2]), int(match[3])
+            launches[match[1]] = json.loads(match[4])
+            if epochs * steps != PREFETCH_STEPS:
+                raise AssertionError(f"{match[1]}: {epochs} x {steps} steps")
+    want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) * PREFETCH_STEPS
+            for fn in counters}
+    for feed in PREFETCH_FEEDS:
+        if launches.get(feed) != want:
+            raise AssertionError(f"{feed}: launches {launches.get(feed)}, "
+                                 f"want {want}")
+    log(f"  kernel launches a feed as expected: {want}")
+    shutil.rmtree(work)
+    return launches
+
+
 # [dist]: the stage-1 step at [main]'s recipe under torch.distributed
 DIST_STEPS = 3
 # the distributed run against the plain one-process trainer, a loss limit
@@ -4150,6 +4210,7 @@ def main(argv=None) -> int:
     if args.only:
         alone = {"kernels": phase_kernels, "step": phase_step,
                  "main": lambda: phase_main(args.profile), "feed": phase_feed,
+                 "prefetch": phase_prefetch,
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
                  "crop": phase_crop, "crop_vit": phase_crop_vit,
@@ -4165,6 +4226,7 @@ def main(argv=None) -> int:
     launches = run("main", phase_main, args.profile)
     crop_launches = run("crop", phase_crop)
     feed = run("feed", phase_feed)
+    prefetch = run("prefetch", phase_prefetch)
     stage2_launches = run("stage2", phase_stage2, args.profile)
     eval_launches, eval_reference = run("eval", phase_eval, args.profile)
     probe_launches = run("probe", phase_probe, args.profile)
@@ -4235,13 +4297,16 @@ def main(argv=None) -> int:
                  launches_learn=learn_launches[counter],
                  launches_feed={f: feed[f]["launches"][counter]
                                 for f in FEEDS},
+                 launches_prefetch={f: prefetch[f][counter]
+                                    for f in PREFETCH_FEEDS},
                  launches_per_step={
                      "main": MAIN_PER_STEP.get(counter, 0),
                      "vit": VIT_PER_STEP.get(counter, 0),
                      "stage2": STAGE2_PER_STEP.get(counter, 0),
                      "eval": SUPERVISED_PER_STEP.get(counter, 0),
                      "probe": SUPERVISED_PER_STEP.get(counter, 0),
-                     "feed": MAIN_PER_STEP.get(counter, 0), "serve": 0,
+                     "feed": MAIN_PER_STEP.get(counter, 0),
+                     "prefetch": MAIN_PER_STEP.get(counter, 0), "serve": 0,
                      "export": 0,
                      "dist": MAIN_PER_STEP.get(counter, 0),
                      "tp": TP_PER_STEP.get(counter, 0),

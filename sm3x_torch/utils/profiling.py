@@ -13,7 +13,9 @@ Here:
 * `StepTimer` — data/compute wall-clock split, the batch_time/data_time
   meter pair;
 * `check_finite` — a NaN/Inf report on a nested structure of tensors;
-  `enable_nan_checks` is autograd's anomaly detection, the global switch.
+  `enable_nan_checks` is the switch that raises at the first operator
+  that makes a NaN, forward or backward (the JAX package's
+  `jax_debug_nans`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import contextlib
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 @contextlib.contextmanager
@@ -44,10 +48,57 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
+# factories whose output is memory nobody has written yet: a NaN there is
+# not a value that any computation made
+_UNWRITTEN = {torch.ops.aten.empty, torch.ops.aten.empty_like,
+              torch.ops.aten.empty_strided, torch.ops.aten.empty_permuted,
+              torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided,
+              torch.ops.aten.resize_}
+
+
+class _NanCheck(TorchDispatchMode):
+    """Raises FloatingPointError where an ATen operator returns a floating
+    tensor holding a NaN. Views (which compute nothing) and the factories
+    of unwritten memory are not checked; infinities pass."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func.is_view or func.overloadpacket in _UNWRITTEN
+                or (torch.cuda.is_initialized()
+                    and torch.cuda.is_current_stream_capturing())):
+            return out
+        for t in tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and bool(torch.isnan(t).any())):
+                raise FloatingPointError(
+                    f"invalid value (nan) encountered in {func}")
+        return out
+
+
+_NAN_CHECK = None
+
+
 def enable_nan_checks(enable: bool = True):
-    """Global NaN detection in backward passes: autograd's anomaly mode
-    raises at the operation whose gradient went NaN, with the forward's
-    stack trace."""
+    """Raise FloatingPointError at the first operator that makes a NaN, as
+    `jax_debug_nans` does: every floating output of every ATen operator is
+    checked, in forward and backward passes, and anomaly mode is on beside
+    it for the forward's stack trace. Infinities pass. `False` turns both
+    off; calling either twice is harmless.
+
+    The check covers the thread that turned it on and the backward passes
+    that thread starts (autograd's engine runs them under the caller's
+    thread-local state); `jax_debug_nans` covers the whole process. Each
+    check reads a flag back to the host, so no check runs while a CUDA
+    graph is captured (serve.Predictor's), and a graph's replays are not
+    checked. The kernels' own launches are not ATen operators: a NaN they
+    make is caught at the next operator that reads it."""
+    global _NAN_CHECK
+    if enable and _NAN_CHECK is None:
+        _NAN_CHECK = _NanCheck()
+        _NAN_CHECK.__enter__()
+    elif not enable and _NAN_CHECK is not None:
+        _NAN_CHECK.__exit__(None, None, None)
+        _NAN_CHECK = None
     torch.autograd.set_detect_anomaly(enable)
 
 

@@ -479,10 +479,79 @@ def test_enable_nan_checks_turns_anomaly_detection_on_and_off():
     try:
         profiling.enable_nan_checks()
         assert torch.is_anomaly_enabled()
-        with pytest.raises(RuntimeError, match="nan"):
+        with pytest.raises(FloatingPointError, match="nan"):
             torch.sqrt(x).sum().backward()
     finally:
         profiling.enable_nan_checks(False)
     assert not torch.is_anomaly_enabled()
     torch.sqrt(x).sum().backward()   # off: the NaN gradient passes
     assert torch.isnan(x.grad).all()
+
+
+# the three cases of fault M1: (JAX function, port function, input, whether
+# the checks raise); each port function returns the value the JAX one does
+NAN_CASES = {
+    "sqrt_forward": (jax.jit(lambda x: jnp.sqrt(x) * 2),
+                     lambda x: torch.sqrt(x) * 2, [-1.0], True),
+    "sqrt_gradient": (jax.grad(lambda x: jnp.sum(jnp.sqrt(x) * 0)),
+                      lambda x: torch.autograd.grad(
+                          (torch.sqrt(x) * 0).sum(), x)[0], [0.0], True),
+    "divide_by_zero": (jax.jit(lambda x: x / 0), lambda x: x / 0, [1.0],
+                       False),
+}
+
+
+@pytest.mark.parametrize("checks", [True, False], ids=["on", "off"])
+@pytest.mark.parametrize("case", sorted(NAN_CASES))
+def test_nan_checks_raise_where_the_jax_package_s_do(case, checks):
+    """Under each package's enable_nan_checks a NaN made in a forward pass
+    or in a gradient raises FloatingPointError naming "nan"; an infinity
+    passes; with the checks off each returns what the JAX function does."""
+    jax_fn, port_fn, value, raises = NAN_CASES[case]
+    x = torch.tensor(value, requires_grad=case == "sqrt_gradient")
+    try:
+        jax_profiling.enable_nan_checks(checks)
+        profiling.enable_nan_checks(checks)
+        if checks and raises:
+            with pytest.raises(FloatingPointError, match="nan"):
+                jax_fn(jnp.asarray(value))
+            with pytest.raises(FloatingPointError, match="nan"):
+                port_fn(x)
+            return
+        want = np.asarray(jax_fn(jnp.asarray(value)))
+        got = port_fn(x).detach().numpy()
+    finally:
+        jax_profiling.enable_nan_checks(False)
+        profiling.enable_nan_checks(False)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).all() == (raises and not checks)
+
+
+def test_nan_checks_enter_their_mode_once():
+    from torch.utils._python_dispatch import (
+        _get_current_dispatch_mode_stack as mode_stack)
+
+    before = len(mode_stack())
+    try:
+        profiling.enable_nan_checks(True)
+        profiling.enable_nan_checks(True)
+        assert len(mode_stack()) == before + 1
+    finally:
+        profiling.enable_nan_checks(False)
+    assert len(mode_stack()) == before and not torch.is_anomaly_enabled()
+    profiling.enable_nan_checks(False)
+    assert len(mode_stack()) == before
+    assert torch.isnan(torch.sqrt(torch.tensor([-1.0]))).all()
+
+
+def test_nan_checks_skip_views_but_not_what_reads_them():
+    """A view computes nothing, so a NaN that was there before the checks
+    passes through one; the first operator that reads it raises."""
+    x = torch.tensor([1.0, float("nan"), 2.0, 3.0])
+    try:
+        profiling.enable_nan_checks()
+        y = x.view(2, 2)[:, 1:]
+        with pytest.raises(FloatingPointError, match="aten.mul.Tensor"):
+            y * 1
+    finally:
+        profiling.enable_nan_checks(False)

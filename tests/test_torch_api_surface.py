@@ -4,15 +4,23 @@ names an `__init__.py` re-exports included) is in the file's counterpart
 under `sm3x_torch/`, or stands in NOT_PORTED with the reason, which is
 the port's name for it or "Do not port" (ROADMAP.md). A file of `sm3x/`
 has a counterpart at the same path, `*_pallas.py` at `*_cuda.py`, unless
-it stands in FILES_NOT_PORTED. Then the port's console scripts, whose
+it stands in FILES_NOT_PORTED. Each script of the JAX package (every
+`tools/**.py` but the port's `*_torch.py`, and each root `*.py` that
+imports `sm3x`) has a `_torch` twin, whose parser takes every option of
+the JAX script's with an equal default, or stands in SCRIPTS_NOT_TWINNED
+with its counterpart or reason. Then the port's console scripts, whose
 targets must import, and `ntxent_loss_from_logits` against the JAX
 function on the same logits."""
 
+import argparse
 import ast
 import glob
 import importlib
 import os
 import re
+import runpy
+import sys
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -764,3 +772,206 @@ def test_increment_path_follows_the_reference(tmp_path):
     assert increment_path(nested, mkdir=False) == nested
     assert not nested.parent.exists()
     assert increment_path(nested) == nested and nested.parent.is_dir()
+
+
+# --- scripts ---------------------------------------------------------------
+#
+# The JAX package's scripts without a `_torch` twin, with the port's
+# counterpart (whose files must exist) or the reason
+
+TPU_TOOL = (f"{DNP}: a TPU measurement tool; sm3x_torch.utils.profiling.trace "
+            "and chip_smoke.py --profile serve the port")
+BOTH = "runs both packages, one a process, to compare them"
+
+SCRIPTS_NOT_TWINNED = {
+    "__graft_entry__.py": "chip_smoke.py and tools/dryrun_multigpu_torch.py",
+    "tools/bench_stages.py": "bench_torch.py --stage",
+    "tools/bench_pallas_io.py": "tools/bench_copy_torch.py",
+    "tools/misc/process_data_for_gcs.py": "serves both packages: it imports "
+                                          "neither",
+    "tools/compare_ssl_loss.py": BOTH,
+    "tools/bf16_census.py": BOTH,
+    "tools/export_torch_ckpt.py": f"{DNP}: the sm3x.utils.torch_export "
+                                  "bridge; the port keeps .pth state dicts "
+                                  "natively",
+    "tools/bench_torch_baseline.py": f"{DNP}: the CPU torch denominator of "
+                                     "the TPU bench",
+    **{f"tools/{name}.py": TPU_TOOL for name in (
+        "bench_int8_mxu", "bench_int8_conv", "bench_compiler_options",
+        "bench_hbm_attribution", "bench_bn_alternation", "bench_bn_freq",
+        "bench_bn_stale", "bench_bn_subsample", "bench_aug_pallas",
+        "profile_step")},
+}
+
+# options of a JAX script whose twin differs, by (script, option or the
+# index of a positional argument), with the reason
+OPTION_DIFFERENCES = {
+    ("bench.py", 0): "the stage's batch, run.sh's (96 for stage 1) where "
+                     "bench.py's is 128",
+    ("tools/demo_synthetic_e2e.py", "--log-path"):
+        "sm3x_torch_demo under the temporary directory that the environment "
+        "names, so that a run of each package keeps its own",
+    ("tools/export_model.py", "--platforms"):
+        "['cuda']: the card, as every device of the port defaults to it; "
+        "the JAX package's None is its default backend",
+    ("tools/reproduce_results.py", "--platform"):
+        "--platform is the JAX backend's (Do not port); the port's --device",
+}
+
+
+def _imports(path: str) -> set:
+    """The modules `path` imports, anywhere in the file."""
+    mods = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def _jax_scripts() -> list:
+    """Every tools/**.py but the port's, and the root scripts that import
+    the JAX package."""
+    tools = glob.glob(os.path.join(ROOT, "tools", "**", "*.py"),
+                      recursive=True)
+    root = [p for p in glob.glob(os.path.join(ROOT, "*.py"))
+            if any(m == "sm3x" or m.startswith("sm3x.")
+                   for m in _imports(p))]
+    return sorted(os.path.relpath(p, ROOT) for p in tools + root
+                  if not p.endswith("_torch.py"))
+
+
+def _twin(script: str) -> str:
+    return script[:-len(".py")] + "_torch.py"
+
+
+@pytest.mark.parametrize("script", _jax_scripts())
+def test_every_jax_script_has_a_twin_or_a_reason(script):
+    listed = SCRIPTS_NOT_TWINNED.get(script)
+    if listed is None:
+        assert os.path.exists(os.path.join(ROOT, _twin(script))), (
+            f"{_twin(script)} is missing")
+        return
+    assert not os.path.exists(os.path.join(ROOT, _twin(script)))
+    assert listed and "\n" not in listed
+    for path in re.findall(r"[\w/]+\.py", listed):
+        assert os.path.exists(os.path.join(ROOT, path)), path
+
+
+def test_the_script_lists_name_jax_scripts():
+    scripts = set(_jax_scripts())
+    assert "tools/bench_prefetch.py" in scripts and "bench.py" in scripts
+    assert set(SCRIPTS_NOT_TWINNED) <= scripts
+    assert {s for s, _ in OPTION_DIFFERENCES} <= scripts
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser_of(script: str) -> argparse.ArgumentParser:
+    """The parser `script` builds when run with no arguments: its
+    parse_args is stopped before anything else runs."""
+    built = []
+
+    def stop(self, *args, **kwargs):
+        built.append(self)
+        raise _Parsed
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_known_args",
+                           stop), \
+            mock.patch.object(sys, "argv", [script]), \
+            mock.patch.object(sys, "path", list(sys.path)), \
+            pytest.raises(_Parsed):
+        runpy.run_path(os.path.join(ROOT, script), run_name="__main__")
+    return built[0]
+
+
+def _normal(value):
+    return list(value) if isinstance(value, tuple) else value
+
+
+def _parser_options(parser) -> dict:
+    """{option string or positional index: default} of a parser."""
+    out, positional = {}, 0
+    for action in parser._actions:
+        if isinstance(action, argparse._HelpAction):
+            continue
+        if action.option_strings:
+            for name in action.option_strings:
+                out[name] = _normal(action.default)
+        else:
+            out[positional] = _normal(action.default)
+            positional += 1
+    return out
+
+
+def _argv_defaults(script: str) -> dict:
+    """{positional index: default} of a script that reads sys.argv by hand
+    (`sys.argv[i] if len(sys.argv) > i else default`)."""
+    out = {}
+    for node in ast.walk(ast.parse(open(os.path.join(ROOT, script)).read())):
+        if (isinstance(node, ast.IfExp) and isinstance(node.test, ast.Compare)
+                and ast.unparse(node.test.left) == "len(sys.argv)"
+                and isinstance(node.orelse, ast.Constant)):
+            out[node.test.comparators[0].value - 1] = node.orelse.value
+    return out
+
+
+def _parses_options(script: str) -> bool:
+    """Whether `script`, or the module of the JAX package whose main it
+    runs, builds an argparse parser."""
+    paths = [os.path.join(ROOT, script)]
+    for node in ast.walk(ast.parse(open(paths[0]).read())):
+        if (isinstance(node, ast.ImportFrom) and node.module
+                and node.module.split(".")[0] == "sm3x"
+                and any(a.name == "main" or a.name.endswith("_main")
+                        for a in node.names)):
+            paths.append(os.path.join(ROOT, *node.module.split(".")) + ".py")
+    return any("add_argument(" in open(p).read() for p in paths)
+
+
+TWINNED = [s for s in _jax_scripts() if s not in SCRIPTS_NOT_TWINNED]
+
+
+@pytest.mark.parametrize("script", TWINNED)
+def test_every_option_has_a_twin_with_an_equal_default(script):
+    """Every option of the JAX script, and each positional argument it
+    reads from sys.argv by hand, is taken by its twin with an equal
+    default, apart from OPTION_DIFFERENCES; each listed difference is
+    real."""
+    if _parses_options(script):
+        want = _parser_options(_parser_of(script))
+    else:
+        want = _argv_defaults(script)
+    assert want, f"no option read from {script}"
+    have = _parser_options(_parser_of(_twin(script)))
+    problems = []
+    for option, default in want.items():
+        reason = OPTION_DIFFERENCES.get((script, option))
+        if reason is not None:
+            assert option not in have or have[option] != default, (
+                f"{script} {option} is listed but matches")
+            continue
+        if option not in have:
+            problems.append(f"{_twin(script)} lacks {option}")
+        elif have[option] != default:
+            problems.append(f"{_twin(script)} {option}: default "
+                            f"{have[option]!r}, the JAX script's "
+                            f"{default!r}")
+    assert problems == []
+
+
+def test_the_option_check_reads_every_kind_of_script():
+    """Parsers built by the script itself, by the module of the JAX
+    package whose main it runs, and positionals read by hand."""
+    assert _argv_defaults("tools/bench_prefetch.py") == {
+        0: 160, 1: 32, 2: 4, 3: "resnet50"}
+    assert _parser_options(_parser_of("tools/bench_prefetch_torch.py"))[
+        3] == "resnet50"
+    assert _parses_options("tools/export_model.py")
+    assert "--buckets" in _parser_options(_parser_of("tools/export_model.py"))
+    assert "--arch-version" in _parser_options(
+        _parser_of("tools/backbone_train.py"))
+    assert not _parses_options("bench.py")

@@ -4,7 +4,9 @@ without a card can hold it: with `--device cpu` at a toy size (resnet18,
 port's beside them, the device's keys null, for stage 1 and for each
 `--stage`; without a card and without that flag it exits non-zero with a
 message and prints no result. And tools/bench_serve_soak_torch.py at a
-toy size prints its JSON line with the reference's keys."""
+toy size prints its JSON line with the reference's keys, and
+tools/bench_prefetch_torch.py at a toy size its four lines with the keys
+of tools/bench_prefetch.py."""
 
 import importlib.util
 import json
@@ -17,12 +19,21 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, "bench_torch.py")
+PREFETCH = os.path.join(REPO, "tools", "bench_prefetch_torch.py")
 
 
-def _run(args, cwd):
+def _run(args, cwd, script=BENCH):
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    return subprocess.run([sys.executable, BENCH] + args, cwd=cwd, env=env,
+    return subprocess.run([sys.executable, script] + args, cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=600)
+
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def test_bench_prints_one_json_line_on_the_cpu(tmp_path):
@@ -78,11 +89,7 @@ def test_bench_prints_one_json_line_a_stage_on_the_cpu(tmp_path, stage):
 
 
 def test_serve_soak_prints_the_reference_s_keys_on_the_cpu(capsys):
-    spec = importlib.util.spec_from_file_location(
-        "bench_serve_soak_torch",
-        os.path.join(REPO, "tools", "bench_serve_soak_torch.py"))
-    soak = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(soak)
+    soak = _load(os.path.join(REPO, "tools", "bench_serve_soak_torch.py"))
     out = soak.main(["--device", "cpu", "--arch", "resnet18", "--test-sz",
                      "32", "--requests", "8", "--clients", "2"])
     lines = capsys.readouterr().out.strip().splitlines()
@@ -98,3 +105,44 @@ def test_serve_soak_prints_the_reference_s_keys_on_the_cpu(capsys):
     assert out["value"] > 0 and out["coalescing_ratio"] > 0
     assert 0 < out["latency_ms_p50"] <= out["latency_ms_p99"]
     assert out["device"] == "cpu"
+
+
+def test_prefetch_bench_prints_the_reference_s_four_lines_on_the_cpu(
+        tmp_path, monkeypatch, capsys):
+    """Four JSON lines, one a feed in the JAX tool's order, with its metric
+    names and keys and the port's `device`; two steps an epoch (6 train
+    cases at batch 4); nothing left in the working directory. In-process,
+    on two threads, beside the suite's other workers."""
+    tool = _load(PREFETCH)
+    monkeypatch.chdir(tmp_path)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        rc = tool.main(["12", "4", "2", "resnet18", "--img-sz", "32", "32",
+                        "--tree-size", "48", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr()
+    assert rc == 0, out.err[-3000:]
+    lines = [json.loads(line) for line in out.out.strip().splitlines()]
+    assert [line["metric"] for line in lines] == [
+        f"ssl_feed_{feed}_images_per_sec"
+        for feed in ("sync", "prefetch", "resident", "stream")]
+    for line in lines:
+        assert sorted(line) == ["device", "metric", "unit", "value"]
+        assert line["value"] > 0 and line["device"] == "cpu"
+        assert line["unit"].startswith("images/sec (resnet18, b=4, 2 "
+                                       "steps/epoch, ")
+        assert line["unit"].endswith("median of 1 epochs)")
+    assert out.err.count("2 epochs of 2 steps") == 4
+    assert os.listdir(tmp_path) == []
+
+
+def test_prefetch_bench_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        return  # on a card the default run is the benchmark itself
+    res = _run(["12", "4", "2", "resnet18"], str(tmp_path), PREFETCH)
+    assert res.returncode != 0
+    assert "runs on an NVIDIA GPU" in res.stderr
+    assert res.stdout.strip() == ""
+    assert os.listdir(tmp_path) == []

@@ -90,7 +90,8 @@ def test_port_and_reused_modules_load_no_jax():
               "sm3x_torch.models", "sm3x_torch.native", "sm3x_torch.ops",
               "sm3x_torch.train", "sm3x_torch.utils",
               "tools/demo_synthetic_e2e_torch", "tools/misc/cal_mean_std_torch",
-              "tools/bench_serve_soak_torch", "tools/recipe_synthetic_torch"):
+              "tools/bench_serve_soak_torch", "tools/recipe_synthetic_torch",
+              "tools/bench_prefetch_torch"):
         assert m in res["modules"]
     assert res["loaded"] == [], (
         f"modules of the JAX package or of JAX loaded: {res['loaded']}")

@@ -951,6 +951,34 @@ def test_an_artifact_for_the_cpu_is_refused_on_the_card(small_predictor,
     np.testing.assert_allclose(probs[0].sum(-1), 1.0, rtol=1e-5)
 
 
+def test_nan_checks_on_the_card_and_under_graph_capture(small_predictor):
+    """Under enable_nan_checks a NaN made on the card raises, in a forward
+    pass and in a backward pass (run on autograd's device thread); a new
+    Predictor captures its graphs under the switch and serves what
+    `small_predictor` does (atol 1e-4: another capture may pick other cuDNN
+    algorithms)."""
+    from sm3x_torch.serve import Predictor
+    from sm3x_torch.utils import profiling
+
+    derm, clinic = _raw(3, 11), _raw(3, 12)
+    want = small_predictor.predict(derm, clinic)
+    x = torch.zeros(1, device="cuda", requires_grad=True)
+    try:
+        profiling.enable_nan_checks()
+        with pytest.raises(FloatingPointError, match="nan"):
+            torch.sqrt(torch.full((1,), -1.0, device="cuda")) * 2
+        with pytest.raises(FloatingPointError, match="nan"):
+            (torch.sqrt(x) * 0).sum().backward()
+        p = Predictor(small_predictor.model, MEAN, STD, test_sz=64,
+                      buckets=(1, 4, 16), canvas=96)
+        assert sorted(p._graphs) == [1, 4, 16]
+        got = p.predict(derm, clinic)
+    finally:
+        profiling.enable_nan_checks(False)
+    _close(torch.from_numpy(np.concatenate(got, -1)),
+           torch.from_numpy(np.concatenate(want, -1)), rtol=0, atol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def paired(card):
     from sm3x_torch.data.synthetic import synthetic_paired_data
