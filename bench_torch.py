@@ -5,6 +5,8 @@ of each later stage (the counterpart of tools/bench_stages.py).
 
     python3 bench_torch.py [batch] [steps] [arch]          # 96 30 resnet50
     python3 bench_torch.py 64 30 vit_b16 --use-checkpoint flash
+    python3 bench_torch.py --bn-stat-freq 4                # bench.py's bn4
+    python3 bench_torch.py --negatives global              # negatives_global
     python3 bench_torch.py --stage mlc_train               # batch 256
     python3 bench_torch.py --stage mlc_eval                # batch 128
     python3 bench_torch.py --stage backbone_eval           # batch 128
@@ -14,7 +16,12 @@ stage 1 through `SSLTrainer`'s `make_ssl_train_step` (dual encoder,
 224x224, 2 views a modality, v32, proj 128, T 0.1, --world-size 2, AdamW,
 bf16 autocast), everything after the uint8 canvas upload, on in-memory
 synthetic canvases, and counts every augmented image pushed through an
-encoder: 4 a paired sample a step, as bench.py counts them. The other
+encoder: 4 a paired sample a step, as bench.py counts them. It takes
+bench.py's two secondary modes, each a line of its own: `--bn-stat-freq
+K` (EXPERIMENTAL, off-recipe: the eval-BN fast step on every step whose
+index is not a multiple of K, after 2K warm-up steps, as bench.py runs
+it; the metric ends `_bn_stat_freq{K}`) and `--negatives global` (NT-Xent
+over the whole batch; `_negatives_global`). The other
 stages take run.sh's recipes, through their trainers' `train_step`, and
 count 2 images a paired sample (one view a modality):
   mlc_train      stage 2: MLCTrainer, frozen extractor, v4 projectors of
@@ -34,7 +41,8 @@ Prints ONE JSON line:
                      by a synchronise (host clock)
   images_per_sec     images a step over the median step
   device_busy_ms     the sum of kernel and copy times a step under
-                     torch.profiler, over 3 further steps
+                     torch.profiler, over 3 further steps (under
+                     --bn-stat-freq K, over K: one refresh, K - 1 fast)
   launches_per_step  kernels and copies a step in that profile
   peak_memory_gib    torch.cuda.max_memory_allocated over the run
   device             the card's name and power limit, as nvidia-smi gives them
@@ -85,13 +93,17 @@ def ssl_stage(args, log_path, logger):
     o.batch_size, o.base_lr, o.adam_eps = args.batch, 1e-6, 1e-5
     o.amp = args.device != "cpu"
     cfg.data.img_sz = tuple(args.img_sz)
+    m.bn_stat_freq, m.negatives = args.bn_stat_freq, args.negatives
     r.world_size, r.device, r.log_path = 2, args.device, log_path
     trainer = SSLTrainer(cfg, logger=logger)
     # bench.py's batch: the same canvases for both modalities
     batch, _ = canvas_batch(args, trainer.device, 0)
 
     def step(i):
-        return trainer.train_step(*batch, prng.step_seed(r.seed, 0, i))["loss"]
+        fn = trainer.train_step
+        if trainer.fast_step is not None and i % trainer.bn_stat_freq:
+            fn = trainer.fast_step  # the eval-BN step on K - 1 of K steps
+        return fn(*batch, prng.step_seed(r.seed, 0, i))["loss"]
 
     return step, 4 * args.batch, trainer
 
@@ -190,8 +202,20 @@ def main(argv=None) -> int:
     p.add_argument("--img-sz", nargs=2, type=int, default=[224, 224])
     p.add_argument("--canvas", type=int, default=320,
                    help="side of the synthetic uint8 canvases")
+    p.add_argument("--bn-stat-freq", type=int, default=1,
+                   help="stage 1: refresh the BatchNorm statistics every "
+                   "K-th step, the eval-BN fast step on the others "
+                   "(EXPERIMENTAL, off-recipe; bench.py's bnK)")
+    p.add_argument("--negatives", choices=("local", "global"),
+                   default="local",
+                   help="stage 1: NT-Xent negatives within the --world-size "
+                   "groups or over the whole batch (bench.py's "
+                   "negatives_global)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.stage != "ssl" and (args.bn_stat_freq != 1
+                                or args.negatives != "local"):
+        p.error("--bn-stat-freq and --negatives are stage 1's (--stage ssl)")
     if args.batch is None:
         args.batch = STAGE_BATCH[args.stage]
     on_card = args.device != "cpu"
@@ -210,14 +234,18 @@ def main(argv=None) -> int:
         quiet.addHandler(logging.NullHandler())
         quiet.propagate = False
         step, images, trainer = STAGE_STEPS[args.stage](args, log_path, quiet)
+        # bench.py's bnK schedule (K clamped as SSLTrainer clamps it): two
+        # whole periods warm both steps
+        k = max(1, args.bn_stat_freq)
+        warmup = 2 * k if k > 1 else WARMUP_STEPS
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        for i in range(WARMUP_STEPS):
+        for i in range(warmup):
             step(i)
         sync()
         t0 = time.perf_counter()
         for i in range(args.steps):
-            loss = step(WARMUP_STEPS + i)
+            loss = step(warmup + i)
         sync()
         window = time.perf_counter() - t0
         if not torch.isfinite(loss):
@@ -225,15 +253,20 @@ def main(argv=None) -> int:
         times = []
         for i in range(args.steps):
             t = time.perf_counter()
-            step(WARMUP_STEPS + args.steps + i)
+            step(warmup + args.steps + i)
             sync()
             times.append((time.perf_counter() - t) * 1e3)
-        prof = profile_device(step, PROFILE_STEPS) if on_card else None
+        prof = (profile_device(step, PROFILE_STEPS if k == 1 else k)
+                if on_card else None)
         peak = torch.cuda.max_memory_allocated() if on_card else None
 
     size = f"{args.img_sz[0]}x{args.img_sz[1]}"
     if args.stage == "ssl":
         metric = METRIC
+        if k > 1:
+            metric += f"_bn_stat_freq{k}"
+        if args.negatives == "global":
+            metric += "_negatives_global"
         unit = (f"images/sec/chip ({size} through {args.arch} fwd+bwd, incl. "
                 f"on-device aug)")
     else:

@@ -53,6 +53,13 @@ Phases, each printing its lines:
            two globals, the six locals; all band), K2f / K2b one each (16
            terms x 2 groups); step times, the device's busy time of three
            traced steps, the loss's parts, peak memory
+  bnfreq   `main`'s recipe under --bn-stat-freq 4 (EXPERIMENTAL,
+           off-recipe): 8 steps through fit, 2 standard and 6 fast (the
+           model in eval mode), K1 4, K2f 1 and K2b 1 launches a step (all
+           band); a fast step leaves every running statistic bit-identical
+           and the model in train mode, a standard step moves them; each
+           step's device busy ms and launches over three traced steps and
+           its host-clock median over six steps in turns
   stage2   the stage-2 trainer at the run.sh recipe (two frozen resnet50
            from the ckp_0.pth that `main` wrote, 224x224, batch 256, v4
            projectors of 512, 1 head, ff 128, dropout 0.1, T 1, lr 1e-4,
@@ -199,9 +206,10 @@ Phases, each printing its lines:
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
 
 With `--only main,dist` (any of kernels, step, main, feed, prefetch, dist,
-vit, copy, crop, crop_vit, tri, transfer, tp, learn; serve: main, stage2 and eval
-for the weights, then infer and serve; export: main, stage2, eval, export)
-only those phases run after device and build, and no result is printed.
+vit, copy, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
+stage2 and eval for the weights, then infer and serve; export: main,
+stage2, eval, export) only those phases run after device and build, and no
+result is printed.
 Each phase prints the seconds it took.
 
 With `--profile DIR`, the main, stage2, eval, probe, vit and dist phases
@@ -1117,15 +1125,17 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
               per_step: dict, profile_dir=None, profile_name=None,
-              tweak=None, busy: bool = False) -> tuple:
+              tweak=None, busy: bool = False, then=None) -> tuple:
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
     steps through SSLTrainer.fit with every kernel count set to 0 just
     before and read just after (each must equal `per_step` x steps), then
     the step time over two more epochs and the loss's parts of the last of
     them. `tweak(cfg, data)` changes the recipe (the multi-crop and
     tri-modal phases); with `busy` the device's busy time of three traced
-    steps is printed too. Returns the launches in fit by wrapper and each
-    K3 wrapper's by (B, S, H, D)."""
+    steps is printed too; `then(trainer, batches)` runs last, with four
+    batches of a later epoch on the card (the [bnfreq] checks). Returns
+    the launches in fit by wrapper and each K3 wrapper's by (B, S, H,
+    D)."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -1231,6 +1241,8 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
                 f"{res['wall_ms']:.1f} ms on the host clock under the "
                 f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
                 f"busy), {res['launches']:.0f} kernels and copies a step")
+    if then is not None:
+        then(trainer, device_batches(3)[:4])
     return launches, shapes
 
 
@@ -1282,6 +1294,83 @@ def phase_crop() -> dict:
     NT-Xent terms in 2 groups, one K2 call a step."""
     return phase_fit("crop", "resnet50", MAIN_BATCH, CROP_STEPS, False,
                      CROP_PER_STEP, tweak=crop_tweak, busy=True)[0]
+
+
+# --bn-stat-freq 4 on [main]'s recipe: fit's steps 0 and 4 refresh the
+# statistics, the other six take the fast step; the same kernels either way
+BNFREQ_K, BNFREQ_STEPS = 4, 8
+
+
+def bnfreq_tweak(cfg, data) -> None:
+    cfg.model.bn_stat_freq = BNFREQ_K
+
+
+def bnfreq_checks(trainer, batches) -> None:
+    """The fast step leaves every running statistic as it was, bit for bit,
+    and the model in train mode; the standard step moves them; then each
+    step's device busy ms, launches and top kernels over three traced
+    steps, and the host-clock ms of six steps of each in turns."""
+    bns = [m for m in trainer.model.modules()
+           if hasattr(m, "running_mean")]
+    stats = lambda: [t.clone() for m in bns for t in (
+        m.running_mean, m.running_var, m.num_batches_tracked)]
+    params = lambda: [p.detach().clone() for p in trainer.model.parameters()]
+    (args, meta), seed = batches[0], 10 ** 6
+    before, weights = stats(), params()
+    trainer.fast_step(*args, seed, *meta)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(before, stats())):
+        raise AssertionError("the fast step moved a running statistic")
+    if not all(m.training for m in trainer.model.modules()):
+        raise AssertionError("the fast step left a module in eval mode")
+    moved = sum(not torch.equal(a, b) for a, b in zip(weights, params()))
+    if moved == 0:
+        raise AssertionError("the fast step moved no parameter")
+    before = stats()
+    trainer.train_step(*args, seed + 1, *meta)
+    torch.cuda.synchronize()
+    after = stats()
+    means = [not torch.equal(before[i], after[i])
+             for i in range(0, len(after), 3)]
+    counts = [int(after[i] - before[i]) for i in range(2, len(after), 3)]
+    if not all(means) or min(counts) < 1:
+        raise AssertionError(f"the standard step moved {sum(means)} of "
+                             f"{len(means)} running means, counts {counts}")
+    log(f"  fast step: {len(bns)} BatchNorms' running statistics identical "
+        f"bit for bit, {moved} of {len(weights)} parameter tensors moved, "
+        f"every module back in train mode; standard step: every running "
+        f"mean moved, every count up (by {sorted(set(counts))}: one a "
+        f"forward pass through the layer)")
+    steps = {"standard": trainer.train_step, "fast": trainer.fast_step}
+    for name, fn in steps.items():
+        res = profile_device(lambda it, fn=fn: fn(*batches[it][0], it,
+                                                  *batches[it][1]), 3)
+        log(f"  {name} step: device busy {res['busy_ms']:.1f} ms a step of "
+            f"{res['wall_ms']:.1f} ms on the host clock under the profiler, "
+            f"{res['launches']:.0f} kernels and copies a step; its three "
+            f"longest kernels:")
+        for e in res["rows"][:3]:
+            log(f"    {getattr(e, res['field']) / 3e3:8.3f} ms/step "
+                f"x{e.count // 3:<4d} {e.key[:150]}")
+    order = [name for _ in range(6) for name in ("standard", "fast")]
+    times = timed_steps([
+        lambda it=it, fn=steps[name]: fn(*batches[it % 4][0], it,
+                                         *batches[it % 4][1])["loss"]
+        for it, name in enumerate(order)])
+    for name in steps:
+        own = [t * 1e3 for t, n in zip(times, order) if n == name]
+        log(f"  {name} step in turns: median {statistics.median(own):.1f} "
+            f"ms, min {min(own):.1f} over {len(own)} steps (host clock, "
+            f"synchronised)")
+
+
+def phase_bnfreq() -> dict:
+    """[main]'s recipe under --bn-stat-freq 4 (EXPERIMENTAL, off-recipe):
+    8 steps through fit with K1 4, K2f 1 and K2b 1 launches a step (all
+    band), then bnfreq_checks."""
+    return phase_fit("bnfreq", "resnet50", MAIN_BATCH, BNFREQ_STEPS, False,
+                     MAIN_PER_STEP, tweak=bnfreq_tweak,
+                     then=bnfreq_checks)[0]
 
 
 # [crop]'s recipe on [vit]'s model: each view is its own encoder pass (the
@@ -4214,6 +4303,7 @@ def main(argv=None) -> int:
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
                  "crop": phase_crop, "crop_vit": phase_crop_vit,
+                 "bnfreq": phase_bnfreq,
                  "tri": phase_tri, "transfer": phase_transfer,
                  "tp": phase_tp, "learn": phase_learn,
                  "serve": phase_serving, "export": phase_exporting}
@@ -4225,6 +4315,7 @@ def main(argv=None) -> int:
     run("step", phase_step)
     launches = run("main", phase_main, args.profile)
     crop_launches = run("crop", phase_crop)
+    bnfreq_launches = run("bnfreq", phase_bnfreq)
     feed = run("feed", phase_feed)
     prefetch = run("prefetch", phase_prefetch)
     stage2_launches = run("stage2", phase_stage2, args.profile)
@@ -4289,6 +4380,7 @@ def main(argv=None) -> int:
                  launches_dist=dist_launches[counter],
                  launches_tp=tp["launches"][counter],
                  launches_crop=crop_launches[counter],
+                 launches_bnfreq=bnfreq_launches[counter],
                  launches_crop_vit=crop_vit_launches[counter],
                  launches_tri=tri_launches[counter],
                  launches_dist_crop=recipe_launches["crop"][counter],
@@ -4311,6 +4403,7 @@ def main(argv=None) -> int:
                      "dist": MAIN_PER_STEP.get(counter, 0),
                      "tp": TP_PER_STEP.get(counter, 0),
                      "crop": CROP_PER_STEP.get(counter, 0),
+                     "bnfreq": MAIN_PER_STEP.get(counter, 0),
                      "crop_vit": VIT_CROP_PER_STEP.get(counter, 0),
                      "tri": VIT_PER_STEP.get(counter, 0),
                      "dist_crop": CROP_PER_STEP.get(counter, 0),

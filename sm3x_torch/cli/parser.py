@@ -124,7 +124,14 @@ def add_ssl_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    "always runs as the port's kernel")
     p.add_argument("--negatives", choices=("local", "global"),
                    default="local")
-    p.add_argument("--bn-stat-freq", type=int, default=1)
+    p.add_argument("--bn-stat-freq", type=int, default=1,
+                   help="EXPERIMENTAL throughput knob: refresh BN batch "
+                   "statistics only every K-th step; the other steps "
+                   "normalize with running stats (eval-BN forward, no stat "
+                   "pass). Measured HARMFUL to learned-feature quality in a "
+                   "learning-regime grid at lr 1e-5 (K=4 probe lands below "
+                   "the random-init control — BENCH.md round 4); keep at 1 "
+                   "(reference semantics) for quality-critical runs")
     p.add_argument("--linear-probe", action="store_true",
                    help="run the in-tool linear probe after training")
     p.add_argument("--probe-epochs", type=int, default=50,

@@ -16,6 +16,14 @@ term. Under --arch-version trimodal the batch's metadata codes join as a
 third modality (sm3x_torch.models.trimodal): two dropout views, nine
 NT-Xent terms, still one K2 call.
 
+Under --bn-stat-freq K > 1 (EXPERIMENTAL, off-recipe) the dual-modal
+trainer takes the standard step on every K-th step of an epoch and a fast
+step on the others: the whole model in eval mode, so each BatchNorm
+normalises with its running statistics and leaves them as they are, while
+the gradient step is whole (sm3x/train/backbone_train.py's `frozen_bn`,
+Flax's `train=False`). The same kernels run: K1 and K2 as in the
+standard step.
+
 Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
 each view draws from its own `torch.Generator` on the device.
@@ -37,6 +45,7 @@ multi-crop runs go through the same blocks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -72,8 +81,6 @@ def unsupported(cfg) -> list:
         (m.arch_version == "trimodal" and d.data_name == MULTICROP,
          "multi-crop (SevenPCSwavDataset) and --arch-version trimodal are "
          "not combinable"),
-        (m.bn_stat_freq != 1, f"--bn-stat-freq {m.bn_stat_freq} is not ported "
-         f"(measured harmful to feature quality, BENCH.md r4)"),
         (m.negatives not in ("local", "global"),
          f"--negatives {m.negatives}"),
     ]
@@ -128,6 +135,25 @@ def _metrics(total, parts, groups: int, world: int) -> dict:
     return metrics
 
 
+@contextlib.contextmanager
+def frozen_statistics(model, frozen: bool):
+    """Inside the block, where `frozen`, every module of `model` is in eval
+    mode: a BatchNorm normalises with its running statistics and moves
+    none of them. Each module's own mode comes back after it, whatever
+    happens. The block holds the backward too: a segment that
+    --use-checkpoint recomputes there must run in the forward's mode."""
+    if not frozen:
+        yield
+        return
+    modes = [(module, module.training) for module in model.modules()]
+    model.eval()
+    try:
+        yield
+    finally:
+        for module, training in modes:
+            module.training = training
+
+
 def _descend(optimizer, loss_fn, groups: int, world: int) -> dict:
     """Gradients cleared (before the forward, so the last step's are not
     held through it), `loss_fn()` -> (total, parts), backward and one AdamW
@@ -142,10 +168,12 @@ def _descend(optimizer, loss_fn, groups: int, world: int) -> dict:
 def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
                temperature: float, groups: int,
                modality_weights=(1.0, 1.0), world: int = 1, derm_locals=(),
-               clinic_locals=(), local_weight: float = 1.0) -> dict:
+               clinic_locals=(), local_weight: float = 1.0,
+               frozen_bn: bool = False) -> dict:
     """Forward, loss, backward and AdamW step on augmented views (this
     rank's rows of them across `world` processes, `model` under DDP), and
-    multi-crop local views where given. Returns the global loss and its
+    multi-crop local views where given; with `frozen_bn` all of it in
+    eval mode (`frozen_statistics`). Returns the global loss and its
     parts as detached device scalars (read them back when needed)."""
     def loss_fn():
         outs = model(derm_views, clinic_views, derm_locals, clinic_locals)
@@ -153,7 +181,8 @@ def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
                         modality_weights=modality_weights, world=world,
                         local_weight=local_weight)
 
-    return _descend(optimizer, loss_fn, groups, world)
+    with frozen_statistics(model, frozen_bn):
+        return _descend(optimizer, loss_fn, groups, world)
 
 
 def trimodal_update(model, optimizer, derm_views, clinic_views, meta_codes,
@@ -195,7 +224,8 @@ def multicrop_settings(multicrop: dict):
 def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                         groups: int, mean, std, aug_cfg=SSL_AUG,
                         modality_weights=(1.0, 1.0), joint_aug: bool = False,
-                        rows=None, multicrop=None, trimodal: bool = False):
+                        rows=None, multicrop=None, trimodal: bool = False,
+                        frozen_bn: bool = False):
     """Returns step(derm, derm_hw, clinic, clinic_hw, seed) -> metrics, with
     the canvases (B, S, S, 3) uint8 and valid sizes (B, 2) on the device:
     the `rows` of the global batch where given (sm3x_torch.core.mesh.Rows,
@@ -207,9 +237,15 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
     (a `TriModalSimCLR` model) makes it step(..., seed, meta): the batch's
     metadata codes ((B, F) integers of the global batch, on the host until
     the step uploads this rank's rows of them), whose two dropout views
-    draw from the seed's stream 2. On the card the photometric chain and
-    the loss always run kernels K1 and K2, so --use-pallas-augment /
+    draw from the seed's stream 2. `frozen_bn` makes it the
+    --bn-stat-freq fast step: the model's forward and backward in eval
+    mode, its running statistics unchanged, the AdamW step whole; the
+    tri-modal step does not take it. On the card the photometric chain
+    and the loss always run kernels K1 and K2, so --use-pallas-augment /
     --use-pallas-ntxent change nothing here."""
+    if frozen_bn and trimodal:
+        raise ValueError("the --bn-stat-freq fast step is the dual-modal "
+                         "step's; the tri-modal step runs in train mode")
     world = 1 if rows is None else rows.world
     local_weight, crops = 1.0, None
     if multicrop is not None:
@@ -240,7 +276,7 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
         if not trimodal:
             return ssl_update(model, optimizer, d, c, style, temperature,
                               groups, modality_weights, world, d_locals,
-                              c_locals, local_weight)
+                              c_locals, local_weight, frozen_bn)
         codes = meta[0] if rows is None else rows.take(meta[0])
         gen = prng.generator(prng.fold_in(seed, 2), derm.device)
         return trimodal_update(model, optimizer, d, c,
@@ -272,6 +308,12 @@ class SSLTrainer(common.CheckpointableTrainer):
         m = cfg.model
         self.remat = resolve_remat(m.use_checkpoint, m.arch, self.logger)
         self.is_trimodal = m.arch_version == "trimodal"
+        self.bn_stat_freq = max(1, int(m.bn_stat_freq))
+        if self.bn_stat_freq > 1 and self.is_trimodal:
+            raise ValueError(
+                "--bn-stat-freq applies to the dual-modal SSL step only "
+                "(the trimodal step's dropout views need train-mode "
+                "forward)")
         # initialise from the seed on the CPU, whatever the device
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(prng.fold_in(cfg.run.seed, 0))
@@ -318,12 +360,26 @@ class SSLTrainer(common.CheckpointableTrainer):
             self.logger.info(
                 f"multi-crop SSL: sizes {d.size_crops}, counts "
                 f"{d.nmb_crops}, local weight {m.local_loss_weight}")
+        step_args = (self.net, self.optimizer, self.style, m.temperature,
+                     self.groups, tuple(cfg.data.mean), tuple(cfg.data.std),
+                     aug_cfg)
+        step_kw = dict(modality_weights=tuple(cfg.modality_weights),
+                       joint_aug=joint_aug, rows=self.rows,
+                       multicrop=multicrop)
         self.train_step = make_ssl_train_step(
-            self.net, self.optimizer, self.style, m.temperature,
-            self.groups, tuple(cfg.data.mean), tuple(cfg.data.std), aug_cfg,
-            modality_weights=tuple(cfg.modality_weights),
-            joint_aug=joint_aug, rows=self.rows, multicrop=multicrop,
-            trimodal=self.is_trimodal)
+            *step_args, trimodal=self.is_trimodal, **step_kw)
+        # --bn-stat-freq K > 1 (off-recipe): every K-th step refreshes the
+        # BatchNorm statistics; the others take the eval-mode fast step
+        self.fast_step = None
+        if self.bn_stat_freq > 1:
+            self.fast_step = make_ssl_train_step(*step_args, frozen_bn=True,
+                                                 **step_kw)
+            k = self.bn_stat_freq
+            self.logger.info(
+                f"bn-stat-freq {k}: BN statistics refresh every {k} steps "
+                f"(EXPERIMENTAL, off-recipe; running stats lag up to "
+                f"{k - 1} steps — measured harmful to feature quality in a "
+                f"learning-regime grid, BENCH.md round 4)")
 
     def _load_arch_weights(self, value: str, arch: str) -> None:
         """--arch-weights: both encoders start from a torchvision-layout
@@ -378,8 +434,10 @@ class SSLTrainer(common.CheckpointableTrainer):
 
     def train_epoch(self, data, epoch: int) -> dict:
         """One pass over `data` (any object with `steps_per_epoch(b)` and
-        `batches(b, epoch, seed)`). Loss readbacks wait for the print
-        cadence and the epoch end, so steps queue without host syncs."""
+        `batches(b, epoch, seed)`). Under --bn-stat-freq K the steps whose
+        index in the epoch is not a multiple of K take the fast step. Loss
+        readbacks wait for the print cadence and the epoch end, so steps
+        queue without host syncs."""
         cfg = self.cfg
         losses = AverageMeter("Loss", ":.4f")
         batch_time = AverageMeter("Time", ":6.3f")
@@ -390,7 +448,10 @@ class SSLTrainer(common.CheckpointableTrainer):
         end = time.time()
         for it, batch in enumerate(
                 data.batches(cfg.optim.batch_size, epoch, cfg.run.seed)):
-            metrics = self.train_step(
+            step = self.train_step
+            if self.fast_step is not None and it % self.bn_stat_freq:
+                step = self.fast_step
+            metrics = step(
                 self._upload(batch.derm), self._upload(batch.derm_hw),
                 self._upload(batch.clinic), self._upload(batch.clinic_hw),
                 prng.step_seed(cfg.run.seed, epoch, it), *self._meta(batch))

@@ -77,11 +77,14 @@ def device_events(prof):
 
 
 def _profile(fn, n: int):
+    """torch.profiler over fn(0) .. fn(n - 1): (the profile, host-clock us).
+    The device's activity alone: every reader takes the device rows, and
+    the host's operator events cost seconds to gather a window of
+    training steps."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             fn(i)

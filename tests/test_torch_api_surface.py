@@ -469,10 +469,6 @@ SIGNATURE_DIFFERENCES = {
     "sm3x/train/mlc_train.py:MLCTrainer.__init__": {
         "extractor_tree": "`extractor_state`, a state dict",
     },
-    "sm3x/train/backbone_train.py:make_ssl_train_step": {
-        "frozen_bn": "a BatchNorm in eval mode keeps its statistics: the "
-                     "module's mode",
-    },
     "sm3x/train/common.py:make_adamw": {
         "mask_tree": "the optimizer takes only the trainable parameters "
                      "(trainable_parameters)",
@@ -798,8 +794,8 @@ SCRIPTS_NOT_TWINNED = {
                                      "the TPU bench",
     **{f"tools/{name}.py": TPU_TOOL for name in (
         "bench_int8_mxu", "bench_int8_conv", "bench_compiler_options",
-        "bench_hbm_attribution", "bench_bn_alternation", "bench_bn_freq",
-        "bench_bn_stale", "bench_bn_subsample", "bench_aug_pallas",
+        "bench_hbm_attribution", "bench_bn_alternation", "bench_bn_stale",
+        "bench_bn_subsample", "bench_aug_pallas",
         "profile_step")},
 }
 

@@ -133,8 +133,9 @@ NOT_DIVIDED = "--mesh-model 2 does not divide the 1 process"
      "are not combinable"),
     (["--data-name", "SevenPCSwavDataset", "--nmb-crops", "3", "6"],
      "--nmb-crops must start with 2"),
-    # not to be ported at all: K = 4 hurt the features
-    (["--bn-stat-freq", "4"], "is not ported (measured harmful"),
+    # the JAX package's own refusal: the fast step is the dual-modal step's
+    (["--arch-version", "trimodal", "--bn-stat-freq", "2"],
+     "--bn-stat-freq applies to the dual-modal SSL step only"),
     # the data axis is the run's processes over --mesh-model, which must
     # divide them; --coordinator needs its two companions
     (["--mesh-data", "2", "--mesh-model", "2"], NOT_DIVIDED),

@@ -25,6 +25,11 @@ on the global batch:
 - multi-crop and tri-modal stage 1, one step each in float64: the loss at
   rtol 1e-9 and parameters within 1e-3 x lr of one process's, the state
   identical on both ranks;
+- the --bn-stat-freq fast step (the model in eval mode) on the first
+  views, then a standard step on the second, in float64: losses, the
+  parameters and, after the standard step, the running statistics at the
+  bounds above; after the fast step the statistics are the initial ones
+  bit for bit on both ranks;
 - the feed: every strategy and streaming gives each rank its rows of the
   one-process batches, the wrap-padded last batch included;
 - stage 2, the init pass and one epoch in float64: the k-means
@@ -151,6 +156,35 @@ def _stage1_paths(rows=None) -> dict:
         out[kind] = {"losses": losses, "digest": _digest(model),
                      "params": {n: p.detach().clone()
                                 for n, p in model.named_parameters()}}
+    return out
+
+
+def _fast_then_standard(init_path: str, rows=None) -> dict:
+    """A fast step (`frozen_bn`) on the first views and a standard step on
+    the second, float64, on this rank's rows (all without `rows`): the
+    initial statistics, and the losses, parameters, statistics and state
+    digest after each step."""
+    from sm3x_torch.train import common
+    from sm3x_torch.train.backbone_train import ssl_update
+
+    model, style = _initial_model(init_path)
+    model.double().train()
+    net = common.data_parallel(model, "cpu")
+    opt = common.make_adamw(model.parameters(), LR, WD, eps=EPS)
+    views = torch.from_numpy(_views()).double()
+    world = 1 if rows is None else rows.world
+    stats = lambda: {n: b.clone() for n, b in model.named_buffers()}
+    out = {"initial": stats(), "losses": [], "params": [], "stats": [],
+           "digests": []}
+    for s, frozen in enumerate((True, False)):
+        v = views[s] if rows is None else rows.take(views[s], dim=1)
+        m = ssl_update(net, opt, (v[0], v[1]), (v[2], v[3]), style, T,
+                       GROUPS["local"], world=world, frozen_bn=frozen)
+        out["losses"].append(float(m["loss"]))
+        out["params"].append({n: p.detach().clone()
+                              for n, p in model.named_parameters()})
+        out["stats"].append(stats())
+        out["digests"].append(_digest(model))
     return out
 
 
@@ -359,6 +393,7 @@ def worker(out_dir: str, data_dir: str) -> None:
     # the one-process runs, before the group exists
     ref = {k: _stage1(init, g) for k, g in GROUPS.items()}
     ref_paths = _stage1_paths()
+    ref_fast = _fast_then_standard(init)
     assert C.distributed_initialize(backend="gloo")
     rank, world = C.process_info()
     rows = local_rows(B)
@@ -389,6 +424,23 @@ def worker(out_dir: str, data_dir: str) -> None:
                                          for n, p in run["params"].items())}
                     for k, run in paths.items()}
     del paths, ref_paths
+    run = _fast_then_standard(init, rows)
+    got["fast"] = {
+        "losses": run["losses"], "ref_losses": ref_fast["losses"],
+        "digests": run["digests"],
+        "param_err": [max(float((p - want[n]).abs().max())
+                          for n, p in got_s.items())
+                      for got_s, want in zip(run["params"],
+                                             ref_fast["params"])],
+        "kept": all(torch.equal(b, run["initial"][n])
+                    for n, b in run["stats"][0].items()),
+        "changed": all(not torch.equal(b, run["initial"][n])
+                       for n, b in run["stats"][1].items()
+                       if n.endswith(("running_mean", "running_var"))),
+        "moved": {n: (b, ref_fast["stats"][1][n])
+                  for n, b in run["stats"][1].items()
+                  if n.endswith(("running_mean", "running_var"))}}
+    del run, ref_fast
     got["views"] = _views_of(rows)
     host, stream = _split(data_dir, False), _split(data_dir, True)
     got["feed"] = {s: _feed_batches(wrap_for_device(host, "cpu", strategy=s))
@@ -556,6 +608,22 @@ def test_multicrop_and_trimodal_on_two_ranks_are_the_one_process_run(ranks,
         "digest"]
     assert ranks[0]["paths"][kind]["losses"] == ranks[1]["paths"][kind][
         "losses"]
+
+
+def test_the_fast_step_on_two_ranks_is_the_one_process_step(ranks):
+    """--bn-stat-freq's fast step under DDP: the model in eval mode on
+    every rank, the gradients still all-reduced, no statistic moved."""
+    for g in ranks:
+        run = g["fast"]
+        np.testing.assert_allclose(run["losses"], run["ref_losses"],
+                                   rtol=1e-9)
+        assert max(run["param_err"]) <= 1e-3 * LR, run["param_err"]
+        assert run["kept"] and run["changed"]
+        for name, (got, want) in run["moved"].items():
+            np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12,
+                                       err_msg=name)
+    assert ranks[0]["fast"]["digests"] == ranks[1]["fast"]["digests"]
+    assert ranks[0]["fast"]["losses"] == ranks[1]["fast"]["losses"]
 
 
 def test_the_views_do_not_depend_on_the_process_count(ranks):

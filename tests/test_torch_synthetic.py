@@ -172,10 +172,40 @@ def test_compare_ssl_loss_reports_the_seed_table_keys(tmp_path,
 
 
 def test_demo_refuses_a_bn_stat_freq_above_one(tmp_path):
+    """Under --arch-version trimodal, as the JAX package's trainer refuses
+    it."""
     demo = _load("tools/demo_synthetic_e2e_torch.py", "demo_refuse")
-    with pytest.raises(SystemExit, match="--bn-stat-freq 4"):
-        demo.main(["--device", "cpu", "--bn-stat-freq", "4", "--log-path",
+    with pytest.raises(ValueError, match="--bn-stat-freq applies to the "
+                       "dual-modal SSL step only"):
+        demo.main(["--device", "cpu", "--bn-stat-freq", "4", "--data-n",
+                   "24", "--arch-version", "trimodal", "--log-path",
                    str(tmp_path)])
+
+
+def test_demo_takes_a_bn_stat_freq_above_one(tmp_path, capsys):
+    """K = 2 at batch 8: each epoch's second step is the fast step."""
+    from sm3x_torch.train import backbone_train
+
+    demo = _load("tools/demo_synthetic_e2e_torch.py", "demo_bnfreq")
+    made = []
+    real = backbone_train.make_ssl_train_step
+
+    def counted(*args, **kw):
+        step = real(*args, **kw)
+        kind = "fast" if kw.get("frozen_bn") else "standard"
+        return lambda *a: made.append(kind) or step(*a)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(backbone_train, "make_ssl_train_step", counted)
+        res = demo.main(["--device", "cpu", "--data-n", "24", "--epochs", "2",
+                         "--batch-size", "8", "--probe-epochs", "1",
+                         "--img-sz", "32", "--bn-stat-freq", "2", "--lr",
+                         "1e-5", "--log-path", str(tmp_path / "demo")])
+    assert made == ["standard", "fast"] * 2
+    assert len(res["ssl_losses"]) == 2
+    assert all(math.isfinite(v) for v in res["ssl_losses"])
+    assert 0.0 <= res["auc_ssl"] <= 1.0
+    assert "RESULT: ssl " in capsys.readouterr().out
 
 
 def test_recipe_summary_reads_the_stage_markers_and_the_logs(tmp_path):

@@ -20,11 +20,22 @@ reference move single entries by a few percent of lr (one entry of 36864
 in a conv by 4.7e-2 x lr after three steps). The float32 port is held to
 the first step's loss at rtol 1e-4.
 
+The --bn-stat-freq fast step (the model in eval mode: running statistics
+used and kept, the gradient step whole) is held against the JAX package's
+`model.apply(..., train=False)` step from the same initial state on the
+first views, then a standard step on the second views, in float64: the
+losses at rtol 1e-5, the parameters at the three-step check's bounds, the
+running statistics unchanged bit for bit by the fast step and at rtol
+1e-5 / atol 1e-7 of the reference's (kept in float32) after the standard
+one.
+
 The same three-step check runs on a ViT v32 model with --use-checkpoint
 flash, cut to dim 128, depth 2, 2 heads (head dim 64) at 32x32: on the CPU
 the port's flash attention is its plain forward and analytic backward, and
 the JAX package's is its checkpointed XLA attention.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -43,6 +54,8 @@ from sm3x_torch.utils import weights
 
 torch.set_num_threads(2)
 
+STATS = ("running_mean", "running_var")
+
 LR, WD, EPS, T, GROUPS = 1e-4, 5e-2, 1e-5, 0.1, 2
 B, SIZE, STEPS = 8, 32, 3
 
@@ -50,9 +63,11 @@ B, SIZE, STEPS = 8, 32, 3
 VIT_CUT = dict(patch=16, dim=128, depth=2, n_heads=2)
 
 
-def _reference(arch, remat=False):
+def _reference(arch, remat=False, fast=False):
     """Views, initial state dict, per-step losses and per-step parameter
-    state dicts of the JAX reference."""
+    state dicts of the JAX reference; with `fast`, also the losses and
+    state dicts of a fast step (train=False) on the first views and a
+    standard step on the second, from the initial state (else None)."""
     views = np.random.default_rng(3407).standard_normal(
         (STEPS, 4, B, SIZE, SIZE, 3)).astype(np.float32)
     with jax.enable_x64(True):
@@ -63,35 +78,49 @@ def _reference(arch, remat=False):
         state = jax_common.create_train_state(
             jm, v, jax_common.make_adamw(LR, WD, eps=EPS))
 
-        @jax.jit
-        def step(state, vs):
+        @partial(jax.jit, static_argnums=2)
+        def step(state, vs, train):
             def loss_fn(params):
-                outs, mut = jm.apply(
-                    {"params": params, "batch_stats": state.batch_stats},
-                    (vs[0], vs[1]), (vs[2], vs[3]), train=True,
-                    mutable=["batch_stats"])
+                variables = {"params": params,
+                             "batch_stats": state.batch_stats}
+                if train:
+                    outs, mut = jm.apply(
+                        variables, (vs[0], vs[1]), (vs[2], vs[3]),
+                        train=True, mutable=["batch_stats"])
+                    stats = mut["batch_stats"]
+                else:   # sm3x/train/backbone_train.py's frozen_bn
+                    outs = jm.apply(variables, (vs[0], vs[1]),
+                                    (vs[2], vs[3]), train=False)
+                    stats = state.batch_stats
                 total, _ = jax_ssl_loss(outs, style, T, GROUPS)
-                return total, mut["batch_stats"]
+                return total, stats
 
             (loss, stats), grads = jax.value_and_grad(
                 loss_fn, has_aux=True)(state.params)
             return state.apply_gradients(grads=grads,
                                          batch_stats=stats), loss
 
-        losses, sds = [], []
-        for s in range(STEPS):
-            state, loss = step(state, jnp.asarray(views[s], jnp.float64))
-            losses.append(float(loss))
-            sds.append(weights.simclr_skin_state_dict(
-                jax.tree.map(np.asarray, state.params),
-                jax.tree.map(np.asarray, state.batch_stats)))
+        def run(state, trains):
+            losses, sds = [], []
+            for s, train in enumerate(trains):
+                state, loss = step(state, jnp.asarray(views[s], jnp.float64),
+                                   train)
+                losses.append(float(loss))
+                sds.append(weights.simclr_skin_state_dict(
+                    jax.tree.map(np.asarray, state.params),
+                    jax.tree.map(np.asarray, state.batch_stats)))
+            return losses, sds
+
+        initial = state
+        losses, sds = run(state, [True] * STEPS)
+        fast_run = run(initial, [False, True]) if fast else None
     init = weights.simclr_skin_state_dict(v["params"], v["batch_stats"])
-    return style, views, init, losses, sds
+    return style, views, init, losses, sds, fast_run
 
 
 @pytest.fixture(scope="module")
 def reference():
-    return _reference("resnet18")
+    return _reference("resnet18", fast=True)
 
 
 @pytest.fixture(scope="module")
@@ -117,10 +146,10 @@ def _port(style, init, dtype, arch="resnet18", remat=False):
     return model, make_adamw(model.parameters(), LR, WD, eps=EPS)
 
 
-def _step(model, opt, style, views, dtype):
+def _step(model, opt, style, views, dtype, frozen_bn=False):
     tv = [torch.from_numpy(a).to(dtype) for a in views]
     return float(ssl_update(model, opt, (tv[0], tv[1]), (tv[2], tv[3]),
-                            style, T, GROUPS)["loss"])
+                            style, T, GROUPS, frozen_bn=frozen_bn)["loss"])
 
 
 def _check_params(model, want_sd, atol, tight_atol=None, loose=()):
@@ -138,7 +167,7 @@ def _check_params(model, want_sd, atol, tight_atol=None, loose=()):
 
 
 def _three_steps(reference, loose=(), **port_kw):
-    style, views, init, losses, sds = reference
+    style, views, init, losses, sds, _ = reference
     model, opt = _port(style, init, torch.float64, **port_kw)
     for s in range(STEPS):
         got = _step(model, opt, style, views[s], torch.float64)
@@ -165,8 +194,29 @@ def test_three_steps_match_jax_vit(vit_reference):
     assert attention_cuda.flash_forward_cuda.launches == before
 
 
+def test_fast_step_then_a_standard_step_match_jax(reference):
+    """--bn-stat-freq's fast step, then the refresh step after it."""
+    style, views, init, _, _, (losses, sds) = reference
+    model, opt = _port(style, init, torch.float64)
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    got = _step(model, opt, style, views[0], torch.float64, frozen_bn=True)
+    np.testing.assert_allclose(got, losses[0], rtol=1e-5)
+    assert all(m.training for m in model.modules())
+    for k, b in model.named_buffers():
+        assert torch.equal(b, before[k]), k
+    _check_params(model, sds[0], atol=3 * LR, tight_atol=1e-2 * LR)
+    got = _step(model, opt, style, views[1], torch.float64)
+    np.testing.assert_allclose(got, losses[1], rtol=1e-5)
+    _check_params(model, sds[1], atol=3 * LR, tight_atol=1e-2 * LR)
+    for k, b in model.named_buffers():
+        if k.endswith(STATS):
+            assert not torch.equal(b, before[k]), k
+            np.testing.assert_allclose(b.numpy(), sds[1][k], rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
+
+
 def test_first_step_in_float32(reference):
-    style, views, init, losses, sds = reference
+    style, views, init, losses, sds, _ = reference
     model, opt = _port(style, init, torch.float32)
     got = _step(model, opt, style, views[0], torch.float32)
     np.testing.assert_allclose(got, losses[0], rtol=1e-4)

@@ -18,9 +18,10 @@ the Derm7pt images. `--full-pipeline` goes on in memory: stage 2
 
 The same flags and defaults as the JAX package's demo, plus `--device`
 (default cuda) and `--seed` (the runs' seed, default 0; the data stay
-those of seed 0). `--bn-stat-freq` other than 1 is refused, as stage 1
-refuses it. `main(argv)` returns the AUCs, the SSL losses and the stages'
-seconds.
+those of seed 0). `--bn-stat-freq K` trains stage 1 with the off-recipe
+periodic BatchNorm refresh (SSLTrainer's fast step on K - 1 of K steps);
+a larger `--data-n` gives an epoch more steps for it. `main(argv)` returns
+the AUCs, the SSL losses and the stages' seconds.
 """
 
 import argparse
@@ -89,9 +90,11 @@ def get_parser():
     p.add_argument("--mlc-epochs", type=int, default=40)
     p.add_argument("--eval-epochs", type=int, default=25)
     p.add_argument("--bn-stat-freq", type=int, default=1,
-                   help="refused unless 1, as stage 1 refuses it")
+                   help="run the SSL stage with the off-recipe periodic "
+                   "BN-stat refresh (learnability check for the lever)")
     p.add_argument("--lr", type=float, default=1e-3,
-                   help="SSL learning rate")
+                   help="SSL learning rate (the BN-stat-freq lever's "
+                   "safety depends on how fast params outrun the EMA)")
     p.add_argument("--arch-version", default="v32",
                    help="SSL model family (v2/v3/v32 styles or 'trimodal' "
                    "for the metadata third-modality path)")
