@@ -15,6 +15,7 @@ import torch
 from sm3x_torch.core.mesh import local_rows
 from sm3x_torch.data.pipeline import (Batch, PairedImageData,
                                       iter_batch_selections)
+from sm3x_torch.utils.profiling import annotate, count
 
 
 class DeviceData:
@@ -53,12 +54,18 @@ class DeviceData:
             mine = local_rows(batch_size)
             rows = slice(mine.start, mine.stop)
         for sel, mask in iter_batch_selections(order, batch_size):
-            idx = torch.from_numpy(np.ascontiguousarray(sel[rows], np.int64)
-                                   ).to(self.device)
-            yield Batch(derm=self._derm[idx], derm_hw=self._derm_hw[idx],
-                        clinic=self._clinic[idx],
-                        clinic_hw=self._clinic_hw[idx],
-                        label=self.labels[sel], index=sel.astype(np.int32),
-                        mask=mask,
-                        meta=(None if self.meta_codes is None
-                              else self.meta_codes[sel]))
+            with annotate("feed.batch"):
+                # from pageable memory: the copy waits for the stream
+                with annotate("feed.upload"):
+                    count("host.device_waits")
+                    idx = torch.from_numpy(np.ascontiguousarray(
+                        sel[rows], np.int64)).to(self.device)
+                batch = Batch(derm=self._derm[idx],
+                              derm_hw=self._derm_hw[idx],
+                              clinic=self._clinic[idx],
+                              clinic_hw=self._clinic_hw[idx],
+                              label=self.labels[sel],
+                              index=sel.astype(np.int32), mask=mask,
+                              meta=(None if self.meta_codes is None
+                                    else self.meta_codes[sel]))
+            yield batch

@@ -43,16 +43,21 @@ import torch
 
 from sm3x_torch.data.pipeline import Batch
 from sm3x_torch.parallel.collectives import is_distributed
+from sm3x_torch.utils.profiling import annotate, count
 
 DEVICE_FIELDS = ("derm", "derm_hw", "clinic", "clinic_hw")
 
 
 def to_device(x, device) -> torch.Tensor:
     """A batch field on `device`: a tensor that a feed already put there is
-    taken as it is, a numpy array is uploaded now."""
-    if torch.is_tensor(x):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    taken as it is, a numpy array is uploaded now. An upload from the host
+    to a card waits for the stream (counted in `host.device_waits`)."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    out = x.to(device)
+    if out.is_cuda and not x.is_cuda:
+        count("host.device_waits")
+    return out
 
 
 def indexed(device) -> torch.device:
@@ -131,6 +136,7 @@ class _PinnedRing:
                                           pin_memory=True) for a in arrays],
                 "copied": None}
         elif slot["copied"] is not None:
+            count("host.device_waits")
             slot["copied"].synchronize()
         with torch.cuda.stream(stream):
             out = []
@@ -176,14 +182,16 @@ class PrefetchData:
         with the event of their copy."""
         arrays = [np.ascontiguousarray(getattr(batch, f))
                   for f in DEVICE_FIELDS]
-        tensors, copied = self._ring.upload(arrays, self._stream)
+        with annotate("feed.upload"):
+            tensors, copied = self._ring.upload(arrays, self._stream)
         return dataclasses.replace(
             batch, **dict(zip(DEVICE_FIELDS, tensors))), copied
 
     def _put_cpu(self, batch: Batch):
-        return dataclasses.replace(batch, **{
-            f: to_device(getattr(batch, f), self.device)
-            for f in DEVICE_FIELDS}), None
+        with annotate("feed.upload"):
+            return dataclasses.replace(batch, **{
+                f: to_device(getattr(batch, f), self.device)
+                for f in DEVICE_FIELDS}), None
 
     def batches(self, batch_size: int, epoch: int = 0, seed: int = 3407,
                 shuffle: bool = True, pad: str = "wrap") -> Iterator[Batch]:
@@ -197,7 +205,9 @@ class PrefetchData:
             if on_card:
                 torch.cuda.set_device(self.device)  # the producer's thread
             for b in self._host.batches(batch_size, epoch, seed, shuffle):
-                yield put(b)
+                with annotate("feed.batch"):
+                    item = put(b)
+                yield item
 
         produced = iter_with_producer(items, self.depth,
                                       "sm3x-torch-prefetch")

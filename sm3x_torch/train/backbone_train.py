@@ -63,6 +63,7 @@ from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
                                     multicrop_augment_batch, ssl_augment_batch)
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
+from sm3x_torch.utils.profiling import annotate
 from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 
 MULTICROP = "SevenPCSwavDataset"
@@ -158,10 +159,13 @@ def _descend(optimizer, loss_fn, groups: int, world: int) -> dict:
     """Gradients cleared (before the forward, so the last step's are not
     held through it), `loss_fn()` -> (total, parts), backward and one AdamW
     step; the metrics."""
-    optimizer.zero_grad(set_to_none=True)
+    with annotate("trainer.optimizer"):
+        optimizer.zero_grad(set_to_none=True)
     total, parts = loss_fn()
-    total.backward()
-    optimizer.step()
+    with annotate("trainer.backward"):
+        total.backward()
+    with annotate("trainer.optimizer"):
+        optimizer.step()
     return _metrics(total, parts, groups, world)
 
 
@@ -176,10 +180,13 @@ def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
     eval mode (`frozen_statistics`). Returns the global loss and its
     parts as detached device scalars (read them back when needed)."""
     def loss_fn():
-        outs = model(derm_views, clinic_views, derm_locals, clinic_locals)
-        return ssl_loss(outs, style, temperature, groups,
-                        modality_weights=modality_weights, world=world,
-                        local_weight=local_weight)
+        with annotate("model.forward"):
+            outs = model(derm_views, clinic_views, derm_locals,
+                         clinic_locals)
+        with annotate("loss"):
+            return ssl_loss(outs, style, temperature, groups,
+                            modality_weights=modality_weights, world=world,
+                            local_weight=local_weight)
 
     with frozen_statistics(model, frozen_bn):
         return _descend(optimizer, loss_fn, groups, world)
@@ -194,9 +201,10 @@ def trimodal_update(model, optimizer, derm_views, clinic_views, meta_codes,
     world = 1 if rows is None else rows.world
 
     def loss_fn():
-        with batch_rows(rows):
+        with annotate("model.forward"), batch_rows(rows):
             outs = model(derm_views, clinic_views, meta_codes, generator)
-        return trimodal_ssl_loss(outs, temperature, groups, world=world)
+        with annotate("loss"):
+            return trimodal_ssl_loss(outs, temperature, groups, world=world)
 
     return _descend(optimizer, loss_fn, groups, world)
 
@@ -268,20 +276,23 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
 
     def train_step(derm, derm_hw, clinic, clinic_hw, seed: int,
                    *meta) -> dict:
-        kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
-                               joint_aug)
-        d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
-        d, d_locals = views(kd, derm, d_hw)
-        c, c_locals = views(kc, clinic, c_hw)
-        if not trimodal:
-            return ssl_update(model, optimizer, d, c, style, temperature,
-                              groups, modality_weights, world, d_locals,
-                              c_locals, local_weight, frozen_bn)
-        codes = meta[0] if rows is None else rows.take(meta[0])
-        gen = prng.generator(prng.fold_in(seed, 2), derm.device)
-        return trimodal_update(model, optimizer, d, c,
-                               to_device(codes, derm.device).long(), gen,
-                               temperature, groups, rows)
+        with annotate("trainer.step"):
+            kd, kc = modality_keys(prng.fold_in(seed, 0),
+                                   prng.fold_in(seed, 1), joint_aug)
+            d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
+            with annotate("augment.views"):
+                d, d_locals = views(kd, derm, d_hw)
+            with annotate("augment.views"):
+                c, c_locals = views(kc, clinic, c_hw)
+            if not trimodal:
+                return ssl_update(model, optimizer, d, c, style, temperature,
+                                  groups, modality_weights, world, d_locals,
+                                  c_locals, local_weight, frozen_bn)
+            codes = meta[0] if rows is None else rows.take(meta[0])
+            gen = prng.generator(prng.fold_in(seed, 2), derm.device)
+            return trimodal_update(model, optimizer, d, c,
+                                   to_device(codes, derm.device).long(), gen,
+                                   temperature, groups, rows)
 
     return train_step
 

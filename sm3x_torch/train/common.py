@@ -21,6 +21,7 @@ from sm3x_torch.data.prefetch import indexed
 from sm3x_torch.parallel.collectives import (  # noqa: F401  (re-exported)
     is_distributed, is_main_process, max_over_ranks, process_info)
 from sm3x_torch.parallel.tensor import tensor_parallel
+from sm3x_torch.utils.profiling import annotate, count
 
 
 def make_adamw(params, lr: float, wd: float = 5e-2,
@@ -83,11 +84,17 @@ def trainable_parameters(model: torch.nn.Module, predicate) -> list:
 
 def drain_losses(pending: list, meter, out: list) -> None:
     """Read back the deferred (loss tensor, batch size) pairs: one wait for
-    the device where a read-back a step would stall every step."""
-    for loss, n in pending:
-        out.append(float(loss))
-        meter.update(out[-1], n)
-    pending.clear()
+    the device where a read-back a step would stall every step. Each read
+    is a synchronising call (counted in `host.device_waits`); only the
+    first finds work in the stream."""
+    if not pending:
+        return
+    with annotate("trainer.drain"):
+        count("host.device_waits", len(pending))
+        for loss, n in pending:
+            out.append(float(loss))
+            meter.update(out[-1], n)
+        pending.clear()
 
 
 def warmup_cosine_factor(base_lr: float, final_lr: float, warmup_epochs: int,
