@@ -45,7 +45,9 @@ Phases, each printing its lines:
            bf16 autocast, 224x224) over in-memory synthetic canvases: per-step
            losses, kernel launch counts (K1's by kernel: every launch at
            224x224 must take the band kernel), step time, images/s, peak
-           memory
+           memory; the step is a CUDA graph from the second step, so each
+           kernel's launches in a device trace of three more steps are held
+           against the host's counts
   crop     `main`'s recipe under --data-name SevenPCSwavDataset at the CLI's
            multi-crop defaults (2 x 224 at scales 0.5-1 and 6 x 96 at
            0.14-0.5 a modality, local weight 1.0): 3 steps through fit, K1
@@ -168,7 +170,8 @@ Phases, each printing its lines:
            float32 against the plain trainer (within 1e-4), parameters
            within Adam's step bound (6.34 x lr a step plus rounding);
            launches K1 4, K2f 1, K2b 1 a step; the bf16 step time against
-           the plain trainer's (in turns), the device's busy time, the
+           the plain trainer's (one process, so a CUDA graph; its eager
+           step too, in turns), the device's busy time, the
            all-reduce bytes a step and one BatchNorm against F.batch_norm;
            leg B, two
            processes on the one card over gloo with CUDA tensors, one
@@ -1061,17 +1064,44 @@ def profile_steps(step, n: int, out_dir: str, name: str) -> dict:
 
 
 def kernel_counters():
-    """(every kernel wrapper, the three K3 wrappers), each with its
-    `launches` count; K1 and K3 also count by kernel in `variants`."""
-    from sm3x_torch.ops import attention_cuda as A
-    from sm3x_torch.ops import augment_cuda as K
-    from sm3x_torch.ops import copy_cuda as C
-    from sm3x_torch.ops import ntxent_cuda as N
+    """(every kernel wrapper, `sm3x_torch.ops.counted_kernels`, the three K3
+    wrappers), each with its `launches` count; K1 and K3 also count by
+    kernel in `variants`."""
+    from sm3x_torch.ops import counted_kernels
 
-    k3 = (A.flash_forward_cuda, A.flash_backward_dq_cuda,
-          A.flash_backward_dkv_cuda)
-    return (K.photometric_cuda, N.ntxent_forward_cuda,
-            N.ntxent_backward_cuda) + k3 + (C.copy_cuda,), k3
+    counters = counted_kernels()
+    return counters, tuple(fn for fn in counters if hasattr(fn, "shapes"))
+
+
+# each wrapper's kernels by name in the device trace (K3's as the
+# benchmark's attention reader matches them)
+DEVICE_KERNELS = {
+    "photometric_cuda": r"photometric_(?:band|scratch)_kernel\b",
+    "ntxent_forward_cuda": r"ntxent_fwd_kernel\b",
+    "ntxent_backward_cuda": r"ntxent_bwd_kernel\b",
+    "flash_forward_cuda": r"(?:^|::|\s)(?:flash_)?fwd_kernel\b",
+    "flash_backward_dq_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dq_kernel\b",
+    "flash_backward_dkv_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dkv_kernel\b",
+    "copy_cuda": r"(?:^|::|\s)copy_kernel\b",
+}
+
+
+def device_launch_check(res: dict, n: int, host: dict, per_step: dict,
+                        tag: str) -> None:
+    """Each wrapper's kernels a step in the device trace of `n` steps
+    (`profile_device`'s result) against its host count over the same steps
+    (`host`, by wrapper) and `per_step`: a replayed graph's launches are
+    counted on the host from its capture, so only the trace can show a
+    kernel that a replay leaves out."""
+    seen = {name: sum(e.count for e in res["rows"] if re.search(rx, e.key))
+            for name, rx in DEVICE_KERNELS.items()}
+    log(f"  kernels a step in the device trace of {n} steps: "
+        f"{ {k: v / n for k, v in seen.items()} }; on the host: "
+        f"{ {k: v / n for k, v in host.items()} }")
+    want = {k: per_step.get(k, 0) * n for k in DEVICE_KERNELS}
+    if seen != want or host != want:
+        raise AssertionError(f"[{tag}] kernels in the trace {seen}, on the "
+                             f"host {host}, expected {want}")
 
 
 def reset_counters() -> None:
@@ -1125,14 +1155,18 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
               per_step: dict, profile_dir=None, profile_name=None,
-              tweak=None, busy: bool = False, then=None) -> tuple:
+              tweak=None, busy: bool = False, then=None,
+              traced: bool = False) -> tuple:
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
     steps through SSLTrainer.fit with every kernel count set to 0 just
     before and read just after (each must equal `per_step` x steps), then
     the step time over two more epochs and the loss's parts of the last of
     them. `tweak(cfg, data)` changes the recipe (the multi-crop and
     tri-modal phases); with `busy` the device's busy time of three traced
-    steps is printed too; `then(trainer, batches)` runs last, with four
+    steps is printed too, and with `traced` each kernel's launches in that
+    trace are held against the host's counts (`device_launch_check`); the
+    trainer logs whether its step is a CUDA graph or eager (and why), and
+    so does this phase; `then(trainer, batches)` runs last, with four
     batches of a later epoch on the card (the [bnfreq] checks). Returns
     the launches in fit by wrapper and each K3 wrapper's by (B, S, H,
     D)."""
@@ -1148,6 +1182,9 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     if tweak is not None:
         tweak(cfg, data)
     trainer = SSLTrainer(cfg)
+    log(f"[{tag}] stage-1 update: " + (
+        "eager (" + "; ".join(trainer.graph_refusals) + ")"
+        if trainer.graph_refusals else "one CUDA graph from the second step"))
     counters, k3 = kernel_counters()
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -1229,18 +1266,24 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         raise AssertionError(f"non-finite loss parts {parts}")
     log(f"  peak device memory in fit: {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
-    if profile_dir or busy:
+    if profile_dir or busy or traced:
         batches = device_batches(3)[:3]
         run = lambda it: trainer.train_step(*batches[it][0], it,
                                             *batches[it][1])
+        if traced:
+            reset_counters()
         if profile_dir:
-            profile_steps(run, len(batches), profile_dir, profile_name)
+            res = profile_steps(run, len(batches), profile_dir, profile_name)
         else:
             res = profile_device(run, len(batches))
             log(f"  device busy {res['busy_ms']:.1f} ms a step of "
                 f"{res['wall_ms']:.1f} ms on the host clock under the "
                 f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
                 f"busy), {res['launches']:.0f} kernels and copies a step")
+        if traced:
+            device_launch_check(res, len(batches),
+                                {fn.__name__: fn.launches for fn in counters},
+                                per_step, tag)
     if then is not None:
         then(trainer, device_batches(3)[:4])
     return launches, shapes
@@ -1255,14 +1298,16 @@ VIT_PER_STEP = dict(MAIN_PER_STEP, flash_forward_cuda=48,
 
 def phase_main(profile_dir=None) -> dict:
     return phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
-                     MAIN_PER_STEP, profile_dir, "profile_step.txt")[0]
+                     MAIN_PER_STEP, profile_dir, "profile_step.txt",
+                     traced=True)[0]
 
 
 def phase_vit(profile_dir=None) -> dict:
     """vit_b16 with --use-checkpoint flash: 12 blocks x 4 encoder passes
     give 48 launches of each K3 kernel a step."""
     return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
-                     VIT_PER_STEP, profile_dir, "profile_vit.txt")[0]
+                     VIT_PER_STEP, profile_dir, "profile_vit.txt",
+                     traced=True)[0]
 
 
 # multi-crop at the CLI defaults: globals 224 (scales 0.5-1), six locals of
@@ -3684,6 +3729,20 @@ def bn_world_check(say) -> bool:
     return ok
 
 
+def drop_graph(trainer) -> None:
+    """Puts a trainer whose step is a CUDA graph back on its eager step and
+    frees the graph with its memory pool: the step's whole working memory,
+    which the graph holds while it lives (~17 GB at [main]'s recipe in
+    bf16, ~31 GB in float32). For a one-process run kept as a reference
+    beside other trainers on the card."""
+    from sm3x_torch.train.common import GraphedStep
+
+    if isinstance(trainer.train_step, GraphedStep):
+        trainer.train_step = trainer.train_step.eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def dist_cfg(tag: str, amp: bool):
     cfg = stage1_cfg(tag, "resnet50", MAIN_BATCH)
     cfg.optim.amp = amp
@@ -3697,8 +3756,9 @@ def phase_dist(profile_dir=None) -> dict:
     distributed_initialize; SSLTrainer.fit over 3 steps under DDP with the
     global-batch BatchNorm, every kernel count set to 0 just before, in
     bf16 autocast (the recipe) and in float32 (TF32 off), each against the
-    plain trainer. Then the bf16 step's time against the plain trainer's,
-    the device's busy time, the all-reduce bytes a step and one BatchNorm
+    plain trainer (one process, so its step is a CUDA graph; the DDP
+    trainer's is eager). Then the bf16 step's time against the plain
+    trainer's graph and its eager step, the device's busy time, the all-reduce bytes a step and one BatchNorm
     against F.batch_norm. Leg B: two processes on this one card over gloo
     with CUDA tensors, one float32 step each at 48 rows against the
     one-process step, and the global-batch BatchNorm at world size 2
@@ -3711,6 +3771,7 @@ def phase_dist(profile_dir=None) -> dict:
     from sm3x_torch.parallel import collectives as C
     from sm3x_torch.parallel.launch import free_port, launch_local
     from sm3x_torch.train.backbone_train import SSLTrainer
+    from sm3x_torch.train.common import GraphedStep
 
     t_phase = time.perf_counter()
     torch.backends.cudnn.deterministic = True
@@ -3719,6 +3780,8 @@ def phase_dist(profile_dir=None) -> dict:
     for arith, amp in (("bf16", True), ("float32", False)):
         tr = SSLTrainer(dist_cfg(f"dist_plain_{arith}", amp))
         one[arith, "plain"] = tr, tr.fit(data)[0]["step_losses"]
+    # only the float32 run's weights are read from here on
+    drop_graph(one["float32", "plain"][0])
     bn_plain = bn_ms()
     C.distributed_initialize(f"127.0.0.1:{free_port()}", 1, 0,
                              backend="nccl")
@@ -3764,19 +3827,26 @@ def phase_dist(profile_dir=None) -> dict:
         batches = [[torch.from_numpy(x).cuda() for x in
                     (b.derm, b.derm_hw, b.clinic, b.clinic_hw)]
                    for b in data.batches(MAIN_BATCH, 1, 3407)]
-        # the plain trainer's steps with the BatchNorm of no group
-        runs = {"plain": (one["bf16", "plain"][0], plain_batch_norm),
-                "dist": (ddp["bf16"][0], contextlib.nullcontext)}
+        # the plain trainer's steps with the BatchNorm of no group. It ran
+        # in one process, so its step is a CUDA graph; its eager step is
+        # timed too, the like of the DDP step (a process group keeps the
+        # step eager)
+        plain = one["bf16", "plain"][0].train_step
+        if not isinstance(plain, GraphedStep):
+            raise AssertionError("the one-process trainer's step is eager")
+        runs = {"plain_graph": (plain, plain_batch_norm),
+                "plain_eager": (plain.eager, plain_batch_norm),
+                "dist": (ddp["bf16"][0].train_step, contextlib.nullcontext)}
         times = {k: [] for k in runs}
-        for _ in range(2):      # in turns, so that drift falls on both
-            for k, (tr, mode) in runs.items():
+        for _ in range(2):      # in turns, so that drift falls on each
+            for k, (fn, mode) in runs.items():
                 with mode():
                     times[k] += timed_steps([
-                        lambda it=it, a=a, tr=tr: tr.train_step(*a, it)["loss"]
+                        lambda it=it, a=a, fn=fn: fn(*a, it)["loss"]
                         for it, a in enumerate(batches)])
         busy = {}
-        for k, (tr, mode) in runs.items():
-            step = lambda it, tr=tr: tr.train_step(*batches[it], it)
+        for k, (fn, mode) in runs.items():
+            step = lambda it, fn=fn: fn(*batches[it], it)
             with mode():
                 busy[k] = (profile_steps(step, len(batches), profile_dir,
                                          f"profile_dist_{k}.txt")
@@ -3798,7 +3868,10 @@ def phase_dist(profile_dir=None) -> dict:
     finally:
         C.shutdown()
         torch.backends.cudnn.deterministic = False
-    del one, ddp, runs
+    # every name that holds a trainer or its steps: the plain trainer's
+    # graph keeps its pool (~17 GB) while anything reaches it
+    del one, ddp, runs, plain, fn, step, tr
+    gc.collect()    # the trainers' reference cycles hold them too
     torch.cuda.empty_cache()
 
     def worker_results(res, leg) -> list:
@@ -4049,6 +4122,7 @@ def phase_tp() -> dict:
         losses = tr.fit(data)[0]["step_losses"]
         one[arith] = tr.model.cpu(), losses
         log(f"  one process, {arith}: losses {losses}")
+        drop_graph(tr)
         del tr
     tr = MLCTrainer(tp_stage2_cfg(1, dirs["one_stage2"]))
     loss = tp_stage2_step(tr)

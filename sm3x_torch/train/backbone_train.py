@@ -28,6 +28,15 @@ Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
 each view draws from its own `torch.Generator` on the device.
 
+On one card, one process and the dual-modal standard step at a constant
+lr (`graph_refusals` lists what else it takes), `SSLTrainer.train_step`
+replays the whole update as one CUDA graph (`common.GraphedStep`): the
+first step runs eagerly, the second captures and replays, and every later
+one copies its canvases into the graph's buffers, seeds four persistent
+generators with its views' seeds and replays, so the host launches one
+graph a step instead of ~5,750 kernels. AdamW is then torch's fused
+update, one multi-tensor kernel with its step counts on the device.
+
 Under a process group (one process a GPU, sm3x_torch.parallel) `-b` is the
 global batch: each rank augments its rows of it with the draws of the
 whole batch, runs the model under DDP with the global-batch BatchNorm, and
@@ -115,14 +124,57 @@ def resolve_remat(use_checkpoint, arch: str, logger=None):
     return False if use_checkpoint == "off" else use_checkpoint
 
 
+def stream_seeds(seed: int) -> tuple:
+    """The seeds of a modality stream's two views: the stream's seed with
+    each view's index folded in."""
+    return tuple(prng.fold_in(seed, v) for v in range(2))
+
+
+def view_seeds(seed: int, joint_aug: bool = False) -> tuple:
+    """The seeds of a step's four views, the derm stream's two then the
+    clinic stream's."""
+    kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
+                           joint_aug)
+    return stream_seeds(kd) + stream_seeds(kc)
+
+
+def generator_views(generators, canvases, valid_hw, mean, std, cfg,
+                    rows=None):
+    """One view of the canvases from each generator; `rows`: these
+    canvases are those rows of the global batch."""
+    return tuple(ssl_augment_batch(g, canvases, valid_hw, mean, std, cfg,
+                                   rows) for g in generators)
+
+
 def augment_views(seed: int, canvases, valid_hw, mean, std, cfg,
                   rows=None):
-    """Two views of one modality, each from its own generator; `rows`:
-    these canvases are those rows of the global batch."""
-    dev = canvases.device
-    return tuple(ssl_augment_batch(prng.generator(prng.fold_in(seed, v), dev),
-                                   canvases, valid_hw, mean, std, cfg, rows)
-                 for v in range(2))
+    """Two views of one modality from the stream `seed`, each from a fresh
+    generator of its own (`stream_seeds`)."""
+    return generator_views([prng.generator(s, canvases.device)
+                            for s in stream_seeds(seed)],
+                           canvases, valid_hw, mean, std, cfg, rows)
+
+
+def graph_refusals(cfg, device, distributed: bool) -> list:
+    """Why this run's stage-1 update cannot replay as one CUDA graph
+    (`common.GraphedStep`), each a fact of the run; empty where it does:
+    the dual-modal standard step of one process on a card, at a constant
+    lr."""
+    m, d = cfg.model, cfg.data
+    checks = [
+        (torch.device(device).type != "cuda", "the device is not a CUDA card"),
+        (distributed, "a process group is up: DDP's hooks and NCCL run in "
+                      "the step"),
+        (cfg.optim.use_lr_schedule, "--use-lr-schedule: the scheduler sets "
+                                    "the lr on the host each step"),
+        (m.arch_version == "trimodal", "--arch-version trimodal: the step "
+                                       "uploads metadata codes from the host"),
+        (d.data_name == MULTICROP, "multi-crop: multicrop_augment_batch makes "
+                                   "its views' generators itself"),
+        (int(m.bn_stat_freq) > 1, "--bn-stat-freq > 1: the fast step takes "
+                                  "turns with the standard step"),
+    ]
+    return [why for bad, why in checks if bad]
 
 
 def _metrics(total, parts, groups: int, world: int) -> dict:
@@ -229,15 +281,31 @@ def multicrop_settings(multicrop: dict):
             float(multicrop.get("local_weight", 1.0)))
 
 
+class SSLStep:
+    """A stage-1 step: `step(derm, derm_hw, clinic, clinic_hw, seed,
+    *meta)` runs one update and returns its metrics. Where the step draws
+    its views from four generators (the dual-modal standard step),
+    `update(derm, derm_hw, clinic, clinic_hw, generators)` is that update
+    and `seeds(seed)` the generators' seeds, so that the step is `update`
+    on fresh generators seeded so: what a CUDA graph records
+    (`common.GraphedStep`). Elsewhere both are None."""
+
+    def __init__(self, step, update=None, seeds=None):
+        self.step, self.update, self.seeds = step, update, seeds
+
+    def __call__(self, *args) -> dict:
+        return self.step(*args)
+
+
 def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                         groups: int, mean, std, aug_cfg=SSL_AUG,
                         modality_weights=(1.0, 1.0), joint_aug: bool = False,
                         rows=None, multicrop=None, trimodal: bool = False,
                         frozen_bn: bool = False):
-    """Returns step(derm, derm_hw, clinic, clinic_hw, seed) -> metrics, with
-    the canvases (B, S, S, 3) uint8 and valid sizes (B, 2) on the device:
-    the `rows` of the global batch where given (sm3x_torch.core.mesh.Rows,
-    with `model` under DDP). `joint_aug` (SevenPCBaseDataset2) gives the
+    """Returns an `SSLStep`, step(derm, derm_hw, clinic, clinic_hw, seed)
+    -> metrics, with the canvases (B, S, S, 3) uint8 and valid sizes (B, 2)
+    on the device: the `rows` of the global batch where given
+    (sm3x_torch.core.mesh.Rows, with `model` under DDP). `joint_aug` (SevenPCBaseDataset2) gives the
     derm/clinic pair the same augmentation parameters within their common
     valid region. `multicrop` (SevenPCSwavDataset: `multicrop_settings`'s
     dict) makes crop group 0 the two global views, at size_crops[0] and
@@ -266,35 +334,53 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
             rrc_scale=(crops["min_scale_crops"][0],
                        crops["max_scale_crops"][0]))
 
-    def views(seed, canvases, hw):
+    def views(draw, canvases, hw):
+        """`draw`: the modality's two view generators, or under multi-crop
+        its stream's seed."""
         if crops is None:
-            return augment_views(seed, canvases, hw, mean, std, aug_cfg,
-                                 rows), ()
-        out = multicrop_augment_batch(seed, canvases, hw, mean, std,
+            return generator_views(draw, canvases, hw, mean, std, aug_cfg,
+                                   rows), ()
+        out = multicrop_augment_batch(draw, canvases, hw, mean, std,
                                       base_cfg=aug_cfg, rows=rows, **crops)
         return tuple(out[:2]), tuple(out[2:])
+
+    def update(derm, derm_hw, clinic, clinic_hw, draws, seed=None, *meta):
+        d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
+        with annotate("augment.views"):
+            d, d_locals = views(draws[0], derm, d_hw)
+        with annotate("augment.views"):
+            c, c_locals = views(draws[1], clinic, c_hw)
+        if not trimodal:
+            return ssl_update(model, optimizer, d, c, style, temperature,
+                              groups, modality_weights, world, d_locals,
+                              c_locals, local_weight, frozen_bn)
+        codes = meta[0] if rows is None else rows.take(meta[0])
+        gen = prng.generator(prng.fold_in(seed, 2), derm.device)
+        return trimodal_update(model, optimizer, d, c,
+                               to_device(codes, derm.device).long(), gen,
+                               temperature, groups, rows)
 
     def train_step(derm, derm_hw, clinic, clinic_hw, seed: int,
                    *meta) -> dict:
         with annotate("trainer.step"):
-            kd, kc = modality_keys(prng.fold_in(seed, 0),
-                                   prng.fold_in(seed, 1), joint_aug)
-            d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
-            with annotate("augment.views"):
-                d, d_locals = views(kd, derm, d_hw)
-            with annotate("augment.views"):
-                c, c_locals = views(kc, clinic, c_hw)
-            if not trimodal:
-                return ssl_update(model, optimizer, d, c, style, temperature,
-                                  groups, modality_weights, world, d_locals,
-                                  c_locals, local_weight, frozen_bn)
-            codes = meta[0] if rows is None else rows.take(meta[0])
-            gen = prng.generator(prng.fold_in(seed, 2), derm.device)
-            return trimodal_update(model, optimizer, d, c,
-                                   to_device(codes, derm.device).long(), gen,
-                                   temperature, groups, rows)
+            if crops is None:
+                gens = [prng.generator(s, derm.device)
+                        for s in view_seeds(seed, joint_aug)]
+                draws = (gens[:2], gens[2:])
+            else:
+                draws = modality_keys(prng.fold_in(seed, 0),
+                                      prng.fold_in(seed, 1), joint_aug)
+            return update(derm, derm_hw, clinic, clinic_hw, draws, seed,
+                          *meta)
 
-    return train_step
+    if crops is not None or trimodal:
+        return SSLStep(train_step)
+
+    def on_generators(derm, derm_hw, clinic, clinic_hw, gens):
+        return update(derm, derm_hw, clinic, clinic_hw, (gens[:2], gens[2:]))
+
+    return SSLStep(train_step, on_generators,
+                   lambda seed: view_seeds(seed, joint_aug))
 
 
 class SSLTrainer(common.CheckpointableTrainer):
@@ -352,11 +438,13 @@ class SSLTrainer(common.CheckpointableTrainer):
         # process (sm3x/train/backbone_train.py:249-253)
         self.groups = 1 if m.negatives == "global" else (
             cfg.run.world_size or world)
+        self.net = common.data_parallel(self.model, self.device)
+        self.graph_refusals = graph_refusals(cfg, self.device,
+                                             self.net is not self.model)
         self.optimizer = common.make_adamw(
             self.model.parameters(), cfg.optim.base_lr, cfg.optim.wd,
-            eps=cfg.optim.adam_eps)
+            eps=cfg.optim.adam_eps, fused=not self.graph_refusals)
         aug_cfg = dataclasses.replace(SSL_AUG, out_size=tuple(cfg.data.img_sz))
-        self.net = common.data_parallel(self.model, self.device)
         joint_aug = cfg.data.data_name == "SevenPCBaseDataset2"
         if self.is_trimodal:
             self.logger.info(f"trimodal SSL: metadata vocab sizes "
@@ -379,6 +467,13 @@ class SSLTrainer(common.CheckpointableTrainer):
                        multicrop=multicrop)
         self.train_step = make_ssl_train_step(
             *step_args, trimodal=self.is_trimodal, **step_kw)
+        if not self.graph_refusals:
+            self.train_step = common.GraphedStep(self.train_step)
+            self.logger.info("stage-1 update: one CUDA graph, captured at "
+                             "the second step and replayed after it")
+        else:
+            self.logger.info(f"stage-1 update: eager "
+                             f"({'; '.join(self.graph_refusals)})")
         # --bn-stat-freq K > 1 (off-recipe): every K-th step refreshes the
         # BatchNorm statistics; the others take the eval-mode fast step
         self.fast_step = None

@@ -24,14 +24,39 @@ from sm3x_torch.parallel.tensor import tensor_parallel
 from sm3x_torch.utils.profiling import annotate, count
 
 
-def make_adamw(params, lr: float, wd: float = 5e-2,
-               eps: float = 1e-8) -> torch.optim.AdamW:
+def make_adamw(params, lr: float, wd: float = 5e-2, eps: float = 1e-8,
+               fused: bool = False) -> torch.optim.AdamW:
     """torch.optim.AdamW with betas (0.9, 0.999) and decoupled weight decay
     on every tensor, as the JAX package configures optax.adamw
     (sm3x/train/common.py:24-36). Stage 1 passes eps 1e-5, the other
-    stages keep the 1e-8 default; the lr is constant, as in run.sh."""
+    stages keep the 1e-8 default; the lr is constant, as in run.sh.
+    `fused`: torch's fused update, one multi-tensor kernel over the
+    parameters with the step counts on their device, which a CUDA graph
+    can hold (`GraphedStep`; torch asks a captured optimizer to be built
+    `capturable` too)."""
+    graph = dict(fused=True, capturable=True) if fused else {}
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=eps,
-                             weight_decay=wd)
+                             weight_decay=wd, **graph)
+
+
+def load_optimizer_state(optimizer, state: dict) -> None:
+    """`optimizer.load_state_dict(state)`, with each group left as fused
+    and capturable as `optimizer` was built: the file's groups carry the
+    flags of the trainer that wrote them, and a fused group keeps its step
+    counts on its parameters' device in float32, the others on the host."""
+    kept = [{k: g[k] for k in ("fused", "capturable") if k in g}
+            for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, flags in zip(optimizer.param_groups, kept):
+        if not flags:
+            continue
+        group.update(flags)
+        on_device = bool(flags.get("fused") or flags.get("capturable"))
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if torch.is_tensor(st.get("step")):
+                st["step"] = (st["step"].to(p.device, torch.float32)
+                              if on_device else st["step"].cpu())
 
 
 def mlc_train_trainable(name: str, finetune_backbone: bool = False) -> bool:
@@ -199,6 +224,116 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     from sm3x_torch.parallel.collectives import cross_replica_mean
 
     return cross_replica_mean(x.detach(), data_group())
+
+
+# --- one update as a CUDA graph -------------------------------------------
+
+LAUNCH_TALLIES = ("launches", "variants", "shapes")
+
+
+def launch_tallies() -> dict:
+    """The host's counts of the port's kernel launches
+    (`sm3x_torch.ops.counted_kernels`): {(wrapper, attribute, key):
+    count}, `key` the kernel or shape counted in a dict of counts, None
+    for a plain count."""
+    from sm3x_torch.ops import counted_kernels
+
+    out = {}
+    for fn in counted_kernels():
+        for attr in LAUNCH_TALLIES:
+            v = getattr(fn, attr, None)
+            if isinstance(v, dict):
+                out.update({(fn, attr, k): n for k, n in v.items()})
+            elif v is not None:
+                out[fn, attr, None] = v
+    return out
+
+
+def add_launch_tallies(delta: dict, sign: int = 1) -> None:
+    """Add `delta` (`launch_tallies`' layout) to the wrappers' counts."""
+    for (fn, attr, key), n in delta.items():
+        if key is None:
+            setattr(fn, attr, getattr(fn, attr) + sign * n)
+        else:
+            counts = getattr(fn, attr)
+            counts[key] = counts.get(key, 0) + sign * n
+
+
+class GraphedStep:
+    """A train step whose update replays as one CUDA graph.
+
+    `step(*tensors, seed)` is the step as it runs without a graph (kept as
+    `eager`); `step.update(*tensors, generators)` the same update on the
+    generators that `step.seeds(seed)` seeds, returning a dict of device
+    scalars: the eager step is `update` on fresh generators from those
+    seeds. A call whose tensors have the shapes, dtypes and devices of the
+    call before it, and no graph yet, captures `update` on buffers the
+    graph owns (its own memory pool and generators) and replays it at once;
+    every later call of those shapes copies its tensors into the buffers
+    (device to device), seeds the generators as the eager step would
+    (`manual_seed` restarts Philox's offset, so a replay draws what a fresh
+    generator draws) and replays. Any other call, and every call under
+    autograd's anomaly mode (`enable_nan_checks` reads values back inside
+    the step), runs the eager step. So each call is one update, and the
+    first, which makes the optimizer's state and fires one-shot hooks, runs
+    outside any capture.
+
+    A call returns copies of the graph's outputs. The kernels' host launch
+    counts that the capture made are added again at each replay. Counters:
+    `trainer.graph_captures`, `trainer.graph_replays` and
+    `trainer.graph_eager_steps`; a replay is the span `trainer.replay`
+    inside `trainer.step`. The capture is thread-local: another thread's
+    CUDA calls (a feed's producer, a checkpoint's writer) cannot break
+    it."""
+
+    def __init__(self, step):
+        self.eager = step
+        self.graph = None
+        self.shapes = None       # of the graph's inputs, or of the last call
+        self.static = self.generators = self.packed = self.keys = None
+        self.launches = {}       # the kernels' host counts of one replay
+
+    def __call__(self, *args) -> dict:
+        *tensors, seed = args
+        shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+        if shapes != self.shapes or torch.is_anomaly_enabled():
+            if self.graph is None:
+                self.shapes = shapes
+            count("trainer.graph_eager_steps")
+            return self.eager(*args)
+        with annotate("trainer.step"):
+            if self.graph is None:
+                self._capture(tensors)
+            with annotate("trainer.replay"):
+                for buf, t in zip(self.static, tensors):
+                    buf.copy_(t)
+                for g, s in zip(self.generators, self.eager.seeds(seed)):
+                    g.manual_seed(s)
+                self.graph.replay()
+                add_launch_tallies(self.launches)
+                out = self.packed.clone()
+            count("trainer.graph_replays")
+        return dict(zip(self.keys, out.unbind()))
+
+    def _capture(self, tensors) -> None:
+        self.static = [t.clone() for t in tensors]
+        self.generators = [torch.Generator(device=tensors[0].device)
+                           for _ in self.eager.seeds(0)]
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        before = launch_tallies()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self.eager.update(*self.static, self.generators)
+            self.packed = torch.stack(list(out.values()))
+        self.keys = list(out)
+        # the capture launched nothing: each replay counts its launches
+        self.launches = {k: n - before.get(k, 0)
+                         for k, n in launch_tallies().items()
+                         if n != before.get(k, 0)}
+        add_launch_tallies(self.launches, -1)
+        self.graph = graph
+        count("trainer.graph_captures")
 
 
 class CheckpointableTrainer:
@@ -409,7 +544,7 @@ class CheckpointableTrainer:
                                                       self.optimizer)
         self.model.load_state_dict(state, strict=True)
         if optim is not None:
-            self.optimizer.load_state_dict(optim)
+            load_optimizer_state(self.optimizer, optim)
         self.restore_extra_state(ckpt)
         self.start_epoch = int(ckpt.get("epoch", 0))
         self.logger.info(f"resumed from '{path}' (epoch {self.start_epoch})")

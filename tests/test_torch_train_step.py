@@ -29,6 +29,10 @@ running statistics unchanged bit for bit by the fast step and at rtol
 1e-5 / atol 1e-7 of the reference's (kept in float32) after the standard
 one.
 
+The three-step check runs again with the AdamW of a step replayed as a
+CUDA graph (`make_adamw(..., fused=True)`: torch's fused update, here its
+CPU kernel), at the same bounds.
+
 The same three-step check runs on a ViT v32 model with --use-checkpoint
 flash, cut to dim 128, depth 2, 2 heads (head dim 64) at 32x32: on the CPU
 the port's flash attention is its plain forward and analytic backward, and
@@ -137,13 +141,14 @@ def vit_reference():
         yield _reference("vit_cut", remat="flash")
 
 
-def _port(style, init, dtype, arch="resnet18", remat=False):
+def _port(style, init, dtype, arch="resnet18", remat=False, fused=False):
     model, t_style = build_ssl_model("v32", arch, 16, remat=remat,
                                      img_size=SIZE)
     assert t_style == style
     model.load_state_dict(weights.to_tensors(init), strict=True)
     model.to(dtype).train()
-    return model, make_adamw(model.parameters(), LR, WD, eps=EPS)
+    return model, make_adamw(model.parameters(), LR, WD, eps=EPS,
+                             fused=fused)
 
 
 def _step(model, opt, style, views, dtype, frozen_bn=False):
@@ -179,6 +184,12 @@ def _three_steps(reference, loose=(), **port_kw):
 
 def test_three_steps_match_jax(reference):
     _three_steps(reference)
+
+
+def test_three_steps_match_jax_with_the_graphed_trainers_adamw(reference):
+    """The fused AdamW that `SSLTrainer` builds where its step is a CUDA
+    graph."""
+    _three_steps(reference, fused=True)
 
 
 def test_three_steps_match_jax_vit(vit_reference):
