@@ -207,9 +207,15 @@ Phases, each printing its lines:
            60 each; then K1 at (48, 96, 96, 3) and K2 at (4, 96, 64)
            against their plain versions, under `path_shapes`
   copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
+  vmoe     K5, V-MoE's dispatch / combine and their backwards
+           (sm3x_torch/csrc/moe_dispatch.cu), against the plain twins at one
+           routing group of the benchmark's V-MoE-B/16 cell (N 12,608
+           tokens, 32 experts of 827 slots, k 2, D 768) in bf16 and float32,
+           twice for identical bits, each kernel's row with its times and
+           its share of the bytes bound (portbench/harness/kernels_moe.py)
 
 With `--only main,dist` (any of kernels, step, main, feed, prefetch, dist,
-vit, copy, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
+vit, copy, vmoe, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
 stage2 and eval for the weights, then infer and serve; export: main,
 stage2, eval, export) only those phases run after device and build, and no
 result is printed.
@@ -1083,6 +1089,10 @@ DEVICE_KERNELS = {
     "flash_backward_dq_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dq_kernel\b",
     "flash_backward_dkv_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dkv_kernel\b",
     "copy_cuda": r"(?:^|::|\s)copy_kernel\b",
+    "moe_dispatch_cuda": r"moe_dispatch_fwd_kernel\b",
+    "moe_combine_cuda": r"moe_combine_fwd_kernel\b",
+    "moe_combine_backward_cuda": r"moe_combine_bwd_kernel\b",
+    "moe_dispatch_backward_cuda": r"moe_dispatch_bwd_kernel\b",
 }
 
 
@@ -4309,6 +4319,67 @@ def phase_copy() -> dict:
     return {"copy_cuda": C.copy_cuda.launches}
 
 
+def phase_vmoe() -> dict:
+    """K5's four kernels at one routing group of the V-MoE-B/16 cell against
+    their plain twins (sm3x_torch.ops.moe), bf16 then float32: dispatch,
+    combine, dy and dx bitwise (the twins sum in the kernels' order), the
+    gate gradient within float32 round-off of a 768-term dot product; each
+    twice for identical bits; bf16 rows with their times and bounds."""
+    from portbench.harness.kernels_moe import k5_bytes
+    from sm3x_torch.ops import moe
+    from sm3x_torch.ops import moe_cuda as K
+
+    n, e, k, d = 64 * 197, 32, 2, 768
+    cap = moe.capacity(n, k, e, 1.05)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gates, choices = torch.softmax(torch.randn(n, e, device="cuda",
+                                               generator=g), -1).topk(k)
+    smap = moe.slot_map(choices, e, cap)
+    ts, sa = smap.token_slot, smap.slot_assign
+    log(f"[vmoe] K5 at N {n}, E {e}, C {cap}, k {k}, D {d}: "
+        f"{int(smap.dropped)} of {n * k} choices dropped; the slot map "
+        f"{device_ms(lambda: moe.slot_map(choices, e, cap)):.4f} ms (50 "
+        f"in a row)")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, y, dout = (torch.randn(m, d, device="cuda", generator=g).to(dtype)
+                      for m in (n, e * cap, n))
+        kernels = {
+            "dispatch_fwd": (lambda: K.moe_dispatch_cuda(x, sa, k),
+                             lambda: moe.dispatch_plain(x, sa, k)),
+            "combine_fwd": (lambda: K.moe_combine_cuda(y, gates, ts),
+                            lambda: moe.combine_plain(y, gates, ts)),
+            "combine_bwd": (lambda: K.moe_combine_backward_cuda(
+                dout, y, gates, sa, k), lambda: moe.combine_backward_plain(
+                    dout, y, gates, sa, ts)),
+            "dispatch_bwd": (lambda: K.moe_dispatch_backward_cuda(y, ts),
+                             lambda: moe.dispatch_backward_plain(y, ts)),
+        }
+        nbytes = k5_bytes(n, k, e, cap, d, n * k - int(smap.dropped))
+        for name, (fn, plain) in kernels.items():
+            got, again, want = fn(), fn(), plain()
+            got, again, want = ((t,) if torch.is_tensor(t) else t
+                                for t in (got, again, want))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"[vmoe] K5 {name} changed its bits")
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"[vmoe] K5 {name} is not its twin")
+            if name == "combine_bwd":
+                check_close(f"K5 {name} dgates {dtype}", got[1], want[1],
+                            1e-5, 1e-4)
+            if dtype != torch.bfloat16:
+                continue
+            row = dict(name=f"K5 {name}", shape=(n, e, cap, k, d),
+                       dtype="bf16",
+                       **bound(nbytes[name], 0, "bf16"))
+            rows[name] = timed(row, fn, plain)
+        log(f"[vmoe] K5 {dtype}: the four kernels equal their twins, twice "
+            f"the same bits")
+    log(json.dumps({"k5": rows}))
+    return rows
+
+
 def phase_serving() -> None:
     """`--only serve`: [main], [stage2] and [eval] for the weights, then
     [infer] and [serve] on them."""
@@ -4376,6 +4447,7 @@ def main(argv=None) -> int:
                  "prefetch": phase_prefetch,
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
+                 "vmoe": phase_vmoe,
                  "crop": phase_crop, "crop_vit": phase_crop_vit,
                  "bnfreq": phase_bnfreq,
                  "tri": phase_tri, "transfer": phase_transfer,
@@ -4413,6 +4485,7 @@ def main(argv=None) -> int:
     for key, rows in learn_rows.items():
         kernels[key]["path_shapes"] += rows
     copy_launches = run("copy", phase_copy)
+    run("vmoe", phase_vmoe)
     log(f"[time] seconds a phase: {seconds}; in all "
         f"{sum(seconds.values()):.1f} s")
     for mod in ("jax", "sm3x"):

@@ -220,6 +220,7 @@ class ViT(nn.Module):
         self.remat = remat
         attn_impl = remat if remat in ("attn", "flash") else (
             "attn" if remat == "attn_mlp" else "xla")
+        self.attn_impl = attn_impl
         mlp_remat = remat in ("mlp", "attn_mlp")
         self.block_remat = remat in (True, "dots")
 
@@ -257,13 +258,19 @@ class ViT(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
-    def _run_block(self, blk: ViTBlock, x: torch.Tensor) -> torch.Tensor:
+    def _run_block(self, blk: ViTBlock, x: torch.Tensor, *args):
         if not (self.block_remat and torch.is_grad_enabled()):
-            return blk(x)
+            return blk(x, *args)
         if self.remat == "dots":
-            return checkpoint(blk, x, use_reentrant=False,
+            return checkpoint(blk, x, *args, use_reentrant=False,
                               context_fn=_dots_saveable_context)
-        return checkpoint(blk, x, use_reentrant=False)
+        return checkpoint(blk, x, *args, use_reentrant=False)
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks over the (B, S, dim) tokens."""
+        for blk in self.blocks():
+            x = self._run_block(blk, x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
@@ -272,8 +279,7 @@ class ViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # (B, gh * gw, dim), row-major grid
         cls = self.cls.expand(b, 1, self.dim).to(x.dtype)
         x = torch.cat([cls, x], dim=1) + self.pos_embed_for(grid).to(x.dtype)
-        for blk in self.blocks():
-            x = self._run_block(blk, x)
+        x = self.run_blocks(x)
         feat = self.ln_final(x)[:, 0]
         feat = feat.to(torch.promote_types(feat.dtype, torch.float32))
         return self.fc(feat) if self.fc is not None else feat

@@ -15,14 +15,17 @@ __all__ = ["ntxent_loss", "ntxent_logits", "grouped_ntxent_loss",
 
 
 def counted_kernels() -> tuple:
-    """Every CUDA kernel wrapper, each counting its launches on the host in
-    `launches`; K1 and K3 also count by kernel in `variants`, K3 by (B, S,
+    """Every CUDA kernel wrapper (K1-K5), each counting its launches on the
+    host in `launches`; K1 and K3 also count by kernel in `variants`, K3 by (B, S,
     H, D) in `shapes`."""
     from sm3x_torch.ops import attention_cuda as A
     from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.ops import copy_cuda as C
+    from sm3x_torch.ops import moe_cuda as M
     from sm3x_torch.ops import ntxent_cuda as N
 
     return (K.photometric_cuda, N.ntxent_forward_cuda, N.ntxent_backward_cuda,
             A.flash_forward_cuda, A.flash_backward_dq_cuda,
-            A.flash_backward_dkv_cuda, C.copy_cuda)
+            A.flash_backward_dkv_cuda, C.copy_cuda, M.moe_dispatch_cuda,
+            M.moe_combine_cuda, M.moe_combine_backward_cuda,
+            M.moe_dispatch_backward_cuda)

@@ -58,6 +58,14 @@ _SIGNATURES = {
                                                             _c_void_p],
     # src, dst, n, stream
     "sm3x_copy": [_c_void_p, _c_void_p, ctypes.c_longlong, _c_void_p],
+    # x, slot_assign, out, S, k, pieces, stream
+    "sm3x_moe_dispatch_fwd": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
+    # y, gates, token_slot, out, N, k, pieces, bf16, stream
+    "sm3x_moe_combine_fwd": [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p],
+    # dout, y, gates, slot_assign, dy, dgates, S, k, pieces, bf16, stream
+    "sm3x_moe_combine_bwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
+    # dslots, token_slot, dx, N, k, pieces, bf16, stream
+    "sm3x_moe_dispatch_bwd": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p],
 }
 
 _lock = threading.Lock()

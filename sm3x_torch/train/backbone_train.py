@@ -26,16 +26,23 @@ standard step.
 
 Randomness: each step's seed is `prng.step_seed(seed, epoch, step)`; the
 derm and clinic streams fold in 0 and 1, each view folds in its index, and
-each view draws from its own `torch.Generator` on the device.
+each view draws from its own `torch.Generator` on the device. A V-MoE
+encoder's router noise (sm3x_torch.models.vmoe) draws from a generator of
+its own a step, the derm encoder's seeded with the step's seed with 3
+folded in, the clinic encoder's with 4 (`router_seeds`); the aux loss
+joins the loss as the part `moe_aux`, and the step's dropped choices
+(`moe_dropped` of `moe_assignments`) are read back with the losses at the
+epoch's end (counters `moe.dropped`, `moe.assignments`).
 
 On one card, one process and the dual-modal standard step at a constant
 lr (`graph_refusals` lists what else it takes), `SSLTrainer.train_step`
 replays the whole update as one CUDA graph (`common.GraphedStep`): the
 first step runs eagerly, the second captures and replays, and every later
 one copies its canvases into the graph's buffers, seeds four persistent
-generators with its views' seeds and replays, so the host launches one
-graph a step instead of ~5,750 kernels. AdamW is then torch's fused
-update, one multi-tensor kernel with its step counts on the device.
+generators with its views' seeds (six with a V-MoE's two routers) and
+replays, so the host launches one graph a step instead of ~5,750 kernels.
+AdamW is then torch's fused update, one multi-tensor kernel with its step
+counts on the device.
 
 Under a process group (one process a GPU, sm3x_torch.parallel) `-b` is the
 global batch: each rank augments its rows of it with the draws of the
@@ -65,6 +72,7 @@ from sm3x_torch.data.prefetch import to_device, wrap_from_config
 from sm3x_torch.core.mesh import batch_rows
 from sm3x_torch.data.datasets import PAIRED as DATASETS
 from sm3x_torch.losses.ssl import local_groups, ssl_loss
+from sm3x_torch.models import vmoe
 from sm3x_torch.models.backbones import is_vit
 from sm3x_torch.models.simclr import build_ssl_model
 from sm3x_torch.models.trimodal import TriModalSimCLR, trimodal_ssl_loss
@@ -72,7 +80,7 @@ from sm3x_torch.ops.augment import (SSL_AUG, modality_keys, modality_valid_hw,
                                     multicrop_augment_batch, ssl_augment_batch)
 from sm3x_torch.train import common
 from sm3x_torch.utils.logging import StatWriter
-from sm3x_torch.utils.profiling import annotate
+from sm3x_torch.utils.profiling import annotate, count
 from sm3x_torch.utils.misc import AverageMeter, ProgressMeter, setup_logger
 
 MULTICROP = "SevenPCSwavDataset"
@@ -93,6 +101,18 @@ def unsupported(cfg) -> list:
          "not combinable"),
         (m.negatives not in ("local", "global"),
          f"--negatives {m.negatives}"),
+        (m.arch in vmoe.VMOE_SPECS and int(m.bn_stat_freq) > 1,
+         f"--bn-stat-freq > 1 with {m.arch}: the fast step runs the model "
+         f"in eval mode, which routes without noise and without the aux "
+         f"loss"),
+        (m.arch in vmoe.VMOE_SPECS and (m.arch_version == "trimodal"
+                                        or d.data_name == MULTICROP),
+         f"{m.arch} with --arch-version trimodal or multi-crop: only the "
+         f"dual-modal standard step draws the routers' noise and adds "
+         f"the aux loss"),
+        (m.arch in vmoe.VMOE_SPECS and int(cfg.run.mesh_model or 1) > 1,
+         f"--mesh-model > 1 with {m.arch}: expert parallelism is not "
+         f"ported, and the expert layers cannot be split"),
     ]
     return [msg for bad, msg in checks if bad] + unsupported_run(cfg)
 
@@ -136,6 +156,12 @@ def view_seeds(seed: int, joint_aug: bool = False) -> tuple:
     kd, kc = modality_keys(prng.fold_in(seed, 0), prng.fold_in(seed, 1),
                            joint_aug)
     return stream_seeds(kd) + stream_seeds(kc)
+
+
+def router_seeds(seed: int) -> tuple:
+    """The seeds of a step's two V-MoE router generators, the derm
+    encoder's then the clinic encoder's."""
+    return prng.fold_in(seed, 3), prng.fold_in(seed, 4)
 
 
 def generator_views(generators, canvases, valid_hw, mean, std, cfg,
@@ -225,20 +251,23 @@ def ssl_update(model, optimizer, derm_views, clinic_views, style: int,
                temperature: float, groups: int,
                modality_weights=(1.0, 1.0), world: int = 1, derm_locals=(),
                clinic_locals=(), local_weight: float = 1.0,
-               frozen_bn: bool = False) -> dict:
+               frozen_bn: bool = False, routers=None) -> dict:
     """Forward, loss, backward and AdamW step on augmented views (this
     rank's rows of them across `world` processes, `model` under DDP), and
     multi-crop local views where given; with `frozen_bn` all of it in
-    eval mode (`frozen_statistics`). Returns the global loss and its
-    parts as detached device scalars (read them back when needed)."""
+    eval mode (`frozen_statistics`). V-MoE encoders draw their router
+    noise from `routers` (`vmoe.routing`) and add their aux loss. Returns
+    the global loss and its parts as detached device scalars (read them
+    back when needed)."""
     def loss_fn():
-        with annotate("model.forward"):
+        with annotate("model.forward"), vmoe.routing(model, routers) as log:
             outs = model(derm_views, clinic_views, derm_locals,
                          clinic_locals)
         with annotate("loss"):
-            return ssl_loss(outs, style, temperature, groups,
-                            modality_weights=modality_weights, world=world,
-                            local_weight=local_weight)
+            total, parts = ssl_loss(outs, style, temperature, groups,
+                                    modality_weights=modality_weights,
+                                    world=world, local_weight=local_weight)
+            return log.add_to(total, parts)
 
     with frozen_statistics(model, frozen_bn):
         return _descend(optimizer, loss_fn, groups, world)
@@ -344,7 +373,16 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                                       base_cfg=aug_cfg, rows=rows, **crops)
         return tuple(out[:2]), tuple(out[2:])
 
+    routed = bool(vmoe.moe_encoders(model))
+
+    def seeds(seed: int) -> tuple:
+        """The step's generators' seeds: four views', then the routers'."""
+        return view_seeds(seed, joint_aug) + (router_seeds(seed) if routed
+                                              else ())
+
     def update(derm, derm_hw, clinic, clinic_hw, draws, seed=None, *meta):
+        """`draws`: (derm draw, clinic draw, the V-MoE routers' generators
+        or None)."""
         d_hw, c_hw = modality_valid_hw(derm_hw, clinic_hw, joint_aug)
         with annotate("augment.views"):
             d, d_locals = views(draws[0], derm, d_hw)
@@ -353,7 +391,7 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
         if not trimodal:
             return ssl_update(model, optimizer, d, c, style, temperature,
                               groups, modality_weights, world, d_locals,
-                              c_locals, local_weight, frozen_bn)
+                              c_locals, local_weight, frozen_bn, draws[2])
         codes = meta[0] if rows is None else rows.take(meta[0])
         gen = prng.generator(prng.fold_in(seed, 2), derm.device)
         return trimodal_update(model, optimizer, d, c,
@@ -364,12 +402,12 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
                    *meta) -> dict:
         with annotate("trainer.step"):
             if crops is None:
-                gens = [prng.generator(s, derm.device)
-                        for s in view_seeds(seed, joint_aug)]
-                draws = (gens[:2], gens[2:])
+                gens = [prng.generator(s, derm.device) for s in seeds(seed)]
+                draws = (gens[:2], gens[2:4], gens[4:] or None)
             else:
                 draws = modality_keys(prng.fold_in(seed, 0),
-                                      prng.fold_in(seed, 1), joint_aug)
+                                      prng.fold_in(seed, 1),
+                                      joint_aug) + (None,)
             return update(derm, derm_hw, clinic, clinic_hw, draws, seed,
                           *meta)
 
@@ -377,10 +415,10 @@ def make_ssl_train_step(model, optimizer, style: int, temperature: float,
         return SSLStep(train_step)
 
     def on_generators(derm, derm_hw, clinic, clinic_hw, gens):
-        return update(derm, derm_hw, clinic, clinic_hw, (gens[:2], gens[2:]))
+        return update(derm, derm_hw, clinic, clinic_hw,
+                      (gens[:2], gens[2:4], gens[4:] or None))
 
-    return SSLStep(train_step, on_generators,
-                   lambda seed: view_seeds(seed, joint_aug))
+    return SSLStep(train_step, on_generators, seeds)
 
 
 class SSLTrainer(common.CheckpointableTrainer):
@@ -550,7 +588,7 @@ class SSLTrainer(common.CheckpointableTrainer):
         n_steps = data.steps_per_epoch(cfg.optim.batch_size)
         progress = ProgressMeter(n_steps, [batch_time, losses],
                                  prefix=f"Train epoch: [{epoch}]")
-        step_losses, pending = [], []
+        step_losses, pending, drops = [], [], []
         end = time.time()
         for it, batch in enumerate(
                 data.batches(cfg.optim.batch_size, epoch, cfg.run.seed)):
@@ -564,13 +602,25 @@ class SSLTrainer(common.CheckpointableTrainer):
             if self.scheduler is not None:
                 self.scheduler.step()
             pending.append((metrics["loss"], len(batch.index)))
+            if "moe_dropped" in metrics:
+                drops.append(torch.stack([metrics["moe_dropped"],
+                                          metrics["moe_assignments"]]))
             batch_time.update(time.time() - end)
             end = time.time()
             if it % cfg.run.print_freq == 0 and it > 0:
                 common.drain_losses(pending, losses, step_losses)
                 self.logger.info(progress.display(it))
         common.drain_losses(pending, losses, step_losses)
-        return {"loss": losses.avg, "step_losses": step_losses}
+        stat = {"loss": losses.avg, "step_losses": step_losses}
+        if drops:
+            # one read after the losses': the device is done, so it waits
+            # for nothing, but it is a read-back all the same
+            count("host.device_waits")
+            dropped, choices = torch.stack(drops).sum(0).tolist()
+            count("moe.dropped", int(dropped))
+            count("moe.assignments", int(choices))
+            stat.update(moe_dropped=dropped, moe_assignments=choices)
+        return stat
 
     def fit(self, data) -> list:
         """Train up to `cfg.optim.epochs` epochs, from `start_epoch` (0

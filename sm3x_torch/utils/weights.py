@@ -101,7 +101,16 @@ def vit_state_dict(params: dict, prefix: str = "") -> StateDict:
     """Any ViT of the family (`sm3x_torch.models.vit.ViT`): the blocks are
     read from the tree. Attention projections: q/k/v kernels (dim, H, Dh)
     -> Linear (H * Dh, dim) and biases (H, Dh) -> (H * Dh,); the output
-    kernel (H, Dh, dim) -> (dim, H * Dh)."""
+    kernel (H, Dh, dim) -> (dim, H * Dh). A V-MoE tree (a block with a
+    `moe` subtree) is refused: the port's V-MoE (sm3x_torch.models.vmoe)
+    has no Flax counterpart whose layout this could follow."""
+    moe = sorted(k for k, v in params.items()
+                 if k.startswith("block") and "moe" in v)
+    if moe:
+        raise ValueError(
+            f"a V-MoE tree ({', '.join(moe)} hold expert layers): no Flax "
+            f"weight mapping exists for the port's V-MoE encoders; start "
+            f"them from the seed or from a checkpoint the port wrote")
     sd: StateDict = {}
     sd[prefix + "patch_embed.weight"] = _conv_w(params["patch_embed"]["kernel"])
     sd[prefix + "patch_embed.bias"] = _np(params["patch_embed"]["bias"])

@@ -46,14 +46,9 @@ CACHE_SIZE = 256   # the canvas side, as the JAX tool's
 
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count, by name."""
-    from sm3x_torch.ops import attention_cuda, augment_cuda, copy_cuda
-    from sm3x_torch.ops import ntxent_cuda
+    from sm3x_torch.ops import counted_kernels
 
-    return {fn.__name__: fn.launches for fn in (
-        augment_cuda.photometric_cuda, ntxent_cuda.ntxent_forward_cuda,
-        ntxent_cuda.ntxent_backward_cuda, attention_cuda.flash_forward_cuda,
-        attention_cuda.flash_backward_dq_cuda,
-        attention_cuda.flash_backward_dkv_cuda, copy_cuda.copy_cuda)}
+    return {fn.__name__: fn.launches for fn in counted_kernels()}
 
 
 def main(argv=None) -> int:
