@@ -172,7 +172,7 @@ Phases, each printing its lines:
            launches K1 4, K2f 1, K2b 1 a step; the bf16 step time against
            the plain trainer's (one process, so a CUDA graph; its eager
            step too, in turns), the device's busy time, the
-           all-reduce bytes a step and one BatchNorm against F.batch_norm;
+           all-reduce bytes a step and one BatchNorm against one process's;
            leg B, two
            processes on the one card over gloo with CUDA tensors, one
            float32 step each at 48 rows against the one-process step, both
@@ -213,9 +213,17 @@ Phases, each printing its lines:
            tokens, 32 experts of 827 slots, k 2, D 768) in bf16 and float32,
            twice for identical bits, each kernel's row with its times and
            its share of the bytes bound (portbench/harness/kernels_moe.py)
+  bn       K6, batch norm with the block's add and ReLU folded in
+           (sm3x_torch/csrc/batchnorm.cu), at every batch norm of ResNet-50
+           at batch 96 and 224, forward and backward, against float64
+           and its plain twin in bf16 and float32; in bf16 its times, the twin's, the
+           one-library-call yardstick's (F.batch_norm, add, relu) and its
+           share of the bytes bound, and a step's K6 time from them; the
+           dispatch's counters as [main]'s step is captured as a CUDA
+           graph (212 batch norms through K6, the projectors' 18 not)
 
 With `--only main,dist` (any of kernels, step, main, feed, prefetch, dist,
-vit, copy, vmoe, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
+vit, copy, vmoe, bn, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
 stage2 and eval for the weights, then infer and serve; export: main,
 stage2, eval, export) only those phases run after device and build, and no
 result is printed.
@@ -1093,6 +1101,8 @@ DEVICE_KERNELS = {
     "moe_combine_cuda": r"moe_combine_fwd_kernel\b",
     "moe_combine_backward_cuda": r"moe_combine_bwd_kernel\b",
     "moe_dispatch_backward_cuda": r"moe_dispatch_bwd_kernel\b",
+    "bn_forward_cuda": r"(?:^|::)bn_fwd_\w+_kernel\b",
+    "bn_backward_cuda": r"(?:^|::)bn_bwd_\w+_kernel\b",
 }
 
 
@@ -1300,9 +1310,21 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
 
 
 # kernel launches a step on each path, by wrapper
-MAIN_PER_STEP = {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
-                 "ntxent_backward_cuda": 1}
-VIT_PER_STEP = dict(MAIN_PER_STEP, flash_forward_cuda=48,
+SSL_PER_STEP = {"photometric_cuda": 4, "ntxent_forward_cuda": 1,
+                "ntxent_backward_cuda": 1}
+
+
+def r50_k6(calls: int, backward: bool = True) -> dict:
+    """K6's launches for `calls` ResNet-50 encoder calls in train mode on
+    one process: 53 batch norms a call, two kernels forward and two
+    backward each (none under a process group, whose batch norm is the
+    global batch's)."""
+    return {"bn_forward_cuda": 2 * 53 * calls,
+            "bn_backward_cuda": 2 * 53 * calls if backward else 0}
+
+
+MAIN_PER_STEP = dict(SSL_PER_STEP, **r50_k6(4))
+VIT_PER_STEP = dict(SSL_PER_STEP, flash_forward_cuda=48,
                     flash_backward_dq_cuda=48, flash_backward_dkv_cuda=48)
 
 
@@ -1323,7 +1345,7 @@ def phase_vit(profile_dir=None) -> dict:
 # multi-crop at the CLI defaults: globals 224 (scales 0.5-1), six locals of
 # 96 (0.14-0.5) a modality; each crop group of a modality is one K1 launch
 CROP_STEPS = 3
-CROP_PER_STEP = dict(MAIN_PER_STEP)
+CROP_PER_STEP = dict(SSL_PER_STEP, **r50_k6(16))   # 4 global + 12 local passes
 TRI_STEPS, TRI_BATCH = 3, 64
 
 
@@ -1419,12 +1441,19 @@ def bnfreq_checks(trainer, batches) -> None:
             f"synchronised)")
 
 
+# K6 runs in the standard steps alone (the fast step's batch norms are in
+# eval mode): 2 of the 8, spread over the 8 for fit's count
+BNFREQ_PER_STEP = dict(SSL_PER_STEP, **{
+    k: v * (BNFREQ_STEPS // BNFREQ_K) // BNFREQ_STEPS
+    for k, v in r50_k6(4).items()})
+
+
 def phase_bnfreq() -> dict:
     """[main]'s recipe under --bn-stat-freq 4 (EXPERIMENTAL, off-recipe):
     8 steps through fit with K1 4, K2f 1 and K2b 1 launches a step (all
-    band), then bnfreq_checks."""
+    band) and K6 in the 2 standard steps, then bnfreq_checks."""
     return phase_fit("bnfreq", "resnet50", MAIN_BATCH, BNFREQ_STEPS, False,
-                     MAIN_PER_STEP, tweak=bnfreq_tweak,
+                     BNFREQ_PER_STEP, tweak=bnfreq_tweak,
                      then=bnfreq_checks)[0]
 
 
@@ -1436,7 +1465,7 @@ def phase_bnfreq() -> dict:
 VIT_CROP_STEPS = 3
 VIT_CROP_PASSES = {197: 4, 37: 12}
 VIT_CROP_PER_STEP = dict(
-    CROP_PER_STEP, **{name: 12 * sum(VIT_CROP_PASSES.values()) for name in
+    SSL_PER_STEP, **{name: 12 * sum(VIT_CROP_PASSES.values()) for name in
                       ("flash_forward_cuda", "flash_backward_dq_cuda",
                        "flash_backward_dkv_cuda")})
 
@@ -1662,6 +1691,10 @@ def phase_learn() -> tuple:
     want = dict.fromkeys(launches, 0)
     want.update(photometric_cuda=LEARN_K1, ntxent_forward_cuda=LEARN_SSL_STEPS,
                 ntxent_backward_cuda=LEARN_SSL_STEPS)
+    # K6 serves the demo's resnet18 wherever its batch norms run in train
+    # mode: logged above, held in [main] and [bn]
+    for name in r50_k6(0):
+        want[name] = launches[name]
     if launches != want or variants["scratch"]:
         raise AssertionError(f"[learn] launches {launches}, K1 {variants}: "
                              f"expected {want}, K1 band only")
@@ -1754,6 +1787,9 @@ def phase_stage2(profile_dir=None) -> dict:
     passes = steps * (1 + STAGE2_EPOCHS)  # init batches and train steps
     want = {fn.__name__: STAGE2_PER_STEP.get(fn.__name__, 0) * passes
             for fn in counters}
+    # K6 in the init pass alone: its extractor runs in train mode (the two
+    # encoders, one view each), with no gradient; fit's is frozen in eval
+    want.update(r50_k6(2 * steps, backward=False))
     if launches != want or init_launches != 2 * steps:
         raise AssertionError(f"launch counts {launches} (init pass "
                              f"{init_launches}), expected {want}")
@@ -3580,7 +3616,7 @@ def state_digest(module) -> str:
 @contextlib.contextmanager
 def plain_batch_norm():
     """Under a process group: the port's BatchNorm as it runs without one
-    (F.batch_norm), for the plain trainer's steps timed in turns with the
+    (K6 on the card), for the plain trainer's steps timed in turns with the
     distributed trainer's."""
     from sm3x_torch.models import layers
 
@@ -3595,8 +3631,8 @@ def plain_batch_norm():
 def bn_ms() -> float:
     """Forward and backward of the port's BatchNorm(256) in train mode on
     BN_SHAPE, bf16 channels_last, the kernels alone (torch.profiler, 20
-    calls): F.batch_norm without a process group, the global-batch path
-    under one."""
+    calls): K6 without a process group, the global-batch path under
+    one."""
     from sm3x_torch.models.layers import BatchNorm
 
     bn = BatchNorm(BN_SHAPE[1]).cuda().train()
@@ -3815,7 +3851,7 @@ def phase_dist(profile_dir=None) -> dict:
             k1 = dict(K.photometric_cuda.variants)
             log(f"  {arith}: kernel launches in fit: {launches}; K1 by "
                 f"kernel {k1}")
-            want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) *
+            want = {fn.__name__: SSL_PER_STEP.get(fn.__name__, 0) *
                     DIST_STEPS for fn in counters}
             if launches != want or k1["scratch"]:
                 raise AssertionError(f"launch counts {launches}, expected "
@@ -3873,7 +3909,7 @@ def phase_dist(profile_dir=None) -> dict:
                 f"{busy[k]['launches']:.0f} kernels and copies")
         bn_global = bn_ms()
         log(f"  BatchNorm(256) forward + backward on {BN_SHAPE} bf16 "
-            f"channels_last, the kernels alone: F.batch_norm "
+            f"channels_last, the kernels alone: one process (K6) "
             f"{ms_or_not(bn_plain)}, global-batch {ms_or_not(bn_global)}")
     finally:
         C.shutdown()
@@ -3943,10 +3979,10 @@ def phase_dist(profile_dir=None) -> dict:
 # Legs B and C: [main]'s, one float32 step. Leg D: [crop]'s and [tri]'s,
 # 2 steps each (3 in [crop] and [tri]: the collectives copy every gradient
 # through the host, ~690 MB a step for two ViT-B/16)
-DIST_RECIPES = {"main": ("resnet50", MAIN_BATCH, False, None, MAIN_PER_STEP,
+DIST_RECIPES = {"main": ("resnet50", MAIN_BATCH, False, None, SSL_PER_STEP,
                          False, 1),
                 "crop": ("resnet50", MAIN_BATCH, False, crop_tweak,
-                         CROP_PER_STEP, True, 2),
+                         SSL_PER_STEP, True, 2),
                 "tri": ("vit_b16", TRI_BATCH, "flash", tri_tweak,
                         VIT_PER_STEP, True, 2)}
 
@@ -4379,6 +4415,210 @@ def phase_vmoe() -> dict:
     log(json.dumps({"k5": rows}))
     return rows
 
+# ResNet-50's batch norms in one forward pass at batch 96 and 224: (N H W,
+# C) -> {(ReLU, residual): count}, 53 in all
+R50_BN = {
+    (96 * 112 * 112, 64): {(True, False): 1},
+    (96 * 56 * 56, 64): {(True, False): 6},
+    (96 * 56 * 56, 256): {(True, True): 3, (False, False): 1},
+    (96 * 56 * 56, 128): {(True, False): 1},
+    (96 * 28 * 28, 128): {(True, False): 7},
+    (96 * 28 * 28, 512): {(True, True): 4, (False, False): 1},
+    (96 * 28 * 28, 256): {(True, False): 1},
+    (96 * 14 * 14, 256): {(True, False): 11},
+    (96 * 14 * 14, 1024): {(True, True): 6, (False, False): 1},
+    (96 * 14 * 14, 512): {(True, False): 1},
+    (96 * 7 * 7, 512): {(True, False): 5},
+    (96 * 7 * 7, 2048): {(True, True): 3, (False, False): 1},
+}
+# K6 against float64 arithmetic on the same inputs (the ReLU's mask from
+# K6's y): y, dx and d_res within K6_TOL of their largest value (dx: of the
+# largest gamma invstd dy', the terms it is a difference of), the running
+# statistics, dgamma and dbeta within 1e-4 of theirs (tests/
+# test_torch_batchnorm_act.py's limits); against its twin (torch's batch
+# norm, add and ReLU, which round three times where K6 rounds once): the
+# relative Frobenius error of y, and of dx and d_res where the two ReLU
+# masks agree, within K6_REL, the masks apart on under 1% of the values
+K6_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+K6_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def rel_err(got, want, where=None) -> float:
+    got, want = got.double(), want.double()
+    if where is not None:
+        got, want = got[where], want[where]
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@torch.no_grad()
+def k6_float64(x, res, dy, w, b, relu, y) -> dict:
+    """float64 y, dx, d_res, dgamma, dbeta and one step's running
+    statistics (from 0 and 1) of relu?(batch_norm(x) (+ res)), the mask of
+    the ReLU taken from `y`; and the scale of dx's terms."""
+    x64, dims = x.double(), (0, 2, 3)
+    mean, var = x64.mean(dims), x64.var(dims, unbiased=False)
+    invstd = 1 / torch.sqrt(var + 1e-5)
+    ch = lambda t: t.double().view(1, -1, 1, 1)
+    xhat = (x64 - ch(mean)) * ch(invstd)
+    v = xhat * ch(w) + ch(b) + (0 if res is None else res.double())
+    g = dy.double() * (y > 0) if relu else dy.double()
+    n = x.numel() // x.shape[1]
+    s1, s2 = g.sum(dims), (g * xhat).sum(dims)
+    dx = ch(w * invstd) * (g - ch(s1 / n) - xhat * ch(s2 / n))
+    return dict(y=v.clamp_min(0) if relu else v, dx=dx, dres=g, dw=s2,
+                db=s1, rm=0.1 * mean, rv=0.9 + 0.1 * var,
+                dx_scale=(ch(w * invstd) * g).abs().max().item())
+
+
+def max_err(got, want, scale=0.0) -> float:
+    """max |got - want| over the larger of max |want| and `scale`."""
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / max(want.abs().max().item(), scale, 1e-30)).item()
+
+
+def phase_bn() -> dict:
+    """K6 (sm3x_torch/csrc/batchnorm.cu) at every batch norm of ResNet-50 at
+    batch 96 and 224 (R50_BN), forward and backward through its autograd
+    Function, against float64 and the plain twin in bf16 and float32
+    (K6_TOL, K6_REL); in bf16,
+    the path's type, the times of forward and backward together: the
+    kernels alone (torch.profiler), 50 calls in a row, the twin's, and the
+    one-library-call yardstick (F.batch_norm, + residual, relu: no
+    running-variance correction; the port calls neither), beside the bytes
+    bound (x, the residual and y of the forward, dy, x, y, dx and d_res of
+    the backward, each once); then a ResNet-50 step's K6 time from the
+    kernels alone."""
+    import torch.nn.functional as F
+
+    from sm3x_torch.ops import batchnorm_cuda as B
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows_out, per_step, per_step_bound = [], 0.0, 0.0
+    for (rows, c), variants in R50_BN.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, res, dy = (torch.randn(96, rows // 96, 1, c, device="cuda",
+                                      generator=g).to(dtype).permute(0, 3, 1, 2)
+                          for _ in range(3))
+            x = x * 2 + 0.5
+            w = torch.rand(c, device="cuda", generator=g) + 0.5
+            b = torch.randn(c, device="cuda", generator=g) * 0.3
+            for (relu, residual), count in variants.items():
+                r = res.clone().requires_grad_() if residual else None
+                xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+                leaves = [xl, wl, bl] + ([r] if residual else [])
+
+                def moving():
+                    return (torch.zeros(c, device="cuda"),
+                            torch.ones(c, device="cuda"),
+                            torch.zeros((), dtype=torch.long, device="cuda"))
+
+                def run(fn, state):
+                    y = fn(xl, wl, bl, *state, r, relu)
+                    return (y,) + torch.autograd.grad(y, leaves, dy)
+
+                kernel_state, twin_state = moving(), moving()
+                got = run(B.batch_norm_act, kernel_state)
+                twin = run(B.batch_norm_act_plain, twin_state)
+                ref = k6_float64(x, r, dy, w, b, relu, got[0])
+                names = ["y", "dx", "dw", "db"] + (["dres"] if residual
+                                                   else [])
+                vs64 = {k: max_err(t, ref[k], ref["dx_scale"] if k == "dx"
+                                   else 0.0) for k, t in zip(names, got)}
+                vs64.update(rm=max_err(kernel_state[0], ref["rm"]),
+                            rv=max_err(kernel_state[1], ref["rv"]))
+                agree = (got[0] > 0) == (twin[0] > 0)
+                apart = 1.0 - agree.double().mean().item()
+                vs_twin = {"y": rel_err(got[0], twin[0])}
+                vs_twin.update({k: rel_err(got[i], twin[i], agree)
+                                for i, k in enumerate(names) if k in (
+                                    "dx", "dres")})
+                tag = (f"K6 {rows}x{c} {str(dtype)[6:]} relu {relu} residual "
+                       f"{residual}")
+                limits = {k: K6_TOL[dtype] if k in ("y", "dx", "dres")
+                          else 1e-4 for k in vs64}
+                if (any(vs64[k] > limits[k] for k in vs64)
+                        or max(vs_twin.values()) > K6_REL[dtype]
+                        or apart > 0.01 or int(kernel_state[2]) != 1):
+                    raise AssertionError(
+                        f"[bn] {tag}: against float64 {vs64} (limits "
+                        f"{limits}); against the twin {vs_twin}, masks apart "
+                        f"on {apart:.2e}")
+                errs = dict(float64=vs64, twin=vs_twin, masks_apart=apart)
+                if dtype != torch.bfloat16:
+                    continue
+                passes = 8 if residual else 5
+                row = dict(name="K6", shape=(rows, c), dtype="bf16",
+                           relu=relu, residual=residual, count=count,
+                           errors=errs, **bound(passes * x.numel() * 2, 0,
+                                                "bf16"))
+                state = moving()
+                row.update(
+                    kernel_ms=kernel_ms(lambda: run(B.batch_norm_act, state)),
+                    device_ms=device_ms(lambda: run(B.batch_norm_act, state)),
+                    plain_ms=device_ms(
+                        lambda: run(B.batch_norm_act_plain, moving())),
+                    library_ms=device_ms(lambda: run(
+                        lambda x, w, b, rm, rv, s, r, relu: B.epilogue(
+                            F.batch_norm(x, rm, rv, w, b, True, B.MOMENTUM,
+                                         B.EPS), r, relu),
+                        moving())))
+                alone = row["kernel_ms"] or row["device_ms"]
+                row["share_of_bound"] = row["bound_ms"] / alone
+                per_step += 4 * count * alone
+                per_step_bound += 4 * count * row["bound_ms"]
+                log(f"  {tag}: x{count}, forward and backward {alone:.4f} ms "
+                    f"alone ({ms_or_not(row['kernel_ms'])} by the profiler), "
+                    f"{row['device_ms']:.4f} ms in a row; bound "
+                    f"{row['bound_us']:.1f} us, {100 * row['share_of_bound']:.1f}"
+                    f"% of it; twin {row['plain_ms']:.4f} ms, library "
+                    f"{row['library_ms']:.4f} ms; errors {errs}")
+                rows_out.append(row)
+        log(f"[bn] K6 at {rows}x{c}: bf16 and float32 within their limits of "
+            f"float64 ({K6_TOL}; 1e-4) and of the twin ({K6_REL})")
+    log(f"[bn] K6 in a ResNet-50 SSL step (4 encoder calls of 53 batch "
+        f"norms): {per_step:.2f} ms of kernels alone, bound "
+        f"{per_step_bound:.2f} ms ({100 * per_step_bound / per_step:.1f}%)")
+    captured = bn_capture_counts()
+    log(json.dumps({"k6": rows_out, "k6_step_ms": per_step,
+                    "k6_step_bound_ms": per_step_bound,
+                    "capture_counters": captured}))
+    return rows_out
+
+
+def bn_capture_counts() -> dict:
+    """The batch norms of [main]'s step as its CUDA graph is captured, by
+    the dispatch's counters: 212 through K6 (4 encoder calls of 53), and
+    through torch's only the projectors' 18 of 2-D float32 rows."""
+    from sm3x_torch.data.synthetic import synthetic_paired_data
+    from sm3x_torch.train.backbone_train import SSLTrainer
+    from sm3x_torch.utils import profiling
+
+    cfg = stage1_cfg("bn", "resnet50", MAIN_BATCH)
+    trainer = SSLTrainer(cfg)
+    data = synthetic_paired_data(MAIN_BATCH * 2, canvas=320, seed=0)
+    batches = [([torch.from_numpy(x).cuda() for x in
+                 (b.derm, b.derm_hw, b.clinic, b.clinic_hw)], trainer._meta(b))
+               for b in data.batches(MAIN_BATCH, 0, cfg.run.seed)]
+    trainer.train_step(*batches[0][0], 0, *batches[0][1])   # eager
+    profiling.take()
+    profiling.record(True)
+    try:
+        trainer.train_step(*batches[1][0], 1, *batches[1][1])  # the capture
+        torch.cuda.synchronize()
+    finally:
+        profiling.record(False)
+    counters = profiling.take().counters
+    got = {k: counters.get(k, 0) for k in (
+        "trainer.graph_captures", "model.bn_kernel", "model.bn_library")}
+    log(f"[bn] the counters of [main]'s step captured as a CUDA graph: {got}")
+    drop_graph(trainer)
+    if got != {"trainer.graph_captures": 1, "model.bn_kernel": 212,
+               "model.bn_library": 18}:
+        raise AssertionError(f"[bn] a capture's batch norms {got}, expected "
+                             f"212 through K6 and the projectors' 18")
+    return got
+
 
 def phase_serving() -> None:
     """`--only serve`: [main], [stage2] and [eval] for the weights, then
@@ -4447,7 +4687,7 @@ def main(argv=None) -> int:
                  "prefetch": phase_prefetch,
                  "dist": lambda: phase_dist(args.profile),
                  "vit": lambda: phase_vit(args.profile), "copy": phase_copy,
-                 "vmoe": phase_vmoe,
+                 "vmoe": phase_vmoe, "bn": phase_bn,
                  "crop": phase_crop, "crop_vit": phase_crop_vit,
                  "bnfreq": phase_bnfreq,
                  "tri": phase_tri, "transfer": phase_transfer,
@@ -4486,6 +4726,7 @@ def main(argv=None) -> int:
         kernels[key]["path_shapes"] += rows
     copy_launches = run("copy", phase_copy)
     run("vmoe", phase_vmoe)
+    run("bn", phase_bn)
     log(f"[time] seconds a phase: {seconds}; in all "
         f"{sum(seconds.values()):.1f} s")
     for mod in ("jax", "sm3x"):
@@ -4547,13 +4788,13 @@ def main(argv=None) -> int:
                      "feed": MAIN_PER_STEP.get(counter, 0),
                      "prefetch": MAIN_PER_STEP.get(counter, 0), "serve": 0,
                      "export": 0,
-                     "dist": MAIN_PER_STEP.get(counter, 0),
+                     "dist": SSL_PER_STEP.get(counter, 0),
                      "tp": TP_PER_STEP.get(counter, 0),
                      "crop": CROP_PER_STEP.get(counter, 0),
-                     "bnfreq": MAIN_PER_STEP.get(counter, 0),
+                     "bnfreq": BNFREQ_PER_STEP.get(counter, 0),
                      "crop_vit": VIT_CROP_PER_STEP.get(counter, 0),
                      "tri": VIT_PER_STEP.get(counter, 0),
-                     "dist_crop": CROP_PER_STEP.get(counter, 0),
+                     "dist_crop": SSL_PER_STEP.get(counter, 0),
                      "dist_tri": VIT_PER_STEP.get(counter, 0),
                      "transfer": int(counter == "photometric_cuda")},
                  **kernels[name])

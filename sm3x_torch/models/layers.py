@@ -10,13 +10,20 @@ normalises the same way but moves `running_var` toward the *unbiased*
 variance, larger by n / (n - 1) where n counts the values per channel. For
 the projector BNs n is B or 2B, so at B = 48 the two differ by 2%.
 
-This module keeps torch's fused batch-norm for the forward and corrects the
-running variance after it, per channel, from the buffer before and after:
-with m = 0.1 torch stores v' = (1 - m) v + m s n / (n - 1), where s is the
-biased variance; Flax wants (1 - m) v + m s = (1 - m) v / n + v' (n - 1) / n.
-Both terms are positive, so the correction loses no precision. The state
-dict keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
-`num_batches_tracked`), as the exported checkpoints name them.
+`batch_norm_act` is a BatchNorm's forward with a residual add and a ReLU
+after it (`BatchNorm.forward` is its case without either). In train mode
+on one process it takes kernel K6 (sm3x_torch.ops.batchnorm_cuda), which
+folds the add and the ReLU into its apply pass, where the input is one K6
+takes: a CUDA (N, C, H, W) tensor, channels-last contiguous, bfloat16 or
+float32, C a multiple of 8 (`kernel_takes`). Every other input keeps
+torch's fused batch-norm, then the add and the ReLU: on the CPU through
+K6's plain twin, which corrects the running variance after it, per
+channel, from the buffer before and after
+(`batchnorm_cuda.batch_norm_act_plain`). Each call counts
+`model.bn_kernel` or `model.bn_library` (sm3x_torch.utils.profiling). The
+state dict keys are torch's (`weight`, `bias`, `running_mean`,
+`running_var`, `num_batches_tracked`), as the exported checkpoints name
+them.
 
 Under a process group (sm3x_torch.parallel) a train-mode `BatchNorm`
 normalises with the statistics of the global batch, as the JAX package's
@@ -43,11 +50,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from sm3x_torch.core.mesh import data_group
+from sm3x_torch.ops import batchnorm_cuda
+from sm3x_torch.ops.batchnorm_cuda import EPS, MOMENTUM
 from sm3x_torch.parallel.collectives import (all_reduce_sum, gather_rows,
                                              is_distributed)
-
-MOMENTUM = 0.1  # torch convention; Flax momentum 0.9
-EPS = 1e-5
+from sm3x_torch.utils.profiling import count
 
 _state = threading.local()
 
@@ -85,30 +92,7 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, MOMENTUM, EPS)
-        if is_distributed():
-            return self._global_batch_forward(x)
-        n = x.numel() // x.shape[1]
-        if n < 2:
-            raise ValueError(f"BatchNorm in train mode needs more than one "
-                             f"value per channel, got input {tuple(x.shape)}")
-        var_before = self.running_var.clone()
-        if getattr(_state, "recomputing", False):
-            # the same call on copies: the same tensors saved for the
-            # backward, nothing moved
-            return F.batch_norm(x, self.running_mean.clone(), var_before,
-                                self.weight, self.bias, True, MOMENTUM, EPS)
-        y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                         self.bias, True, MOMENTUM, EPS)
-        # `.data`: autograd keeps running_var for the backward (which reads it
-        # only in eval mode); an in-place update of the tensor itself would
-        # fail autograd's version check
-        self.running_var.data.mul_((n - 1) / n).add_(
-            var_before, alpha=(1.0 - MOMENTUM) / n)
-        self.num_batches_tracked.add_(1)
-        return y
+        return batch_norm_act(self, x, relu=False)
 
     def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode under a process group: normalise with the global
@@ -131,6 +115,35 @@ class BatchNorm(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self.num_features}, affine={self.affine}"
+
+
+def batch_norm_act(bn: BatchNorm, x: torch.Tensor, residual=None,
+                   relu: bool = True) -> torch.Tensor:
+    """bn(x), then + `residual`, then ReLU: in one K6 call where `bn` is in
+    train mode on one process and K6 takes x and the residual; else bn's
+    batch norm (eval mode: the running statistics; under a process group:
+    the global batch's; otherwise torch's) followed by the add and ReLU."""
+    if bn.training and not is_distributed():
+        n = x.numel() // x.shape[1]
+        if n < 2:
+            raise ValueError(f"BatchNorm in train mode needs more than one "
+                             f"value per channel, got input {tuple(x.shape)}")
+        args = (x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                bn.num_batches_tracked, residual, relu,
+                not getattr(_state, "recomputing", False))
+        if batchnorm_cuda.kernel_takes(x, residual, bn.weight, bn.bias,
+                                       bn.running_mean, bn.running_var):
+            count("model.bn_kernel")
+            return batchnorm_cuda.batch_norm_act(*args)
+        count("model.bn_library")
+        return batchnorm_cuda.batch_norm_act_plain(*args)
+    count("model.bn_library")
+    if bn.training:
+        y = bn._global_batch_forward(x)
+    else:
+        y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, False, MOMENTUM, EPS)
+    return batchnorm_cuda.epilogue(y, residual, relu)
 
 
 def _global_batch_norm_plain(x, weight, bias):

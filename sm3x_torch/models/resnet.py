@@ -8,7 +8,10 @@ The public input is NHWC, as in the JAX package: `forward` takes
 (B, H, W, 3) and views it as NCHW with `permute`, which is a channels_last
 tensor without a copy. The output is the float32 pooled feature (B, C), or
 logits when `num_classes` is set. Batch norm follows the JAX package's
-running-variance convention (sm3x_torch.models.layers.BatchNorm).
+running-variance convention (sm3x_torch.models.layers.BatchNorm); each
+block's ReLUs and its residual add run in its batch norms' call
+(`batch_norm_act`), which is one kernel family (K6) in train mode on the
+card.
 
 `remat=True` (bare --use-checkpoint) keeps only each residual block's input
 for the backward and runs the block again there, as the JAX package remats
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from sm3x_torch.models.layers import BatchNorm, recomputing
+from sm3x_torch.models.layers import BatchNorm, batch_norm_act, recomputing
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
@@ -48,16 +51,14 @@ class BasicBlock(nn.Module):
         self.bn1 = BatchNorm(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = BatchNorm(planes)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride),
                                          BatchNorm(planes))
                            if downsample else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return self.relu(out + identity)
+        out = batch_norm_act(self.bn1, self.conv1(x))
+        return batch_norm_act(self.bn2, self.conv2(out), identity)
 
 
 class Bottleneck(nn.Module):
@@ -75,17 +76,15 @@ class Bottleneck(nn.Module):
         self.bn2 = BatchNorm(width)
         self.conv3 = _conv(width, out, 1)
         self.bn3 = BatchNorm(out)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = (nn.Sequential(_conv(inplanes, out, 1, stride),
                                          BatchNorm(out))
                            if downsample else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return self.relu(out + identity)
+        out = batch_norm_act(self.bn1, self.conv1(x))
+        out = batch_norm_act(self.bn2, self.conv2(out))
+        return batch_norm_act(self.bn3, self.conv3(out), identity)
 
 
 class ResNet(nn.Module):
@@ -98,7 +97,6 @@ class ResNet(nn.Module):
         self.remat = bool(remat)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
-        self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = 64, 64
         for stage, n_blocks in enumerate(layers):
@@ -146,7 +144,7 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) NHWC."""
         x = x.permute(0, 3, 1, 2)
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(batch_norm_act(self.bn1, self.conv1(x)))
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for blk in stage:
                 x = self._run_block(blk, x)

@@ -15,11 +15,12 @@ __all__ = ["ntxent_loss", "ntxent_logits", "grouped_ntxent_loss",
 
 
 def counted_kernels() -> tuple:
-    """Every CUDA kernel wrapper (K1-K5), each counting its launches on the
+    """Every CUDA kernel wrapper (K1-K6), each counting its launches on the
     host in `launches`; K1 and K3 also count by kernel in `variants`, K3 by (B, S,
     H, D) in `shapes`."""
     from sm3x_torch.ops import attention_cuda as A
     from sm3x_torch.ops import augment_cuda as K
+    from sm3x_torch.ops import batchnorm_cuda as B
     from sm3x_torch.ops import copy_cuda as C
     from sm3x_torch.ops import moe_cuda as M
     from sm3x_torch.ops import ntxent_cuda as N
@@ -28,4 +29,5 @@ def counted_kernels() -> tuple:
             A.flash_forward_cuda, A.flash_backward_dq_cuda,
             A.flash_backward_dkv_cuda, C.copy_cuda, M.moe_dispatch_cuda,
             M.moe_combine_cuda, M.moe_combine_backward_cuda,
-            M.moe_dispatch_backward_cuda)
+            M.moe_dispatch_backward_cuda, B.bn_forward_cuda,
+            B.bn_backward_cuda)

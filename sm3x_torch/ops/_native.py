@@ -66,6 +66,14 @@ _SIGNATURES = {
     "sm3x_moe_combine_bwd": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
     # dslots, token_slot, dx, N, k, pieces, bf16, stream
     "sm3x_moe_dispatch_bwd": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p],
+    # x, residual, y, mean, invstd, gamma, beta, running_mean, running_var,
+    # steps, part, rows, chunks, tc_log2, columns, blocks, bf16, relu,
+    # momentum, eps, stream
+    "sm3x_bn_fwd": [_c_void_p] * 11 + [_c_int] * 7 + [_c_float] * 2
+    + [_c_void_p],
+    # dy, x, y, mean, invstd, gamma, beta, sums, dgamma, dbeta, dx, dres,
+    # part, rows, chunks, tc_log2, columns, blocks, bf16, mask, stream
+    "sm3x_bn_bwd": [_c_void_p] * 13 + [_c_int] * 7 + [_c_void_p],
 }
 
 _lock = threading.Lock()
