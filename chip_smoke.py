@@ -43,11 +43,10 @@ Phases, each printing its lines:
   main     the stage-1 trainer at the run.sh recipe (resnet50, v32, proj 128,
            T 0.1, global batch 96, --world-size 2, lr 1e-6, AdamW eps 1e-5,
            bf16 autocast, 224x224) over in-memory synthetic canvases: per-step
-           losses, kernel launch counts (K1's by kernel: every launch at
-           224x224 must take the band kernel), step time, images/s, peak
-           memory; the step is a CUDA graph from the second step, so each
-           kernel's launches in a device trace of three more steps are held
-           against the host's counts
+           losses, step time, images/s, peak memory, and the kernels'
+           launches a step in the device trace of three more steps and of
+           one eager step (every K1 launch at 224x224 must take the band
+           kernel); the step is a CUDA graph from the second step
   crop     `main`'s recipe under --data-name SevenPCSwavDataset at the CLI's
            multi-crop defaults (2 x 224 at scales 0.5-1 and 6 x 96 at
            0.14-0.5 a modality, local weight 1.0): 3 steps through fit, K1
@@ -153,10 +152,11 @@ Phases, each printing its lines:
            kernel; losses, launch counts, step time, images/s, peak memory
   crop_vit `crop`'s recipe on `vit`'s model (vit_b16, batch 64, flash,
            bf16): 3 steps through fit, K1 4 and K2 1 a step, K3 192 a step
-           (12 blocks x (4 global + 12 local passes)), 48 at S = 197 and
-           144 at S = 37, every one the tensor-core kernel; then K3 at the
-           step's two (B, S, H, D) in bf16 against its plain versions (the
-           times at both shapes are `kernels`')
+           (12 blocks x (4 global + 12 local passes)), every one the
+           tensor-core kernel; then K3 at the two (B, S, H, D) the recipe
+           gives it, 48 a step at S = 197 and 144 at S = 37, in bf16
+           against its plain versions (the times at both shapes are
+           `kernels`')
   tri      --arch-version trimodal on vit_b16, batch 64, --use-checkpoint
            flash, the metadata vocabularies from the synthetic data's codes:
            3 steps through fit with `vit`'s launch counts (9 NT-Xent terms x
@@ -201,12 +201,14 @@ Phases, each printing its lines:
            --full-pipeline (resnet18 at 96 x 96, batch 48, 20 SSL epochs,
            40 stage-2 and 25 eval epochs on label-correlated textures):
            the random-init, SSL-probe and stage-2 eval AUC_AVG, the first
-           and last SSL epoch loss, each stage's seconds, the launches (K1
-           band only, K2f / K2b one a SSL step); every AUC and loss finite,
-           the last SSL loss below the first, K1 816 launches, K2f / K2b
-           60 each; then K1 at (48, 96, 96, 3) and K2 at (4, 96, 64)
-           against their plain versions, under `path_shapes`
-  copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s)
+           and last SSL epoch loss, each stage's seconds; every AUC and
+           loss finite, the last SSL loss below the first; then the demo at
+           one epoch a stage in the device trace (K1 band only, 42
+           launches; K2f / K2b one a SSL step); then K1 at (48, 96, 96, 3)
+           and K2 at (4, 96, 64) against their plain versions, under
+           `path_shapes`
+  copy     tools/bench_copy_torch.py (K4 against `x + 1`, GB/s); then at 1
+           MiB and 3 iterations in the device trace, K4 5 times
   vmoe     K5, V-MoE's dispatch / combine and their backwards
            (sm3x_torch/csrc/moe_dispatch.cu), against the plain twins at one
            routing group of the benchmark's V-MoE-B/16 cell (N 12,608
@@ -221,6 +223,10 @@ Phases, each printing its lines:
            share of the bytes bound, and a step's K6 time from them; the
            dispatch's counters as [main]'s step is captured as a CUDA
            graph (212 batch norms through K6, the projectors' 18 not)
+
+Every kernel launch is counted in a device trace (torch.profiler) and
+named by `sm3x_torch.ops.DEVICE_KERNELS`; a phase traces steps after its
+timed ones, so that the profiler stays out of every time it prints.
 
 With `--only main,dist` (any of kernels, step, main, feed, prefetch, dist,
 vit, copy, vmoe, bn, crop, crop_vit, bnfreq, tri, transfer, tp, learn; serve: main,
@@ -246,6 +252,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -263,9 +270,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # the clocks (also bench_torch.py's); importing them fails outside a checkout
+from sm3x_torch.ops import DEVICE_KERNELS, device_launches  # noqa: E402
 from sm3x_torch.utils.timing import (device_ms, kernel_ms, median_ms,  # noqa: E402
                                      nvidia_smi_name_and_limit,
-                                     profile_device)
+                                     profile_device, traced_launches)
 
 MAIN_STEPS, MAIN_BATCH = 4, 96          # run.sh: global batch 96
 VIT_STEPS, VIT_BATCH = 4, 64            # bench.py 64 30 vit_b16
@@ -311,10 +319,6 @@ def check_close(name, got, want, rtol, atol) -> float:
     if not bool(torch.isfinite(got).all()) or worst > 1.0:
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_abs
-
-
-def ms_or_not(t) -> str:
-    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def bound(nbytes: float, flops: float, kind: str) -> dict:
@@ -410,24 +414,24 @@ def phase_kernels():
     log(f"[kernels] launch floor: K4 over one element "
         f"{floor['launch_floor_ms']:.4f} ms device time (50 launches in a "
         f"row, the wrapper's host work between them), the kernel alone "
-        f"{ms_or_not(floor['launch_floor_kernel_ms'])}")
+        f"{floor['launch_floor_kernel_ms']:.4f} ms")
 
     results = {}
     # the general-shape kernel, then the stage-1 shape
     for batch, size, kernel in ((16, 640, "scratch"), (96, 224, "band")):
         images, params = k1_inputs(batch, size)
         plan = K.photometric_plan(size, size)
-        before = dict(K.photometric_cuda.variants)
-        got = K.photometric_cuda(images, params, MEAN, STD)
-        again = K.photometric_cuda(images, params, MEAN, STD)
+        runs = []
+        seen = traced_launches(lambda _: runs.append(
+            K.photometric_cuda(images, params, MEAN, STD)), 2)
+        got, again = runs[-2:]
         want = K.photometric_plain(images, params, MEAN, STD)
         torch.cuda.synchronize()
         log(f"[kernels] K1 photometric {tuple(images.shape)}: {plan['kernel']}"
             f" kernel, {plan['blocks']} blocks an image of "
             f"{plan['band_rows']} rows, {plan['px']} pixels a thread, "
             f"{plan['smem_bytes']} bytes of shared memory a block")
-        took = {k: v - before[k]
-                for k, v in K.photometric_cuda.variants.items()}
+        took = {k: seen[k] for k in ("band", "scratch")}
         if plan["kernel"] != kernel or took != {
                 **dict.fromkeys(took, 0), kernel: 2}:
             raise AssertionError(f"K1 at {size} x {size} took {took}, "
@@ -506,7 +510,7 @@ def phase_kernels():
                 **bound(nbytes(z, lse, inv, g, dz), 2 * s_flops, "f32"))
         else:
             log(f"  the kernels alone (profiler): K2f "
-                f"{ms_or_not(kernel_ms(k2f))}, K2b {ms_or_not(kernel_ms(k2b))}")
+                f"{kernel_ms(k2f):.4f} ms, K2b {kernel_ms(k2b):.4f} ms")
     results["ntxent_fwd"]["max_abs_err"] = errs["fwd"]
     results["ntxent_bwd"]["max_abs_err"] = errs["bwd"]
     results.update(k3_kernels())
@@ -518,15 +522,13 @@ def phase_kernels():
                 if "plain_bf16_ms" in r else "")
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
-        # the share of the bound from the kernel alone; `device_ms` reads
-        # the host for a short kernel and stands in only where the profiler
-        # gave no device time
-        alone = r["kernel_ms"] if r["kernel_ms"] is not None else r["device_ms"]
+        # the share of the bound from the kernel alone
+        alone = r["kernel_ms"]
         r["share_of_bound"] = r["bound_ms"] / alone
         log(f"  {name}: kernel {r['ms']:.4f} ms a single launch (median of "
             f"20), {r['device_ms']:.4f} ms device time (50 launches in a "
             f"row, {r['device_ms'] / floor['launch_floor_ms']:.1f} x the "
-            f"launch floor), the kernel alone {ms_or_not(r['kernel_ms'])} "
+            f"launch floor), the kernel alone {r['kernel_ms']:.4f} ms "
             f"(profiler), bound {r['bound_us']:.1f} us ({r['bound_by']}, "
             f"{100 * r['share_of_bound']:.1f}% of it reached by the kernel "
             f"alone), plain {r['plain_ms']:.4f} ms{bf16}{lib}")
@@ -552,12 +554,13 @@ def k1_supervised() -> dict:
     if bool(gated.any()) or not (0 < float(flips.sum()) < shape[0]):
         raise AssertionError("the finetune preset must gate off all but the "
                              "flip, and flip some images")
-    before = dict(K.photometric_cuda.variants)
-    got = K.photometric_cuda(images, params, MEAN, STD)
-    again = K.photometric_cuda(images, params, MEAN, STD)
+    runs = []
+    seen = traced_launches(lambda _: runs.append(
+        K.photometric_cuda(images, params, MEAN, STD)), 2)
+    got, again = runs[-2:]
     want = K.photometric_plain(images, params, MEAN, STD)
     torch.cuda.synchronize()
-    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
+    took = {k: seen[k] for k in ("band", "scratch")}
     log(f"[kernels] K1 photometric {shape}, finetune preset (flip on "
         f"{int(flips.sum())} of {shape[0]} images, every other step gated "
         f"off): kernels taken {took}")
@@ -575,12 +578,11 @@ def k1_supervised() -> dict:
                    images, params, MEAN, STD)),
                **bound(nbytes(images, params, got),
                        6 * images[..., 0].numel(), "f32"))
-    alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
-        "device_ms"]
+    alone = row["kernel_ms"]
     row["share_of_bound"] = row["bound_ms"] / alone
     log(f"  photometric (supervised): kernel {row['ms']:.4f} ms a single "
         f"launch, {row['device_ms']:.4f} ms device time, the kernel alone "
-        f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
+        f"{row['kernel_ms']:.4f} ms, bound {row['bound_us']:.1f} us "
         f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
         f"reached), plain {row['plain_ms']:.4f} ms")
     return row
@@ -608,19 +610,23 @@ def k3_kernels() -> dict:
     from sm3x_torch.ops import attention_cuda as K
 
     rng = np.random.default_rng(5)
-    k3 = (K.flash_forward_cuda, K.flash_backward_dq_cuda,
-          K.flash_backward_dkv_cuda)
 
     def run(shape, dtype):
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
         scale = 1.0 / math.sqrt(shape[3])
         kind = "mma" if dtype == torch.bfloat16 else "fma"
-        before = [fn.variants[kind] for fn in k3]
-        out, lse = K.flash_forward_cuda(q, k, v, scale)
-        dq, delta = K.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
-        dk, dv = K.flash_backward_dkv_cuda(q, k, v, do, lse, delta, scale)
-        if [fn.variants[kind] for fn in k3] != [n + 1 for n in before]:
+        got = []
+
+        def k3(_):
+            out, lse = K.flash_forward_cuda(q, k, v, scale)
+            dq, delta = K.flash_backward_dq_cuda(q, k, v, out, do, lse, scale)
+            got.append((out, lse, dq, delta) + K.flash_backward_dkv_cuda(
+                q, k, v, do, lse, delta, scale))
+
+        seen = traced_launches(k3)
+        out, lse, dq, delta, dk, dv = got[-1]
+        if seen[kind] != 3 or seen["fma"] + seen["mma"] != 3:
             raise AssertionError(f"K3 in {dtype} did not run its {kind} "
                                  f"kernels")
         f = [t.float() for t in (q, k, v, do)]
@@ -747,14 +753,13 @@ def timed(row, fn, plain, library=None):
     row.update(ms=median_ms(fn), device_ms=device_ms(fn),
                kernel_ms=kernel_ms(fn), plain_ms=median_ms(plain),
                library_ms=None if library is None else device_ms(library))
-    alone = row["kernel_ms"] if row["kernel_ms"] is not None else row[
-        "device_ms"]
+    alone = row["kernel_ms"]
     row["share_of_bound"] = row["bound_ms"] / alone
     lib = (f", library {row['library_ms']:.4f} ms"
            if row["library_ms"] is not None else "")
     log(f"  {row['name']} {tuple(row['shape'])} {row['dtype']}: kernel "
         f"{row['ms']:.4f} ms a single launch, the kernel alone "
-        f"{ms_or_not(row['kernel_ms'])}, bound {row['bound_us']:.1f} us "
+        f"{row['kernel_ms']:.4f} ms, bound {row['bound_us']:.1f} us "
         f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}% of it "
         f"reached), plain {row['plain_ms']:.4f} ms{lib}")
     return row
@@ -788,9 +793,11 @@ def k1_at_path_shape(shape, path: str, tag: str, what: str) -> dict:
 
     images, params = k1_inputs(shape[0], shape[1])
     plan = K.photometric_plan(*shape[1:3])
-    before = dict(K.photometric_cuda.variants)
-    got = K.photometric_cuda(images, params, MEAN, STD)
-    took = {k: v - before[k] for k, v in K.photometric_cuda.variants.items()}
+    runs = []
+    seen = traced_launches(lambda _: runs.append(
+        K.photometric_cuda(images, params, MEAN, STD)))
+    got = runs[-1]
+    took = {k: seen[k] for k in ("band", "scratch")}
     log(f"[{tag}] K1 photometric {tuple(shape)} ({what}): {took}, "
         f"{plan['blocks']} blocks an image of {plan['band_rows']} rows, "
         f"{plan['px']} pixels a thread")
@@ -1077,61 +1084,37 @@ def profile_steps(step, n: int, out_dir: str, name: str) -> dict:
     return res
 
 
-def kernel_counters():
-    """(every kernel wrapper, `sm3x_torch.ops.counted_kernels`, the three K3
-    wrappers), each with its `launches` count; K1 and K3 also count by
-    kernel in `variants`."""
-    from sm3x_torch.ops import counted_kernels
-
-    counters = counted_kernels()
-    return counters, tuple(fn for fn in counters if hasattr(fn, "shapes"))
+K3_WRAPPERS = ("flash_forward_cuda", "flash_backward_dq_cuda",
+               "flash_backward_dkv_cuda")
 
 
-# each wrapper's kernels by name in the device trace (K3's as the
-# benchmark's attention reader matches them)
-DEVICE_KERNELS = {
-    "photometric_cuda": r"photometric_(?:band|scratch)_kernel\b",
-    "ntxent_forward_cuda": r"ntxent_fwd_kernel\b",
-    "ntxent_backward_cuda": r"ntxent_bwd_kernel\b",
-    "flash_forward_cuda": r"(?:^|::|\s)(?:flash_)?fwd_kernel\b",
-    "flash_backward_dq_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dq_kernel\b",
-    "flash_backward_dkv_cuda": r"(?:^|::|\s)(?:flash_)?bwd_dkv_kernel\b",
-    "copy_cuda": r"(?:^|::|\s)copy_kernel\b",
-    "moe_dispatch_cuda": r"moe_dispatch_fwd_kernel\b",
-    "moe_combine_cuda": r"moe_combine_fwd_kernel\b",
-    "moe_combine_backward_cuda": r"moe_combine_bwd_kernel\b",
-    "moe_dispatch_backward_cuda": r"moe_dispatch_bwd_kernel\b",
-    "bn_forward_cuda": r"(?:^|::)bn_fwd_\w+_kernel\b",
-    "bn_backward_cuda": r"(?:^|::)bn_bwd_\w+_kernel\b",
-}
-
-
-def device_launch_check(res: dict, n: int, host: dict, per_step: dict,
-                        tag: str) -> None:
-    """Each wrapper's kernels a step in the device trace of `n` steps
-    (`profile_device`'s result) against its host count over the same steps
-    (`host`, by wrapper) and `per_step`: a replayed graph's launches are
-    counted on the host from its capture, so only the trace can show a
-    kernel that a replay leaves out."""
-    seen = {name: sum(e.count for e in res["rows"] if re.search(rx, e.key))
-            for name, rx in DEVICE_KERNELS.items()}
-    log(f"  kernels a step in the device trace of {n} steps: "
-        f"{ {k: v / n for k, v in seen.items()} }; on the host: "
-        f"{ {k: v / n for k, v in host.items()} }")
+def expected_launches(per_step: dict, n: int) -> dict:
+    """Each DEVICE_KERNELS entry's launches in `n` steps that launch
+    `per_step` a step (by wrapper): every K1 launch the band kernel, every
+    K3 launch a tensor-core one."""
     want = {k: per_step.get(k, 0) * n for k in DEVICE_KERNELS}
-    if seen != want or host != want:
-        raise AssertionError(f"[{tag}] kernels in the trace {seen}, on the "
-                             f"host {host}, expected {want}")
+    want["band"] = want["photometric_cuda"]
+    want["mma"] = sum(want[k] for k in K3_WRAPPERS)
+    return want
 
 
-def reset_counters() -> None:
-    counters, k3 = kernel_counters()
-    for fn in counters:
-        fn.launches = 0
-    for fn in k3 + counters[:1]:
-        fn.variants = dict.fromkeys(fn.variants, 0)
-    for fn in k3:
-        fn.shapes = {}
+# each hold's launches a step, by DEVICE_KERNELS key, as its trace saw them
+LAUNCHES_SEEN = {}
+
+
+def hold_launches(tag: str, seen: dict, per_step: dict, n: int,
+                  what: str = "steps") -> None:
+    """The kernels in a device trace of `n` steps (`seen`, by
+    DEVICE_KERNELS) against `per_step` (expected_launches); a step's count
+    goes into LAUNCHES_SEEN under "`tag`, `n` `what`"."""
+    want = expected_launches(per_step, n)
+    a_step = LAUNCHES_SEEN[f"{tag}, {n} {what}"] = {
+        k: v / n for k, v in seen.items()}
+    log(f"  kernel launches a step in the device trace of {n} {what}: "
+        f"{ {k: v for k, v in a_step.items() if v} }")
+    if seen != want:
+        raise AssertionError(f"[{tag}] kernels in the device trace {seen}, "
+                             f"expected {want}")
 
 
 def timed_steps(steps) -> list:
@@ -1175,24 +1158,20 @@ def stage1_cfg(tag: str, arch: str, batch: int, use_checkpoint=False):
 
 def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
               per_step: dict, profile_dir=None, profile_name=None,
-              tweak=None, busy: bool = False, then=None,
-              traced: bool = False) -> tuple:
+              tweak=None, then=None) -> None:
     """The stage-1 trainer at the run.sh recipe with encoder `arch`: `steps`
-    steps through SSLTrainer.fit with every kernel count set to 0 just
-    before and read just after (each must equal `per_step` x steps), then
-    the step time over two more epochs and the loss's parts of the last of
-    them. `tweak(cfg, data)` changes the recipe (the multi-crop and
-    tri-modal phases); with `busy` the device's busy time of three traced
-    steps is printed too, and with `traced` each kernel's launches in that
-    trace are held against the host's counts (`device_launch_check`); the
-    trainer logs whether its step is a CUDA graph or eager (and why), and
-    so does this phase; `then(trainer, batches)` runs last, with four
-    batches of a later epoch on the card (the [bnfreq] checks). Returns
-    the launches in fit by wrapper and each K3 wrapper's by (B, S, H,
-    D)."""
+    steps through SSLTrainer.fit, then the step time over two more epochs
+    and the loss's parts of the last of them, then the device's busy time
+    of three traced steps, in whose trace each kernel's launches must be
+    `per_step` a step (hold_launches), and so in a trace of one eager step
+    where the step is a CUDA graph. `tweak(cfg, data)` changes the
+    recipe (the multi-crop and tri-modal phases); the trainer logs whether
+    its step is a CUDA graph or eager (and why), and so does this phase;
+    `then(trainer, batches)` runs last, with four batches of a later epoch
+    on the card (the [bnfreq] checks)."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
-    from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.train.backbone_train import SSLTrainer
+    from sm3x_torch.train.common import GraphedStep
 
     cfg = stage1_cfg(tag, arch, batch, use_checkpoint)
     r = cfg.run
@@ -1205,17 +1184,11 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
     log(f"[{tag}] stage-1 update: " + (
         "eager (" + "; ".join(trainer.graph_refusals) + ")"
         if trainer.graph_refusals else "one CUDA graph from the second step"))
-    counters, k3 = kernel_counters()
-    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    variants = {fn.__name__: dict(fn.variants) for fn in k3}
-    shapes = {fn.__name__: dict(fn.shapes) for fn in k3}
-    k1_variants = dict(K.photometric_cuda.variants)
     peak = torch.cuda.max_memory_allocated()
     losses = hist[0]["step_losses"]
     log(f"[{tag}] stage-1 step: {arch}/{cfg.model.arch_version}, proj 128, "
@@ -1223,24 +1196,8 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         f"--data-name {cfg.data.data_name}, --use-checkpoint "
         f"{trainer.remat}; {steps} steps via SSLTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
-    log(f"  kernel launches in fit: {launches}")
-    log(f"  K1 launches by kernel (band: one read and one write of each "
-        f"image; scratch: the general-shape path): {k1_variants}")
-    log(f"  K3 launches by kernel (fma float32, mma bf16): {variants}")
-    if launches["flash_forward_cuda"]:
-        log(f"  K3 launches by (B, S, H, D): {shapes}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
-    want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
-            for fn in counters}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    # every K1 launch of stage 1 (224 x 224, 96 x 96) is the band kernel
-    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
-        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
-    # bf16 autocast: every K3 launch is a tensor-core kernel
-    if any(v != {"fma": 0, "mma": launches[n]} for n, v in variants.items()):
-        raise AssertionError(f"K3 kernels {variants}, expected mma only")
     written = sorted(f for f in os.listdir(r.log_path) if f.endswith(".pth"))
     # [main] writes checkpoint.pth too, from ckp_0.pth's snapshot
     want_files = ["ckp_0.pth"] + (["checkpoint.pth"] if r.ckpt_freq == 1
@@ -1286,27 +1243,28 @@ def phase_fit(tag: str, arch: str, batch: int, steps: int, use_checkpoint,
         raise AssertionError(f"non-finite loss parts {parts}")
     log(f"  peak device memory in fit: {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
-    if profile_dir or busy or traced:
-        batches = device_batches(3)[:3]
-        run = lambda it: trainer.train_step(*batches[it][0], it,
-                                            *batches[it][1])
-        if traced:
-            reset_counters()
-        if profile_dir:
-            res = profile_steps(run, len(batches), profile_dir, profile_name)
-        else:
-            res = profile_device(run, len(batches))
-            log(f"  device busy {res['busy_ms']:.1f} ms a step of "
-                f"{res['wall_ms']:.1f} ms on the host clock under the "
-                f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
-                f"busy), {res['launches']:.0f} kernels and copies a step")
-        if traced:
-            device_launch_check(res, len(batches),
-                                {fn.__name__: fn.launches for fn in counters},
-                                per_step, tag)
+    batches = device_batches(3)[:3]
+    run = lambda it: trainer.train_step(*batches[it][0], it, *batches[it][1])
+    if profile_dir:
+        res = profile_steps(run, len(batches), profile_dir, profile_name)
+    else:
+        res = profile_device(run, len(batches))
+        log(f"  device busy {res['busy_ms']:.1f} ms a step of "
+            f"{res['wall_ms']:.1f} ms on the host clock under the "
+            f"profiler ({100 * res['busy_ms'] / res['wall_ms']:.1f}% "
+            f"busy), {res['launches']:.0f} kernels and copies a step")
+    # every K1 launch of stage 1 (224 x 224, 96 x 96) is the band kernel;
+    # under bf16 autocast every K3 launch is a tensor-core kernel
+    hold_launches(tag, device_launches(res["rows"]), per_step, len(batches))
+    if isinstance(trainer.train_step, GraphedStep):
+        # the replays launch what the capture recorded: the eager step,
+        # which the first step of fit ran, is held to the same counts
+        args, meta = batches[0]
+        hold_launches(f"{tag} eager", traced_launches(
+            lambda _: trainer.train_step.eager(*args, 0, *meta)), per_step,
+            1, "step")
     if then is not None:
         then(trainer, device_batches(3)[:4])
-    return launches, shapes
 
 
 # kernel launches a step on each path, by wrapper
@@ -1328,18 +1286,16 @@ VIT_PER_STEP = dict(SSL_PER_STEP, flash_forward_cuda=48,
                     flash_backward_dq_cuda=48, flash_backward_dkv_cuda=48)
 
 
-def phase_main(profile_dir=None) -> dict:
-    return phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
-                     MAIN_PER_STEP, profile_dir, "profile_step.txt",
-                     traced=True)[0]
+def phase_main(profile_dir=None) -> None:
+    phase_fit("main", "resnet50", MAIN_BATCH, MAIN_STEPS, False,
+              MAIN_PER_STEP, profile_dir, "profile_step.txt")
 
 
-def phase_vit(profile_dir=None) -> dict:
+def phase_vit(profile_dir=None) -> None:
     """vit_b16 with --use-checkpoint flash: 12 blocks x 4 encoder passes
     give 48 launches of each K3 kernel a step."""
-    return phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash",
-                     VIT_PER_STEP, profile_dir, "profile_vit.txt",
-                     traced=True)[0]
+    phase_fit("vit", "vit_b16", VIT_BATCH, VIT_STEPS, "flash", VIT_PER_STEP,
+              profile_dir, "profile_vit.txt")
 
 
 # multi-crop at the CLI defaults: globals 224 (scales 0.5-1), six locals of
@@ -1366,11 +1322,11 @@ def tri_tweak(cfg, data) -> None:
     cfg.model.meta_vocab_sizes = tuple(data.meta_vocab_sizes)
 
 
-def phase_crop() -> dict:
+def phase_crop() -> None:
     """run.sh's stage 1 under the multi-crop recipe (crop_tweak); 16
     NT-Xent terms in 2 groups, one K2 call a step."""
-    return phase_fit("crop", "resnet50", MAIN_BATCH, CROP_STEPS, False,
-                     CROP_PER_STEP, tweak=crop_tweak, busy=True)[0]
+    phase_fit("crop", "resnet50", MAIN_BATCH, CROP_STEPS, False,
+              CROP_PER_STEP, tweak=crop_tweak)
 
 
 # --bn-stat-freq 4 on [main]'s recipe: fit's steps 0 and 4 refresh the
@@ -1386,7 +1342,9 @@ def bnfreq_checks(trainer, batches) -> None:
     """The fast step leaves every running statistic as it was, bit for bit,
     and the model in train mode; the standard step moves them; then each
     step's device busy ms, launches and top kernels over three traced
-    steps, and the host-clock ms of six steps of each in turns."""
+    steps (the standard step's kernels [main]'s, the fast step's without
+    K6, whose batch norms are in eval mode), and the host-clock ms of six
+    steps of each in turns."""
     bns = [m for m in trainer.model.modules()
            if hasattr(m, "running_mean")]
     stats = lambda: [t.clone() for m in bns for t in (
@@ -1422,6 +1380,9 @@ def bnfreq_checks(trainer, batches) -> None:
     for name, fn in steps.items():
         res = profile_device(lambda it, fn=fn: fn(*batches[it][0], it,
                                                   *batches[it][1]), 3)
+        hold_launches(f"bnfreq {name}", device_launches(res["rows"]),
+                      MAIN_PER_STEP if name == "standard" else SSL_PER_STEP,
+                      3, f"{name} steps")
         log(f"  {name} step: device busy {res['busy_ms']:.1f} ms a step of "
             f"{res['wall_ms']:.1f} ms on the host clock under the profiler, "
             f"{res['launches']:.0f} kernels and copies a step; its three "
@@ -1441,20 +1402,12 @@ def bnfreq_checks(trainer, batches) -> None:
             f"synchronised)")
 
 
-# K6 runs in the standard steps alone (the fast step's batch norms are in
-# eval mode): 2 of the 8, spread over the 8 for fit's count
-BNFREQ_PER_STEP = dict(SSL_PER_STEP, **{
-    k: v * (BNFREQ_STEPS // BNFREQ_K) // BNFREQ_STEPS
-    for k, v in r50_k6(4).items()})
-
-
-def phase_bnfreq() -> dict:
+def phase_bnfreq() -> None:
     """[main]'s recipe under --bn-stat-freq 4 (EXPERIMENTAL, off-recipe):
-    8 steps through fit with K1 4, K2f 1 and K2b 1 launches a step (all
-    band) and K6 in the 2 standard steps, then bnfreq_checks."""
-    return phase_fit("bnfreq", "resnet50", MAIN_BATCH, BNFREQ_STEPS, False,
-                     BNFREQ_PER_STEP, tweak=bnfreq_tweak,
-                     then=bnfreq_checks)[0]
+    8 steps through fit, 2 standard and 6 fast, three traced standard
+    steps with [main]'s launches, then bnfreq_checks."""
+    phase_fit("bnfreq", "resnet50", MAIN_BATCH, BNFREQ_STEPS, False,
+              MAIN_PER_STEP, tweak=bnfreq_tweak, then=bnfreq_checks)
 
 
 # [crop]'s recipe on [vit]'s model: each view is its own encoder pass (the
@@ -1470,35 +1423,29 @@ VIT_CROP_PER_STEP = dict(
                        "flash_backward_dkv_cuda")})
 
 
-def phase_crop_vit() -> tuple:
+def phase_crop_vit() -> dict:
     """[crop]'s recipe on vit_b16 with --use-checkpoint flash, batch 64, 3
-    steps through fit: the launch counts, K3's launches at each S, then K3
-    at the step's (B, S, H, D) in bf16 against its plain versions (timed
-    at both shapes in [kernels]): (the launches, {kernel name: [rows]})."""
-    launches, shapes = phase_fit("crop_vit", "vit_b16", VIT_BATCH,
-                                 VIT_CROP_STEPS, "flash", VIT_CROP_PER_STEP,
-                                 tweak=crop_tweak, busy=True)
-    for name, by_shape in shapes.items():
-        want = {(VIT_BATCH, s, 12, 64): 12 * n * VIT_CROP_STEPS
-                for s, n in VIT_CROP_PASSES.items()}
-        log(f"  {name}: {by_shape.get(VIT_SHAPE, 0)} launches at S = 197, "
-            f"{by_shape.get(K3_LOCAL_SHAPE, 0)} at S = 37")
-        if by_shape != want:
-            raise AssertionError(f"{name} by shape {by_shape}, expected "
-                                 f"{want}")
+    steps through fit, then K3 at the step's two (B, S, H, D), which the
+    recipe fixes, in bf16 against its plain versions (timed at both shapes
+    in [kernels]): {kernel name: [rows]}."""
+    phase_fit("crop_vit", "vit_b16", VIT_BATCH, VIT_CROP_STEPS, "flash",
+              VIT_CROP_PER_STEP, tweak=crop_tweak)
+    shapes = {(VIT_BATCH, s, 12, 64): 12 * n for s, n in
+              VIT_CROP_PASSES.items()}
+    log(f"  K3 a step by (B, S, H, D), from the recipe: {shapes}")
     rows = {}
     rng = np.random.default_rng(13)
-    for shape in sorted(shapes["flash_forward_cuda"]):
+    for shape in sorted(shapes):
         _, errs = k3_against_plain(shape, torch.bfloat16, rng, "crop_vit",
                                    f"the step's S = {shape[1]}")
         for key, err in errs.items():
             rows.setdefault(key, []).append(dict(
                 name=key, path="crop_vit", shape=list(shape),
                 dtype="bfloat16", max_abs_err=err))
-    return launches, rows
+    return rows
 
 
-def phase_tri() -> dict:
+def phase_tri() -> None:
     """--arch-version trimodal on vit_b16, batch 64, --use-checkpoint flash,
     the metadata vocabularies from the synthetic Derm7pt's codes; then its
     ckp_0.pth loads strictly into a new TriModalSimCLR."""
@@ -1510,8 +1457,8 @@ def phase_tri() -> dict:
         tri_tweak(cfg, data)
         sizes.append(cfg.model.meta_vocab_sizes)
 
-    launches = phase_fit("tri", "vit_b16", TRI_BATCH, TRI_STEPS, "flash",
-                         VIT_PER_STEP, tweak=tweak, busy=True)[0]
+    phase_fit("tri", "vit_b16", TRI_BATCH, TRI_STEPS, "flash", VIT_PER_STEP,
+              tweak=tweak)
     ckpt = torch.load(os.path.join(LOGS, "tri", "ckp_0.pth"),
                       weights_only=True)
     model = TriModalSimCLR("vit_b16", 128, sizes[0], remat="flash",
@@ -1519,7 +1466,6 @@ def phase_tri() -> dict:
     model.load_state_dict(ckpt["state_dict"], strict=True)
     log(f"  metadata vocabularies {sizes[0]}; ckp_0.pth loads strictly into "
         f"a new TriModalSimCLR ({len(ckpt['state_dict'])} tensors)")
-    return launches
 
 
 TRANSFER_TRAIN, TRANSFER_TEST, TRANSFER_BATCH, TRANSFER_EPOCHS = 256, 64, 64, 2
@@ -1547,13 +1493,13 @@ def write_isic17(root: str, seed: int = 0) -> None:
                             int(rng.integers(2))])
 
 
-def phase_transfer() -> dict:
+def phase_transfer() -> None:
     """The ISIC transfer probe (tools/transfer_probe_torch.py's function)
     on a synthetic ISIC17 tree, from [main]'s ckp_0.pth (a fresh stage-1
     model's from the seed where [main] did not run): the resnet50 derm
     encoder frozen under 2 binary heads, batch 64, 2 epochs, bf16 autocast;
-    K1 once a train batch, all `band`."""
-    from sm3x_torch.ops import augment_cuda as K
+    then one more epoch in the device trace: K1 once a train batch, all
+    `band`, and no other kernel."""
     from sm3x_torch.train.transfer_probe import run_transfer_probe
 
     ckpt = os.path.join(LOGS, "main", "ckp_0.pth")
@@ -1580,40 +1526,32 @@ def phase_transfer() -> dict:
     stamp = logging.Handler()
     stamp.emit = lambda r: stamps.append((r.created, r.getMessage()))
     logger.addHandler(stamp)
-    reset_counters()
+    probe = lambda epochs: run_transfer_probe(
+        ckpt, "ISIC17Dataset", root, arch="resnet50", modality="derm",
+        img_sz=(224, 224), batch_size=TRANSFER_BATCH, epochs=epochs,
+        cache_size=320, workers=8, logger=logger, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    best = run_transfer_probe(
-        ckpt, "ISIC17Dataset", root, arch="resnet50", modality="derm",
-        img_sz=(224, 224), batch_size=TRANSFER_BATCH, epochs=TRANSFER_EPOCHS,
-        cache_size=320, workers=8, logger=logger, device="cuda")
+    best = probe(TRANSFER_EPOCHS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    counters, _ = kernel_counters()
-    launches = {fn.__name__: fn.launches for fn in counters}
     marks = [t for t, msg in stamps if msg.startswith(("transfer probe: ",
                                                        "probe epoch "))]
     epoch_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     log(f"  {wall:.2f} s in all (decode included); ms an epoch "
         f"{[round(t, 1) for t in epoch_ms]} (train views, 4 steps, and the "
         f"eval pass; the first epoch's cuDNN autotune included)")
-    log(f"  kernel launches: {launches}; K1 by kernel "
-        f"{dict(K.photometric_cuda.variants)}")
     log(f"  best val: AUC_AVG {best['AUC_AVG']:.4f}, AUC_L0 "
         f"{best['AUC_L0']:.4f}, AUC_L1 {best['AUC_L1']:.4f}, loss "
         f"{best['loss']:.4f}; peak device memory {peak / 2 ** 30:.2f} GiB")
-    steps = TRANSFER_EPOCHS * (TRANSFER_TRAIN // TRANSFER_BATCH)
-    want = dict.fromkeys(launches, 0)
-    want["photometric_cuda"] = steps
-    if launches != want or K.photometric_cuda.variants != {
-            "band": steps, "scratch": 0}:
-        raise AssertionError(f"launches {launches}, expected {want}, band")
     if len(epoch_ms) != TRANSFER_EPOCHS or not all(
             math.isfinite(v) for v in best.values()) or not (
             0.0 <= best["AUC_AVG"] <= 1.0):
         raise AssertionError(f"transfer probe: {best}, epochs {epoch_ms}")
-    return launches
+    hold_launches("transfer", traced_launches(lambda _: probe(1)),
+                  {"photometric_cuda": 1}, TRANSFER_TRAIN // TRANSFER_BATCH,
+                  "train batches of a traced one-epoch probe")
 
 
 # the learning demo at its defaults: 20 SSL epochs, the full pipeline (40
@@ -1623,23 +1561,25 @@ def phase_transfer() -> dict:
 LEARN_ARGV = ["--device", "cuda", "--full-pipeline"]
 LEARN_K1_SHAPE = (48, 96, 96, 3)
 LEARN_K2_SHAPE = (4, 96, 64)
-# 134 train cases at batch 48: 3 steps an epoch; K1 twice a step in the
-# probes' train passes (15 epochs each), four times a SSL step, twice a
-# batch in stage 2's init pass and steps (40 epochs) and in the eval's
-# train steps (25 epochs)
-LEARN_SSL_STEPS = 20 * 3
-LEARN_K1 = 2 * (2 * 15 * 3) + 4 * LEARN_SSL_STEPS + 2 * 3 * 41 + 2 * 25 * 3
+# the demo again with one epoch of each stage, in the device trace. 134
+# train cases at batch 48: 3 steps an epoch; K1 twice a step in the two
+# probes' train passes, four times a SSL step, twice a batch in stage 2's
+# init pass and steps and in the eval's train steps; K2f and K2b once a
+# SSL step
+LEARN_TRACED = ["--epochs", "1", "--probe-epochs", "1", "--mlc-epochs", "1",
+                "--eval-epochs", "1"]
+LEARN_TRACED_LAUNCHES = {"photometric_cuda": 2 * 3 * (2 + 2 + 1) + 4 * 3,
+                         "ntxent_forward_cuda": 3, "ntxent_backward_cuda": 3}
 
 
-def phase_learn() -> tuple:
+def phase_learn() -> dict:
     """tools/demo_synthetic_e2e_torch.py's main at its defaults on the card,
-    its output in LOGS/learn/demo.log, with every kernel count set to 0 just
-    before and read just after: the three AUCs, the SSL epoch losses, each
-    stage's seconds, the launches. Then K1 and K2 at the demo's shapes
-    against their plain versions. Returns (launches, {kernel: [rows]})."""
+    its output in LOGS/learn/demo.log: the three AUCs, the SSL epoch
+    losses, each stage's seconds; then the demo at one epoch a stage in the
+    device trace, with its launches (LEARN_TRACED_LAUNCHES). Then K1 and
+    K2 at the demo's shapes against their plain versions. Returns {kernel:
+    [rows]}."""
     import importlib.util
-
-    from sm3x_torch.ops import augment_cuda as K
 
     log_path = os.path.join(LOGS, "learn")
     shutil.rmtree(log_path, ignore_errors=True)
@@ -1650,15 +1590,11 @@ def phase_learn() -> tuple:
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
     out_file = os.path.join(log_path, "demo.log")
-    reset_counters()
     t0 = time.perf_counter()
     with open(out_file, "w") as f, contextlib.redirect_stdout(f):
         res = demo.main(LEARN_ARGV + ["--log-path", log_path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counters, _ = kernel_counters()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    variants = dict(K.photometric_cuda.variants)
     with open(out_file) as f:
         said = [ln.rstrip() for ln in f if ln.startswith((
             "data:", "random-init probe:", "SSL ", "SSL-pretrained probe:",
@@ -1679,7 +1615,6 @@ def phase_learn() -> tuple:
     log(f"  seconds: random-init probe {sec['random-init probe']:.1f}, SSL "
         f"fit {sec['ssl']:.1f}, SSL probe {sec['SSL-pretrained probe']:.1f}, "
         f"stage 2 {sec['mlc']:.1f}, eval {sec['eval']:.1f}")
-    log(f"  kernel launches: {launches}; K1 by kernel {variants}")
     values = [res["auc_random"], res["auc_ssl"], res["auc_eval"]] + losses
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"[learn] a loss or AUC is not finite: {values}")
@@ -1688,22 +1623,31 @@ def phase_learn() -> tuple:
                              f"is not below the first {losses[0]}")
     # the SSL probe above the random-init one is not gated: seed 0 misses
     # it on the card (PERF.md §6)
-    want = dict.fromkeys(launches, 0)
-    want.update(photometric_cuda=LEARN_K1, ntxent_forward_cuda=LEARN_SSL_STEPS,
-                ntxent_backward_cuda=LEARN_SSL_STEPS)
+    traced_path = os.path.join(log_path, "traced")
+
+    def traced_demo(_):
+        # a retaken trace runs the demo again from nothing
+        shutil.rmtree(traced_path, ignore_errors=True)
+        os.makedirs(traced_path)
+        demo.main(LEARN_ARGV + LEARN_TRACED + ["--log-path", traced_path])
+
+    with open(os.path.join(log_path, "demo_traced.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        seen = traced_launches(traced_demo)
+    log(f"  the demo at one epoch a stage ({' '.join(LEARN_TRACED)}) in the "
+        f"device trace: K6 {[seen[k] for k in r50_k6(0)]} (the resnet18's "
+        f"batch norms in train mode; held in [main] and [bn])")
     # K6 serves the demo's resnet18 wherever its batch norms run in train
-    # mode: logged above, held in [main] and [bn]
-    for name in r50_k6(0):
-        want[name] = launches[name]
-    if launches != want or variants["scratch"]:
-        raise AssertionError(f"[learn] launches {launches}, K1 {variants}: "
-                             f"expected {want}, K1 band only")
+    # mode, which the counts here do not hold
+    hold_launches("learn", seen, dict(LEARN_TRACED_LAUNCHES,
+                                      **{k: seen[k] for k in r50_k6(0)}), 1,
+                  "demo runs")
     rows = {"photometric": [k1_at_path_shape(
         LEARN_K1_SHAPE, "learn", "learn", "a view of the demo's batch")]}
     rows.update({key: [row] for key, row in k2_at_path_shape(
         LEARN_K2_SHAPE, "learn", "learn",
         np.random.default_rng(12)).items()})
-    return launches, rows
+    return rows
 
 
 # stage 2 at run.sh's recipe: 1024 synthetic cases, 4 steps an epoch
@@ -1711,18 +1655,18 @@ STAGE2_BATCH, STAGE2_CASES, STAGE2_EPOCHS = 256, 1024, 2
 STAGE2_PER_STEP = {"photometric_cuda": 2}
 
 
-def phase_stage2(profile_dir=None) -> dict:
+def phase_stage2(profile_dir=None) -> None:
     """The stage-2 trainer at the run.sh recipe (resnet50, 224x224, batch
     256, v4 projectors of 512, 1 head, ff 128, dropout 0.1, T 1, lr 1e-4,
     float32 with TF32 off) from the ckp_0.pth that [main] wrote: the init
-    pass and `MLCTrainer.fit` over 2 epochs with every kernel count set to
-    0 just before and read just after, the checks on what they leave, then
-    the times of the init pass, of an epoch's k-means and of 8 more steps."""
+    pass and `MLCTrainer.fit` over 2 epochs, the checks on what they leave,
+    then the times of the init pass, of an epoch's k-means and of 8 more
+    steps; then three steps and another init pass in the device trace, K1
+    twice a batch (band) in each, K6 in the init pass alone."""
     from sm3x_torch import NUM_CLASSES
     from sm3x_torch.core import prng
     from sm3x_torch.core.config import MLCTrainConfig
     from sm3x_torch.data.synthetic import synthetic_paired_data
-    from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.ops.kmeans import spherical_kmeans
     from sm3x_torch.train import mlc_train
 
@@ -1752,22 +1696,17 @@ def phase_stage2(profile_dir=None) -> dict:
         return "running" in k or "num_batches" in k
 
     loaded = snapshot()
-    counters, _ = kernel_counters()
-    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.init_memory(data)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    init_launches = K.photometric_cuda.launches
     after_init = snapshot()
     t0 = time.perf_counter()
     hist = trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    k1_variants = dict(K.photometric_cuda.variants)
     peak = torch.cuda.max_memory_allocated()
     after_fit = snapshot()
 
@@ -1778,23 +1717,10 @@ def phase_stage2(profile_dir=None) -> dict:
         f"{init_s:.2f} s, {STAGE2_EPOCHS} epochs of {steps} steps via "
         f"MLCTrainer.fit in {wall:.2f} s")
     log(f"  losses per step: {losses}")
-    log(f"  kernel launches in the init pass and fit: {launches}; K1 in the "
-        f"init pass {init_launches}; K1 by kernel {k1_variants}")
     if [len(x) for x in losses] != [steps] * STAGE2_EPOCHS or not all(
             math.isfinite(x) for ep in losses for x in ep):
         raise AssertionError(f"expected {STAGE2_EPOCHS} x {steps} finite "
                              f"losses, got {losses}")
-    passes = steps * (1 + STAGE2_EPOCHS)  # init batches and train steps
-    want = {fn.__name__: STAGE2_PER_STEP.get(fn.__name__, 0) * passes
-            for fn in counters}
-    # K6 in the init pass alone: its extractor runs in train mode (the two
-    # encoders, one view each), with no gradient; fit's is frozen in eval
-    want.update(r50_k6(2 * steps, backward=False))
-    if launches != want or init_launches != 2 * steps:
-        raise AssertionError(f"launch counts {launches} (init pass "
-                             f"{init_launches}), expected {want}")
-    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
-        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
     for i, k in enumerate(NUM_CLASSES):
         a = trainer.assignments[i]
         if a.shape != (STAGE2_CASES,) or int(a.min()) < 0 or int(a.max()) >= k:
@@ -1866,11 +1792,17 @@ def phase_stage2(profile_dir=None) -> dict:
         f"included")
     log(f"  peak device memory in the init pass and fit: "
         f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    if profile_dir:
-        batches = device_batches(4)[:3]
-        profile_steps(lambda it: step(batches[it], it), len(batches),
-                      profile_dir, "profile_stage2.txt")
-    return launches
+    batches = device_batches(4)[:3]
+    run = lambda it: step(batches[it], it)
+    res = (profile_steps(run, len(batches), profile_dir, "profile_stage2.txt")
+           if profile_dir else profile_device(run, len(batches)))
+    hold_launches("stage2", device_launches(res["rows"]), STAGE2_PER_STEP,
+                  len(batches))
+    # K6 in the init pass alone: its extractor runs in train mode (the two
+    # encoders, one view each), with no gradient; fit's is frozen in eval
+    hold_launches("stage2 init pass", traced_launches(
+        lambda _: trainer.init_memory(data)), dict(
+            STAGE2_PER_STEP, **r50_k6(2, backward=False)), steps, "batches")
 
 
 # K1 launches a supervised train step: one view a modality
@@ -1890,19 +1822,6 @@ def capture_logger(name: str):
     handler.emit = lambda r: records.append((r.levelname, r.getMessage()))
     logger.addHandler(handler)
     return logger, records
-
-
-def count_k1(fn, deltas: list):
-    """`fn`, with K1's launches during each call appended to `deltas`."""
-    from sm3x_torch.ops import augment_cuda as K
-
-    def counted(*args):
-        before = K.photometric_cuda.launches
-        out = fn(*args)
-        deltas.append(K.photometric_cuda.launches - before)
-        return out
-
-    return counted
 
 
 def check_results_csv(path: str) -> None:
@@ -1945,45 +1864,24 @@ def supervised_cfg(tag: str, finetune: str, amp: bool, batch: int):
     return cfg
 
 
-def supervised_fit(tag: str, trainer, records, train, test) -> dict:
-    """One epoch through `fit` and `write_results`, with every kernel count
-    set to 0 just before and read just after: K1 twice a train step, all
-    band, and never in an eval step; no other kernel; best_eval.pth written
+def supervised_fit(tag: str, trainer, records, train, test) -> None:
+    """One epoch through `fit` and `write_results`: best_eval.pth written
     once, after the loop; results.csv in the released layout."""
-    from sm3x_torch.ops import augment_cuda as K
-
     cfg = trainer.cfg
     steps = train.steps_per_epoch(cfg.optim.batch_size)
     eval_batches = test.steps_per_epoch(cfg.optim.batch_size)
-    in_train, in_eval = [], []
-    trainer.train_step = count_k1(trainer.train_step, in_train)
-    trainer.eval_step = count_k1(trainer.eval_step, in_eval)
-    counters, _ = kernel_counters()
-    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     best = trainer.fit(train, test)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    k1_variants = dict(K.photometric_cuda.variants)
     csv_path = os.path.join(cfg.run.log_path, "results.csv")
     trainer.write_results(test, csv_path)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(f"  one epoch via fit ({steps} train steps, then {eval_batches} eval "
         f"batches) in {wall:.2f} s; best val AUC_AVG {best:.4f}")
-    log(f"  kernel launches in fit: {launches}; K1 by kernel {k1_variants}; "
-        f"K1 a train step {in_train}, K1 an eval step {in_eval}")
-    want = {fn.__name__: SUPERVISED_PER_STEP.get(fn.__name__, 0) * steps
-            for fn in counters}
-    if launches != want or in_train != [2] * steps \
-            or in_eval != [0] * (2 * eval_batches):  # fit's pass and the CSV's
-        raise AssertionError(f"launch counts {launches} (train {in_train}, "
-                             f"eval {in_eval}), expected {want}")
-    if k1_variants != {"band": launches["photometric_cuda"], "scratch": 0}:
-        raise AssertionError(f"K1 kernels {k1_variants}, expected band only")
     said = [msg for _, msg in records]
     epoch_line = [i for i, msg in enumerate(said) if msg.startswith("Epoch 0:")]
     wrote = [i for i, msg in enumerate(said)
@@ -2001,13 +1899,14 @@ def supervised_fit(tag: str, trainer, records, train, test) -> dict:
     check_results_csv(csv_path)
     log(f"  peak device memory in fit and the CSV's pass: "
         f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    return launches
 
 
-def supervised_times(trainer, train, test, profile_dir, profile_name) -> None:
+def supervised_times(tag: str, trainer, train, test, profile_dir,
+                     profile_name) -> None:
     """Step ms over 8 more train steps (median, minimum; canvases uploaded
     before the clock), the eval pass's ms a batch, and the device's busy ms
-    and launches a step under torch.profiler."""
+    and launches a step under torch.profiler: K1 twice a train step, all
+    band, no other kernel, and none in an eval step."""
     from sm3x_torch.train.supervised import upload_batch
 
     cfg = trainer.cfg
@@ -2041,7 +1940,7 @@ def supervised_times(trainer, train, test, profile_dir, profile_name) -> None:
     profiled = train_batches[:3]
     step = lambda it: trainer.train_step(*profiled[it], 2000 + it)
     if profile_dir:
-        profile_steps(step, len(profiled), profile_dir, profile_name)
+        res = profile_steps(step, len(profiled), profile_dir, profile_name)
     else:
         res = profile_device(step, len(profiled))
         log(f"  device busy {res['busy_ms']:.1f} ms a step of "
@@ -2049,6 +1948,11 @@ def supervised_times(trainer, train, test, profile_dir, profile_name) -> None:
             f"({100 * res['busy_ms'] / res['wall_ms']:.1f}% busy), "
             f"{res['launches']:.0f} kernels and copies a step "
             f"(torch.profiler, {len(profiled)} steps)")
+    hold_launches(tag, device_launches(res["rows"]), SUPERVISED_PER_STEP,
+                  len(profiled))
+    hold_launches(tag, traced_launches(
+        lambda it: trainer.eval_step(*eval_batches[it][:4]), 2), {}, 2,
+        "eval steps")
 
 
 def snapshot(module) -> dict:
@@ -2057,8 +1961,7 @@ def snapshot(module) -> dict:
 
 def phase_eval(profile_dir=None):
     """stage2_eval at the run.sh recipe, from [stage2]'s ckp_1.pth, float32
-    with TF32 off. Returns the kernel launches of the epoch and, for
-    [infer], the path of best_eval.pth with test canvases and the trainer's
+    with TF32 off. Returns, for [infer], the path of best_eval.pth with test canvases and the trainer's
     eval-step logits on them, taken while its weights are still the ones
     it wrote."""
     from sm3x_torch.core import prng
@@ -2092,7 +1995,7 @@ def phase_eval(profile_dir=None):
         raise AssertionError("the eval stage's AdamW eps is 1e-8")
     loaded = snapshot(trainer.model.extractor)
 
-    launches = supervised_fit("eval", trainer, records, train, test)
+    supervised_fit("eval", trainer, records, train, test)
     after = snapshot(trainer.model.extractor)
     same = all(torch.equal(after[k], v) for k, v in loaded.items())
     log(f"  extractor after fit: weights and running statistics "
@@ -2125,7 +2028,8 @@ def phase_eval(profile_dir=None):
                     rtol=1e-5, atol=1e-6)
     if not math.isfinite(float(loss)):
         raise AssertionError("non-finite loss")
-    supervised_times(trainer, train, test, profile_dir, "profile_eval.txt")
+    supervised_times("eval", trainer, train, test, profile_dir,
+                     "profile_eval.txt")
 
     # --finetune all at batch 64, two steps: the stem stays as it was, its
     # batch norm still moves its running statistics, layer1-4 train
@@ -2158,10 +2062,10 @@ def phase_eval(profile_dir=None):
                              "moving statistics, and layer1-4 must train")
     del all_trainer, trainer
     torch.cuda.empty_cache()
-    return launches, reference
+    return reference
 
 
-def phase_probe(profile_dir=None) -> dict:
+def phase_probe(profile_dir=None) -> None:
     """stage1_eval at the run.sh recipe, from [main]'s ckp_0.pth: --finetune
     fc under bf16 autocast."""
     from sm3x_torch.data.synthetic import synthetic_paired_data
@@ -2186,7 +2090,7 @@ def phase_probe(profile_dir=None) -> dict:
             for k, v in encoders.items()):
         raise AssertionError("the backbones are not the checkpoint's")
     heads = snapshot(trainer.model.classifier)
-    launches = supervised_fit("probe", trainer, records, train, test)
+    supervised_fit("probe", trainer, records, train, test)
     after = backbones()
     same = all(torch.equal(after[k], v) for k, v in loaded.items())
     moved = sum(not torch.equal(v, heads[k])
@@ -2196,8 +2100,8 @@ def phase_probe(profile_dir=None) -> dict:
         f"head tensors moved {moved} of {len(heads)}")
     if not same or moved != len(heads):
         raise AssertionError("--finetune fc must train the heads alone")
-    supervised_times(trainer, train, test, profile_dir, "profile_probe.txt")
-    return launches
+    supervised_times("probe", trainer, train, test, profile_dir,
+                     "profile_probe.txt")
 
 
 # bf16 serving and inference (the encoders under bf16 autocast, the head in
@@ -2249,8 +2153,6 @@ def phase_infer(reference: dict) -> dict:
     cpu_model = api.load_weights(api.build_evaluator(amp=False), path, "cpu")
     predict = {k: api.predict_fn(m) for k, m in models.items()}
     predict_cpu = api.predict_fn(cpu_model)
-    counters, _ = kernel_counters()
-    reset_counters()
     log("[infer] sm3x_torch.api on [eval]'s best_eval.pth: build_evaluator, "
         "load_weights, predict_fn on NHWC float batches; the default bf16 "
         "(encoders under bf16 autocast, head float32) and amp=False "
@@ -2307,9 +2209,10 @@ def phase_infer(reference: dict) -> dict:
                 f"of 10, synchronised; min {min(host):.2f}), {dev:.2f} ms "
                 f"device time (20 calls in a row)")
         log(f"  batch {n}: the float32 forward on the CPU {cpu_s:.2f} s")
-    if any(fn.launches for fn in counters):
-        raise AssertionError("inference launches none of the kernels")
-    log("  kernel launches at inference: none (no view is made)")
+    # no view is made: none of the port's kernels
+    calls = [lambda fn=fn: fn(d, c) for fn in predict.values()]
+    hold_launches("infer", traced_launches(lambda i: calls[i](), len(calls)),
+                  {}, len(calls), "calls (bf16, float32)")
     return latency
 
 
@@ -2534,6 +2437,10 @@ def serve_latency(predictor, tag: str) -> dict:
                            eager_busy_ms=busy_e["busy_ms"],
                            replay_launches=busy_g["launches"],
                            eager_launches=busy_e["launches"])
+        # no view is made: none of the port's kernels
+        for what, res in (("replays", busy_g), ("eager calls", busy_e)):
+            hold_launches(f"serve {tag}", device_launches(res["rows"]), {},
+                          5, what)
         log(f"  {tag}, {n} cases, latency a call on the host clock (median "
             f"of 20, min): predict {whole[0]:.2f} / {whole[1]:.2f} ms (crop "
             f"and letterbox on the host included); upload + graph replay + "
@@ -2579,7 +2486,6 @@ def serve_batching(predictor, results: dict, tag: str) -> None:
 
     from sm3x_torch import CLASSES_NAME, NUM_CLASSES
     from sm3x_torch.serve_http import PredictionServer
-    from sm3x_torch.utils.timing import _profile, device_events
 
     tol = SERVE_BATCH_TOL[tag]
     # a padded request against the same case alone (bucket 8 against 1)
@@ -2606,8 +2512,8 @@ def serve_batching(predictor, results: dict, tag: str) -> None:
     derm, clinic, _ = results[5]
     predictor.predict(derm, clinic)
     n_prof = 3
-    prof, _ = _profile(lambda _: predictor.predict(derm, clinic), n_prof)
-    rows, _field = device_events(prof)
+    rows = profile_device(lambda _: predictor.predict(derm, clinic),
+                          n_prof)["rows"]
     d2h = sum(e.count for e in rows if "memcpy dtoh" in e.key.lower())
     h2d = sum(e.count for e in rows if "memcpy htod" in e.key.lower())
     kernels = sum(e.count for e in rows if "memcpy" not in e.key.lower()
@@ -2763,8 +2669,6 @@ def phase_serve(reference: dict) -> dict:
     from sm3x_torch import api
     from sm3x_torch.serve import Predictor
 
-    counters, _ = kernel_counters()
-    reset_counters()
     log("[serve] sm3x_torch.serve.Predictor on [eval]'s best_eval.pth: "
         "float32 (amp=False, TF32 off), then the default, bf16 (the encoders "
         "under bf16 autocast, the head and softmax float32)")
@@ -2816,12 +2720,8 @@ def phase_serve(reference: dict) -> dict:
             f"{latency['float32'][n]['replay_busy_ms']:.2f} ms")
     log(f"  the graphs' pool: bf16 {pool['bf16']:.2f} GiB against float32 "
         f"{pool['float32']:.2f} GiB")
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  kernel launches while serving: {launches} (no view is made)")
-    if any(launches.values()):
-        raise AssertionError("serving launches none of the kernels")
     torch.cuda.empty_cache()
-    return dict(launches=launches, latency=latency, pool_gib=pool)
+    return dict(latency=latency, pool_gib=pool)
 
 
 # [export]: the exporter's default buckets, the requests the fresh
@@ -2864,6 +2764,9 @@ def graph_latency(predictor, sizes, busy: bool) -> dict:
             prof = profile_device(lambda _: predictor._call(n, *arrays), 5)
             out[n].update(replay_busy_ms=prof["busy_ms"],
                           replay_launches=prof["launches"])
+            # no view is made: none of the port's kernels
+            hold_launches("export", device_launches(prof["rows"]), {}, 5,
+                          f"replays of {n} cases")
     return out
 
 
@@ -3010,8 +2913,6 @@ def phase_export(reference: dict) -> dict:
     from sm3x_torch import api, export
     from sm3x_torch.serve import Predictor
 
-    counters, _ = kernel_counters()
-    reset_counters()
     art = EXPORT_DIR
     shutil.rmtree(art, ignore_errors=True)
     log("[export] sm3x_torch.export on [eval]'s best_eval.pth (two resnet50, "
@@ -3207,14 +3108,9 @@ def phase_export(reference: dict) -> dict:
                     **SERVE_BATCH_TOL["float32"])
     del live32
     gc.collect()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  kernel launches while exporting and serving: {launches} (no "
-        f"view is made)")
-    if any(launches.values()):
-        raise AssertionError("the export path launches none of the kernels")
     shutil.rmtree(art, ignore_errors=True)
     torch.cuda.empty_cache()
-    return dict(launches=launches, latency=latency,
+    return dict(latency=latency,
                 pool_gib=dict(exported=got["pool_gib"], live=live_pool))
 
 
@@ -3224,7 +3120,7 @@ FEEDS = ("host", "resident", "prefetch")
 
 def phase_feed() -> dict:
     """[main]'s recipe under each --device-feed from one seed: the batches,
-    the losses and the K1 launches must not depend on the feed."""
+    the losses and the kernels' launches must not depend on the feed."""
     import threading
 
     from sm3x_torch.core import prng
@@ -3233,7 +3129,6 @@ def phase_feed() -> dict:
     from sm3x_torch.data.prefetch import (PrefetchData, resident_nbytes,
                                           to_device, wrap_from_config)
     from sm3x_torch.data.synthetic import synthetic_paired_data
-    from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.train import common
     from sm3x_torch.train.backbone_train import SSLTrainer
 
@@ -3257,7 +3152,6 @@ def phase_feed() -> dict:
     was_deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     log("  cuDNN held to deterministic algorithms for this phase")
-    counters, _ = kernel_counters()
     out, losses, trainer = {}, {}, None
     for feed in FEEDS:
         del trainer
@@ -3291,7 +3185,6 @@ def phase_feed() -> dict:
             raise AssertionError("an early break left a prefetch thread")
 
         # the steps: from asking for the batch to the end of the step
-        reset_counters()
         it = wrapped.batches(batch, 0, seed)
         times, step_losses = [], []
         for k in range(FEED_STEPS):
@@ -3304,38 +3197,34 @@ def phase_feed() -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             step_losses.append(float(metrics["loss"]))
-        launches = {fn.__name__: fn.launches for fn in counters}
-        k1 = dict(K.photometric_cuda.variants)
-        want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) * FEED_STEPS
-                for fn in counters}
-        if launches != want or k1 != {"band": 4 * FEED_STEPS, "scratch": 0}:
-            raise AssertionError(f"{feed}: launches {launches}, K1 {k1}, "
-                                 f"expected {want}, all band")
         if not all(math.isfinite(x) for x in step_losses):
             raise AssertionError(f"{feed}: losses {step_losses}")
         # the device's busy share over three more steps of the same epoch
+        # (a retaken trace goes on into the next)
+        spare = wrapped.batches(batch, 1, seed)
+        rest = itertools.chain(it, spare)
         res = profile_device(
             lambda k: trainer.train_step(
                 *(trainer._upload(getattr(b, f))
-                  for b in [next(it)] for f in fields),
+                  for b in [next(rest)] for f in fields),
                 prng.step_seed(seed, 0, FEED_STEPS + k)), 3)
         it.close()
+        spare.close()
         if prefetch_threads():
             raise AssertionError("an early break left a prefetch thread")
         losses[feed] = step_losses
         out[feed] = dict(step_ms=statistics.median(times),
                          step_ms_min=min(times), busy_ms=res["busy_ms"],
-                         busy_share=res["busy_ms"] / res["wall_ms"],
-                         launches=launches)
+                         busy_share=res["busy_ms"] / res["wall_ms"])
         log(f"  --device-feed {feed} ({type(wrapped).__name__}): batches "
             f"bit-identical to the host data's; losses {step_losses}")
         log(f"    step, batch fetch included: median {out[feed]['step_ms']:.1f}"
             f" ms, min {min(times):.1f} over {FEED_STEPS} steps (host clock, "
             f"synchronised); device busy {res['busy_ms']:.1f} ms a step of "
             f"{res['wall_ms']:.1f} ms ({100 * out[feed]['busy_share']:.1f}% "
-            f"busy, torch.profiler, 3 steps); K1 launches {launches['photometric_cuda']}"
-            f" ({k1}), K2f {launches['ntxent_forward_cuda']}, K2b "
-            f"{launches['ntxent_backward_cuda']}")
+            f"busy, torch.profiler, 3 steps)")
+        hold_launches(f"feed {feed}", device_launches(res["rows"]),
+                      MAIN_PER_STEP, 3)
         if feed == "resident":
             pinned = resident_nbytes(wrapped)
             log(f"    the resident feed pins {pinned} bytes "
@@ -3513,17 +3402,18 @@ def feed_streaming():
 # [prefetch]: tools/bench_prefetch_torch.py at the JAX tool's defaults (160
 # cases, batch 32, 4 epochs, resnet50): 80 train cases, 3 steps an epoch
 PREFETCH_FEEDS = ("sync", "prefetch", "resident", "stream")
-PREFETCH_STEPS = 4 * 3
+PREFETCH_EPOCHS, PREFETCH_STEPS = 4, 3
 PREFETCH_LINE = re.compile(r"^\[(\w+)\] (\d+) epochs of (\d+) steps, timed "
-                           r"seconds \[.*\], kernel launches (\{.*\})$")
+                           r"seconds \[.*\], kernel launches in a traced "
+                           r"epoch (\{.*\})$")
 
 
-def phase_prefetch() -> dict:
+def phase_prefetch() -> None:
     """The feed benchmark in a process of its own, as a user runs it: four
     JSON lines with the JAX tool's metrics, each rate above 0, and each
-    feed's launches from the tool's standard error (K1 4, K2f and K2b 1 a
-    step, no other kernel); its working directory left empty. Returns
-    {feed: {counter: launches}}."""
+    feed's launches in the device trace of an epoch after its timed ones,
+    from the tool's standard error ([main]'s a step); its working
+    directory left empty."""
     work = os.path.join(LOGS, "prefetch")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3545,23 +3435,19 @@ def phase_prefetch() -> dict:
         raise AssertionError("a feed's rate is not above 0")
     if os.listdir(work):
         raise AssertionError(f"the tool left {os.listdir(work)} behind")
-    counters, _ = kernel_counters()
     launches = {}
     for match in map(PREFETCH_LINE.match, res.stderr.splitlines()):
         if match:
             epochs, steps = int(match[2]), int(match[3])
             launches[match[1]] = json.loads(match[4])
-            if epochs * steps != PREFETCH_STEPS:
+            if (epochs, steps) != (PREFETCH_EPOCHS, PREFETCH_STEPS):
                 raise AssertionError(f"{match[1]}: {epochs} x {steps} steps")
-    want = {fn.__name__: MAIN_PER_STEP.get(fn.__name__, 0) * PREFETCH_STEPS
-            for fn in counters}
+    if sorted(launches) != sorted(PREFETCH_FEEDS):
+        raise AssertionError(f"launch lines of {sorted(launches)}")
     for feed in PREFETCH_FEEDS:
-        if launches.get(feed) != want:
-            raise AssertionError(f"{feed}: launches {launches.get(feed)}, "
-                                 f"want {want}")
-    log(f"  kernel launches a feed as expected: {want}")
+        hold_launches(f"prefetch {feed}", launches[feed], MAIN_PER_STEP,
+                      PREFETCH_STEPS, f"steps ({feed})")
     shutil.rmtree(work)
-    return launches
 
 
 # [dist]: the stage-1 step at [main]'s recipe under torch.distributed
@@ -3800,12 +3686,13 @@ def phase_dist(profile_dir=None) -> dict:
     batch 96, --world-size 2) under torch.distributed, with cuDNN held to
     its deterministic algorithms. Leg A: a world-size-1 NCCL group through
     distributed_initialize; SSLTrainer.fit over 3 steps under DDP with the
-    global-batch BatchNorm, every kernel count set to 0 just before, in
-    bf16 autocast (the recipe) and in float32 (TF32 off), each against the
-    plain trainer (one process, so its step is a CUDA graph; the DDP
-    trainer's is eager). Then the bf16 step's time against the plain
-    trainer's graph and its eager step, the device's busy time, the all-reduce bytes a step and one BatchNorm
-    against F.batch_norm. Leg B: two processes on this one card over gloo
+    global-batch BatchNorm, in bf16 autocast (the recipe) and in float32
+    (TF32 off), each against the plain trainer (one process, so its step is
+    a CUDA graph; the DDP trainer's is eager). Then the bf16 step's time
+    against the plain trainer's graph and its eager step, the device's busy
+    time (the DDP steps' kernels in its trace, and in that of two float32
+    DDP steps), the all-reduce bytes a step and one BatchNorm against
+    F.batch_norm. Leg B: two processes on this one card over gloo
     with CUDA tensors, one float32 step each at 48 rows against the
     one-process step, and the global-batch BatchNorm at world size 2
     against F.batch_norm on the whole batch (bn_world_check). Leg C: the
@@ -3813,7 +3700,6 @@ def phase_dist(profile_dir=None) -> dict:
     from torch.nn.parallel import DistributedDataParallel
 
     from sm3x_torch.data.synthetic import synthetic_paired_data
-    from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.parallel import collectives as C
     from sm3x_torch.parallel.launch import free_port, launch_local
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -3831,7 +3717,6 @@ def phase_dist(profile_dir=None) -> dict:
     bn_plain = bn_ms()
     C.distributed_initialize(f"127.0.0.1:{free_port()}", 1, 0,
                              backend="nccl")
-    counters, _ = kernel_counters()
     ok = True
     try:
         log(f"[dist] leg A: world-size-1 NCCL group "
@@ -3844,18 +3729,8 @@ def phase_dist(profile_dir=None) -> dict:
             tr = SSLTrainer(dist_cfg(f"dist_ddp_{arith}", amp))
             if not isinstance(tr.net, DistributedDataParallel):
                 raise AssertionError("the trainer is not under DDP")
-            reset_counters()
             hist, nbytes, calls = all_reduce_bytes(lambda: tr.fit(data))
             torch.cuda.synchronize()
-            launches = {fn.__name__: fn.launches for fn in counters}
-            k1 = dict(K.photometric_cuda.variants)
-            log(f"  {arith}: kernel launches in fit: {launches}; K1 by "
-                f"kernel {k1}")
-            want = {fn.__name__: SSL_PER_STEP.get(fn.__name__, 0) *
-                    DIST_STEPS for fn in counters}
-            if launches != want or k1["scratch"]:
-                raise AssertionError(f"launch counts {launches}, expected "
-                                     f"{want}")
             ddp[arith] = tr, hist[0]["step_losses"]
         for arith in ("bf16", "float32"):
             ok &= dist_check(f"leg A {arith} against the plain trainer",
@@ -3873,6 +3748,11 @@ def phase_dist(profile_dir=None) -> dict:
         batches = [[torch.from_numpy(x).cuda() for x in
                     (b.derm, b.derm_hw, b.clinic, b.clinic_hw)]
                    for b in data.batches(MAIN_BATCH, 1, 3407)]
+        # the DDP step's kernels: those of one process less K6 (the
+        # global-batch BatchNorm of a process group is not K6)
+        f32 = ddp["float32"][0].train_step
+        hold_launches("dist float32", traced_launches(
+            lambda it: f32(*batches[it], it), 2), SSL_PER_STEP, 2)
         # the plain trainer's steps with the BatchNorm of no group. It ran
         # in one process, so its step is a CUDA graph; its eager step is
         # timed too, the like of the DDP step (a process group keeps the
@@ -3898,6 +3778,8 @@ def phase_dist(profile_dir=None) -> dict:
                                          f"profile_dist_{k}.txt")
                            if profile_dir else
                            profile_device(step, len(batches)))
+        hold_launches("dist bf16", device_launches(busy["dist"]["rows"]),
+                      SSL_PER_STEP, len(batches))
         for k in runs:
             log(f"  {k} bf16 step: median "
                 f"{statistics.median(times[k]) * 1e3:.1f} ms, min "
@@ -3910,13 +3792,13 @@ def phase_dist(profile_dir=None) -> dict:
         bn_global = bn_ms()
         log(f"  BatchNorm(256) forward + backward on {BN_SHAPE} bf16 "
             f"channels_last, the kernels alone: one process (K6) "
-            f"{ms_or_not(bn_plain)}, global-batch {ms_or_not(bn_global)}")
+            f"{bn_plain:.4f} ms, global-batch {bn_global:.4f} ms")
     finally:
         C.shutdown()
         torch.backends.cudnn.deterministic = False
     # every name that holds a trainer or its steps: the plain trainer's
     # graph keeps its pool (~17 GB) while anything reaches it
-    del one, ddp, runs, plain, fn, step, tr
+    del one, ddp, runs, plain, fn, step, tr, f32
     gc.collect()    # the trainers' reference cycles hold them too
     torch.cuda.empty_cache()
 
@@ -3937,6 +3819,10 @@ def phase_dist(profile_dir=None) -> dict:
         if len({got["digest"] for got in out}) != 1:
             raise AssertionError(f"{leg}: the ranks' states differ")
         log(f"  {leg}: both ranks' states identical bit for bit")
+        for name, seen in out[0]["launches"].items():
+            log(f"  {leg}, rank 0, {name}'s recipe, one more epoch:")
+            hold_launches(f"dist {name}", seen, DIST_RECIPES[name][4],
+                          DIST_RECIPES[name][6])
         return out
 
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -3960,8 +3846,8 @@ def phase_dist(profile_dir=None) -> dict:
         f"{TRI_BATCH}), {DIST_RECIPES['crop'][-1]} steps each through fit, "
         f"against the one-process run of the same seed and views (rank 0 "
         f"runs it first)")
-    legd = worker_results(launch_local(worker("gloo", "crop,tri"), 2, 900,
-                                       env=env, cwd=ROOT), "leg D")
+    worker_results(launch_local(worker("gloo", "crop,tri"), 2, 900, env=env,
+                                cwd=ROOT), "leg D")
     log(f"  leg D: {time.perf_counter() - t:.1f} s")
     if torch.cuda.device_count() >= 2:
         log("[dist] leg C: two NCCL ranks, a card each")
@@ -3971,7 +3857,6 @@ def phase_dist(profile_dir=None) -> dict:
         log(f"[dist] leg C: needs two cards, this machine has "
             f"{torch.cuda.device_count()}; not run")
     log(f"  [dist] took {time.perf_counter() - t_phase:.1f} s")
-    return launches, legd[0]["launches"]
 
 
 # the recipes of [dist]'s two-rank legs: name -> (encoder, global batch,
@@ -3991,11 +3876,13 @@ def dist_worker(backend: str, legs: list) -> int:
     """A rank of [dist]'s leg B (gloo, both ranks on card 0), leg C (NCCL,
     a card each) or leg D (gloo), running the DIST_RECIPES named in `legs`:
     a one-process run of each first (every rank of [main]'s, rank 0 alone
-    of the others); then both run it as the two ranks, every count set to
-    0 just before fit, and a rank that made the one-process run holds its
-    run against it (dist_check); after [main]'s recipe both ranks run
-    bn_world_check. One DIST_WORKER line with the results, the
-    launches of each run, its steps' times and the rank's peak memory."""
+    of the others); then both run it as the two ranks, and a rank that
+    made the one-process run holds its run against it (dist_check); both
+    run one more epoch in the device trace, and the parent holds rank 0's
+    counts to the recipe's launches a step (hold_launches); after [main]'s recipe both ranks run bn_world_check.
+    One DIST_WORKER line with the results, its steps' times and the rank's
+    peak memory."""
+    from sm3x_torch.data.prefetch import wrap_from_config
     from sm3x_torch.data.synthetic import synthetic_paired_data
     from sm3x_torch.parallel import collectives as C
     from sm3x_torch.train.backbone_train import SSLTrainer
@@ -4026,10 +3913,9 @@ def dist_worker(backend: str, legs: list) -> int:
             tr, data = make(name, "one")
             one[name] = tr, tr.fit(data)[0]["step_losses"]
     C.distributed_initialize(backend=backend)
-    counters, _ = kernel_counters()
     lines, ok, digests, launches = [], True, [], {}
     for name in legs:
-        arch, batch, _, _, per_step, amp, steps = DIST_RECIPES[name]
+        arch, batch, _, _, _, amp, steps = DIST_RECIPES[name]
         trainer, data = make(name, "two")
         step = trainer.train_step
         times = []
@@ -4043,18 +3929,12 @@ def dist_worker(backend: str, legs: list) -> int:
             return out
 
         trainer.train_step = timed_step
-        reset_counters()
         torch.cuda.reset_peak_memory_stats()
         hist = trainer.fit(data)
         torch.cuda.synchronize()
-        launches[name] = {fn.__name__: fn.launches for fn in counters}
-        want = {fn.__name__: per_step.get(fn.__name__, 0) * steps
-                for fn in counters}
-        ok &= launches[name] == want
         lines.append(
             f"{name} ({arch}, global batch {batch}, {batch // 2} rows a "
-            f"rank, {'bf16' if amp else 'float32'}): kernel launches in fit "
-            f"{launches[name]} (expected {want}); steps "
+            f"rank, {'bf16' if amp else 'float32'}): steps "
             f"{[round(t, 1) for t in times]} ms (host clock, synchronised; "
             f"the first with its warm-ups); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on this "
@@ -4065,7 +3945,14 @@ def dist_worker(backend: str, legs: list) -> int:
                              hist[0]["step_losses"],
                              "bf16" if amp else "float32", say=lines.append)
         digests.append(state_digest(trainer.model))
-        del trainer
+        trainer.train_step = step
+        feed = wrap_from_config(data, trainer.device, trainer.cfg.data)
+        # both ranks trace the epoch, so that they retake a lost trace
+        # together; the parent holds rank 0's counts
+        seen = traced_launches(lambda _: trainer.train_epoch(feed, 1))
+        if rank == 0:
+            launches[name] = seen
+        del trainer, feed
         torch.cuda.empty_cache()
         if name == "main":
             ok &= bn_world_check(lines.append)
@@ -4141,8 +4028,8 @@ def phase_tp() -> dict:
     of resnet50 with v4 / 512 heads), then K3 at the per-rank shape
     (32, 197, 6, 64) in bf16 against its plain version, then two processes
     over gloo on a grid of data 1 x model 2 (tp_worker) that run the same:
-    every kernel count set to 0 just before the bf16 fit and read just
-    after, the losses against the one-process run within [dist]'s limits,
+    rank 0's kernel launches in the device trace of a bf16 epoch after the
+    fit, the losses against the one-process run within [dist]'s limits,
     rank 0's whole ckp_0.pth loaded strictly by a one-process model and
     held against the one-process weights, the float32 step and the stage-2
     step the same way. NCCL across two cards where there are two."""
@@ -4200,15 +4087,11 @@ def phase_tp() -> dict:
     ok = True
     for g in got:
         log(f"  rank {g['rank']}: grid {g['grid']}; q weight "
-            f"{g['q_shape']}, its AdamW moments {g['q_moment_shape']}; "
-            f"kernel launches in fit {g['launches']}; K1 by kernel "
-            f"{g['k1']}; K3 by kernel {g['k3']}; fit {g['fit_s']:.1f} s")
-        want = {k: TP_PER_STEP.get(k, 0) * TP_STEPS for k in g["launches"]}
-        if g["launches"] != want:
-            raise AssertionError(f"[tp] launch counts {g['launches']}, "
-                                 f"expected {want}")
-        if g["k1"]["scratch"] or any(v["fma"] for v in g["k3"].values()):
-            raise AssertionError("[tp]: a K1 scratch or K3 fma launch")
+            f"{g['q_shape']}, its AdamW moments {g['q_moment_shape']}; fit "
+            f"{g['fit_s']:.1f} s")
+        if g["rank"] == 0:
+            hold_launches("tp", g["launches"], TP_PER_STEP, TP_STEPS,
+                          "bf16 steps on rank 0")
         if g["q_shape"] != [768 // TP_MODEL, 768] or \
                 g["q_moment_shape"] != g["q_shape"]:
             raise AssertionError("[tp]: the q weight is not a rank's slice")
@@ -4267,20 +4150,20 @@ def phase_tp() -> dict:
         log(f"[tp] NCCL tensor parallelism across cards needs two cards, "
             f"this machine has {torch.cuda.device_count()}; not run")
     log(f"  [tp] took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": got[0]["launches"], "k3": k3}
+    return k3
 
 
 def tp_worker(backend: str) -> int:
     """A rank of [tp] (gloo: both ranks on card 0; NCCL: a card each) on a
-    grid of data 1 x model TP_MODEL: the bf16 fit of vit_b16 with every
-    kernel count set to 0 just before and read just after, the float32
-    step through fit, the stage-2 step (rank 0 writes each run's whole
-    ckp_0.pth); one TP_WORKER line with what it saw."""
+    grid of data 1 x model TP_MODEL: the bf16 fit of vit_b16 and one more
+    epoch in the device trace (rank 0's counts), the float32 step through fit, the stage-2
+    step (rank 0 writes each run's whole ckp_0.pth); one TP_WORKER line
+    with what it saw."""
     import hashlib
 
     from sm3x_torch.core.mesh import current_mesh
+    from sm3x_torch.data.prefetch import wrap_from_config
     from sm3x_torch.data.synthetic import synthetic_paired_data
-    from sm3x_torch.ops import augment_cuda as K
     from sm3x_torch.parallel import collectives as C
     from sm3x_torch.train.backbone_train import SSLTrainer
     from sm3x_torch.train.mlc_train import MLCTrainer
@@ -4293,21 +4176,16 @@ def tp_worker(backend: str) -> int:
     C.distributed_initialize(backend=backend)
     dirs = tp_dirs()
     out = {"rank": rank}
-    counters, k3 = kernel_counters()
 
     tr = SSLTrainer(tp_cfg(f"tp_two_r{rank}", True, TP_MODEL,
                            dirs["two_bf16"]))
     mesh = current_mesh()
     out["grid"] = [mesh.data, mesh.model, mesh.data_index, mesh.model_index]
     data = synthetic_paired_data(TP_BATCH * TP_STEPS, canvas=320, seed=0)
-    reset_counters()
     t = time.perf_counter()
     out["losses_bf16"] = tr.fit(data)[0]["step_losses"]
     torch.cuda.synchronize()
     out["fit_s"] = time.perf_counter() - t
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
-    out["k1"] = dict(K.photometric_cuda.variants)
-    out["k3"] = {fn.__name__: dict(fn.variants) for fn in k3}
     q = tr.model.derm_backbone.encoder.block0.attn.query.weight
     out["q_shape"] = list(q.shape)
     out["q_moment_shape"] = list(tr.optimizer.state[q]["exp_avg"].shape)
@@ -4317,7 +4195,13 @@ def tp_worker(backend: str) -> int:
             h.update(v.detach().contiguous().view(-1).cpu().numpy().view(
                 np.uint8).data)
     out["replicated"] = h.hexdigest()
-    del tr
+    feed = wrap_from_config(data, tr.device, tr.cfg.data)
+    # both ranks trace the epoch (they retake a lost trace together); the
+    # parent holds rank 0's counts
+    launches = traced_launches(lambda _: tr.train_epoch(feed, 1))
+    if rank == 0:
+        out["launches"] = launches
+    del tr, feed
     torch.cuda.empty_cache()
 
     tr = SSLTrainer(tp_cfg(f"tp_two_r{rank}", False, TP_MODEL,
@@ -4336,23 +4220,21 @@ def tp_worker(backend: str) -> int:
     return 0
 
 
-def phase_copy() -> dict:
-    """K4's own entry point, tools/bench_copy_torch.py, at its defaults."""
+def phase_copy() -> None:
+    """K4's own entry point, tools/bench_copy_torch.py, at its defaults;
+    then at 1 MiB and 3 iterations in the device trace, where K4 runs 2 +
+    3 times (the warm-up's, then the timed iterations')."""
     import importlib.util
-
-    from sm3x_torch.ops import copy_cuda as C
 
     spec = importlib.util.spec_from_file_location(
         "bench_copy_torch", os.path.join(ROOT, "tools", "bench_copy_torch.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    C.copy_cuda.launches = 0
     log("[copy] tools/bench_copy_torch.py 256 50")
     tool.main(["256", "50"])
-    log(f"  kernel launches: copy_cuda {C.copy_cuda.launches}")
-    if C.copy_cuda.launches != 52:  # 2 warm-up + 50 timed
-        raise AssertionError("the copy tool did not run K4 52 times")
-    return {"copy_cuda": C.copy_cuda.launches}
+    log("[copy] tools/bench_copy_torch.py 1 3, in the device trace")
+    hold_launches("copy", traced_launches(lambda _: tool.main(["1", "3"])),
+                  {"copy_cuda": 2 + 3}, 1, "tool runs")
 
 
 def phase_vmoe() -> dict:
@@ -4563,12 +4445,12 @@ def phase_bn() -> dict:
                             F.batch_norm(x, rm, rv, w, b, True, B.MOMENTUM,
                                          B.EPS), r, relu),
                         moving())))
-                alone = row["kernel_ms"] or row["device_ms"]
+                alone = row["kernel_ms"]
                 row["share_of_bound"] = row["bound_ms"] / alone
                 per_step += 4 * count * alone
                 per_step_bound += 4 * count * row["bound_ms"]
                 log(f"  {tag}: x{count}, forward and backward {alone:.4f} ms "
-                    f"alone ({ms_or_not(row['kernel_ms'])} by the profiler), "
+                    f"alone (by the profiler), "
                     f"{row['device_ms']:.4f} ms in a row; bound "
                     f"{row['bound_us']:.1f} us, {100 * row['share_of_bound']:.1f}"
                     f"% of it; twin {row['plain_ms']:.4f} ms, library "
@@ -4625,7 +4507,7 @@ def phase_serving() -> None:
     [infer] and [serve] on them."""
     phase_main()
     phase_stage2()
-    reference = phase_eval()[1]
+    reference = phase_eval()
     phase_infer(reference)
     phase_serve(reference)
 
@@ -4635,7 +4517,7 @@ def phase_exporting() -> None:
     [export] on them."""
     phase_main()
     phase_stage2()
-    phase_export(phase_eval()[1])
+    phase_export(phase_eval())
 
 
 def main(argv=None) -> int:
@@ -4699,32 +4581,29 @@ def main(argv=None) -> int:
         return 0
     kernels, floor = run("kernels", phase_kernels)
     run("step", phase_step)
-    launches = run("main", phase_main, args.profile)
-    crop_launches = run("crop", phase_crop)
-    bnfreq_launches = run("bnfreq", phase_bnfreq)
-    feed = run("feed", phase_feed)
-    prefetch = run("prefetch", phase_prefetch)
-    stage2_launches = run("stage2", phase_stage2, args.profile)
-    eval_launches, eval_reference = run("eval", phase_eval, args.profile)
-    probe_launches = run("probe", phase_probe, args.profile)
-    transfer_launches = run("transfer", phase_transfer)
+    run("main", phase_main, args.profile)
+    run("crop", phase_crop)
+    run("bnfreq", phase_bnfreq)
+    run("feed", phase_feed)
+    run("prefetch", phase_prefetch)
+    run("stage2", phase_stage2, args.profile)
+    eval_reference = run("eval", phase_eval, args.profile)
+    run("probe", phase_probe, args.profile)
+    run("transfer", phase_transfer)
     run("infer", phase_infer, eval_reference)
-    serve = run("serve", phase_serve, eval_reference)
-    exported = run("export", phase_export, eval_reference)
+    run("serve", phase_serve, eval_reference)
+    run("export", phase_export, eval_reference)
     del eval_reference
-    vit_launches = run("vit", phase_vit, args.profile)
-    crop_vit_launches, crop_vit_rows = run("crop_vit", phase_crop_vit)
-    for key, rows in crop_vit_rows.items():
+    run("vit", phase_vit, args.profile)
+    for key, rows in run("crop_vit", phase_crop_vit).items():
         kernels[key]["path_shapes"] += rows
-    tri_launches = run("tri", phase_tri)
-    dist_launches, recipe_launches = run("dist", phase_dist, args.profile)
-    tp = run("tp", phase_tp)
-    for key, rows in tp["k3"].items():
+    run("tri", phase_tri)
+    run("dist", phase_dist, args.profile)
+    for key, rows in run("tp", phase_tp).items():
         kernels[key]["path_shapes"] += rows
-    learn_launches, learn_rows = run("learn", phase_learn)
-    for key, rows in learn_rows.items():
+    for key, rows in run("learn", phase_learn).items():
         kernels[key]["path_shapes"] += rows
-    copy_launches = run("copy", phase_copy)
+    run("copy", phase_copy)
     run("vmoe", phase_vmoe)
     run("bn", phase_bn)
     log(f"[time] seconds a phase: {seconds}; in all "
@@ -4734,71 +4613,32 @@ def main(argv=None) -> int:
             raise AssertionError(f"{mod} was imported")
 
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-    # name: source, TPU kernel replaced, counter, the path's launch counts
+    # name: source, TPU kernel replaced, wrapper
     meta = {
         "photometric": ("sm3x_torch/csrc/photometric.cu",
-                        "sm3x/ops/augment_pallas.py:162", "photometric_cuda",
-                        launches),
+                        "sm3x/ops/augment_pallas.py:162", "photometric_cuda"),
         "ntxent_fwd": ("sm3x_torch/csrc/ntxent.cu",
-                       "sm3x/ops/ntxent_pallas.py:77", "ntxent_forward_cuda",
-                       launches),
+                       "sm3x/ops/ntxent_pallas.py:77", "ntxent_forward_cuda"),
         "ntxent_bwd": ("sm3x_torch/csrc/ntxent.cu",
-                       "sm3x/ops/ntxent_pallas.py:91", "ntxent_backward_cuda",
-                       launches),
+                       "sm3x/ops/ntxent_pallas.py:91", "ntxent_backward_cuda"),
         "flash_fwd": ("sm3x_torch/csrc/flash_attention_fwd_mma.cu",
                       f"sm3x/models/vit.py:85 ({flash}:758)",
-                      "flash_forward_cuda", vit_launches),
+                      "flash_forward_cuda"),
         "flash_bwd_dkv": ("sm3x_torch/csrc/flash_attention_bwd_mma.cu",
                           f"sm3x/models/vit.py:85 ({flash}:1121)",
-                          "flash_backward_dkv_cuda", vit_launches),
+                          "flash_backward_dkv_cuda"),
         "flash_bwd_dq": ("sm3x_torch/csrc/flash_attention_bwd_mma.cu",
                          f"sm3x/models/vit.py:85 ({flash}:1456)",
-                         "flash_backward_dq_cuda", vit_launches),
+                         "flash_backward_dq_cuda"),
         "copy": ("sm3x_torch/csrc/copy.cu", "tools/bench_pallas_io.py:44",
-                 "copy_cuda", copy_launches),
+                 "copy_cuda"),
     }
     shutil.rmtree(LOGS, ignore_errors=True)
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=counts[counter],
-                 launches_stage2=stage2_launches[counter],
-                 launches_eval=eval_launches[counter],
-                 launches_probe=probe_launches[counter],
-                 launches_serve=serve["launches"][counter],
-                 launches_export=exported["launches"][counter],
-                 launches_dist=dist_launches[counter],
-                 launches_tp=tp["launches"][counter],
-                 launches_crop=crop_launches[counter],
-                 launches_bnfreq=bnfreq_launches[counter],
-                 launches_crop_vit=crop_vit_launches[counter],
-                 launches_tri=tri_launches[counter],
-                 launches_dist_crop=recipe_launches["crop"][counter],
-                 launches_dist_tri=recipe_launches["tri"][counter],
-                 launches_transfer=transfer_launches[counter],
-                 launches_learn=learn_launches[counter],
-                 launches_feed={f: feed[f]["launches"][counter]
-                                for f in FEEDS},
-                 launches_prefetch={f: prefetch[f][counter]
-                                    for f in PREFETCH_FEEDS},
-                 launches_per_step={
-                     "main": MAIN_PER_STEP.get(counter, 0),
-                     "vit": VIT_PER_STEP.get(counter, 0),
-                     "stage2": STAGE2_PER_STEP.get(counter, 0),
-                     "eval": SUPERVISED_PER_STEP.get(counter, 0),
-                     "probe": SUPERVISED_PER_STEP.get(counter, 0),
-                     "feed": MAIN_PER_STEP.get(counter, 0),
-                     "prefetch": MAIN_PER_STEP.get(counter, 0), "serve": 0,
-                     "export": 0,
-                     "dist": SSL_PER_STEP.get(counter, 0),
-                     "tp": TP_PER_STEP.get(counter, 0),
-                     "crop": CROP_PER_STEP.get(counter, 0),
-                     "bnfreq": BNFREQ_PER_STEP.get(counter, 0),
-                     "crop_vit": VIT_CROP_PER_STEP.get(counter, 0),
-                     "tri": VIT_PER_STEP.get(counter, 0),
-                     "dist_crop": SSL_PER_STEP.get(counter, 0),
-                     "dist_tri": VIT_PER_STEP.get(counter, 0),
-                     "transfer": int(counter == "photometric_cuda")},
+                 launches_per_step={tag: seen[wrapper] for tag, seen
+                                    in LAUNCHES_SEEN.items()},
                  **kernels[name])
-            for name, (src, rep, counter, counts) in meta.items()]
+            for name, (src, rep, wrapper) in meta.items()]
     log(json.dumps({"kernels": rows, **floor}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

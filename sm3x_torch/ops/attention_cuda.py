@@ -14,11 +14,9 @@ float32 sums, as the TPU kernels), which read 16-byte row starts: a bf16
 tensor whose data pointer or (b, s, h) strides are not 16-byte multiples
 raises ValueError.
 
-Each wrapper takes CUDA tensors only and counts its launches in
-`<wrapper>.launches`, and by kernel in `<wrapper>.variants` ("fma"
-float32, "mma" bf16). The plain versions and
-the autograd Function that picks between kernels and plain versions by
-device are in sm3x_torch/ops/attention.py.
+Each wrapper takes CUDA tensors only. The plain versions and the autograd
+Function that picks between kernels and plain versions by device are in
+sm3x_torch/ops/attention.py.
 """
 
 from __future__ import annotations
@@ -70,14 +68,6 @@ def _check_rows_aligned(name: str, *tensors: torch.Tensor) -> None:
                 f"{t.stride()}")
 
 
-def _count(fn, q: torch.Tensor) -> None:
-    """One launch of `fn`'s kernel: its count, by kernel and by
-    (B, S, H, D)."""
-    fn.launches += 1
-    fn.variants["mma" if q.dtype == torch.bfloat16 else "fma"] += 1
-    fn.shapes[tuple(q.shape)] = fn.shapes.get(tuple(q.shape), 0) + 1
-
-
 def _rowstats(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
     b, s, h, _ = q.shape
     if (t.shape != (b, h, s) or t.dtype != torch.float32
@@ -107,15 +97,9 @@ def flash_forward_cuda(q, k, v, scale: float):
     out = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     lib = _native.library()
-    _count(flash_forward_cuda, q)
     _call(lib.sm3x_flash_fwd, "sm3x_flash_fwd", (q, k, v, out, lse),
           (q, k, v, out), q, scale)
     return out, lse
-
-
-flash_forward_cuda.launches = 0
-flash_forward_cuda.variants = {"fma": 0, "mma": 0}
-flash_forward_cuda.shapes = {}
 
 
 def flash_backward_dq_cuda(q, k, v, out, dout, lse, scale: float):
@@ -128,16 +112,10 @@ def flash_backward_dq_cuda(q, k, v, out, dout, lse, scale: float):
     dq = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     lib = _native.library()
-    _count(flash_backward_dq_cuda, q)
     _call(lib.sm3x_flash_bwd_dq, "sm3x_flash_bwd_dq",
           (q, k, v, out, dout, lse, delta, dq), (q, k, v, out, dout, dq), q,
           scale)
     return dq, delta
-
-
-flash_backward_dq_cuda.launches = 0
-flash_backward_dq_cuda.variants = {"fma": 0, "mma": 0}
-flash_backward_dq_cuda.shapes = {}
 
 
 def flash_backward_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
@@ -151,14 +129,8 @@ def flash_backward_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
     dk = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
     lib = _native.library()
-    _count(flash_backward_dkv_cuda, q)
     # the kernel does not read o: q stands in for its pointer and strides
     _call(lib.sm3x_flash_bwd_dkv, "sm3x_flash_bwd_dkv",
           (q, k, v, q, dout, lse, delta, dk, dv), (q, k, v, q, dout, dk), q,
           scale)
     return dk, dv
-
-
-flash_backward_dkv_cuda.launches = 0
-flash_backward_dkv_cuda.variants = {"fma": 0, "mma": 0}
-flash_backward_dkv_cuda.shapes = {}

@@ -10,8 +10,7 @@ tests, the Pallas kernel.
 Dispatch is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
 Which of the two kernels a CUDA tensor takes follows from its shape (and
-its alignment) alone, by `photometric_plan`; `photometric_cuda.variants`
-counts the launches of each.
+its alignment) alone, by `photometric_plan`.
 """
 
 from __future__ import annotations
@@ -135,8 +134,6 @@ def photometric_cuda(images: torch.Tensor, params: torch.Tensor, mean,
     lib = _native.library()
     norm = [float(m) for m in mean] + [float(s) for s in std]
     stream = _native.stream_handle(images.device)
-    photometric_cuda.launches += 1
-    photometric_cuda.variants[plan["kernel"]] += 1
     if plan["kernel"] == "band":
         _native.check(lib.sm3x_photometric_band(
             images.data_ptr(), params.data_ptr(), out.data_ptr(), b, h, w,
@@ -150,10 +147,6 @@ def photometric_cuda(images: torch.Tensor, params: torch.Tensor, mean,
             out.data_ptr(), b, h, w, *norm, stream),
             "sm3x_photometric_scratch")
     return out
-
-
-photometric_cuda.launches = 0
-photometric_cuda.variants = {"band": 0, "scratch": 0}  # launches by kernel
 
 
 def photometric(images: torch.Tensor, params: torch.Tensor, mean,

@@ -17,7 +17,7 @@ K6 takes CUDA activations (N, C, H, W) that are channels-last contiguous,
 bfloat16 or float32, C a multiple of 8, 16-byte aligned, with float32
 per-channel tensors (`kernel_takes`); the residual, where there is one,
 likewise. K6 replaces no TPU kernel: the JAX package leaves batch norm to
-XLA. Each wrapper counts the kernels it launches in `<wrapper>.launches`.
+XLA.
 """
 
 from __future__ import annotations
@@ -119,7 +119,6 @@ def bn_forward_cuda(x, weight, bias, running_mean, running_var, steps,
     part = torch.empty(blocks * (2 * c + columns), device=x.device,
                        dtype=torch.float32)
     lib = _native.library()
-    bn_forward_cuda.launches += 2
     _native.check(lib.sm3x_bn_fwd(
         x.data_ptr(), _ptr(residual), y.data_ptr(), stats[0].data_ptr(),
         stats[1].data_ptr(), _ptr(weight), _ptr(bias), _ptr(running_mean),
@@ -127,9 +126,6 @@ def bn_forward_cuda(x, weight, bias, running_mean, running_var, steps,
         columns, blocks, _BF16[x.dtype], int(relu), MOMENTUM, EPS,
         _native.stream_handle(x.device)), "sm3x_bn_fwd")
     return y, stats[0], stats[1]
-
-
-bn_forward_cuda.launches = 0
 
 
 def bn_backward_cuda(dy, x, y, weight, bias, mean, invstd, mask: int,
@@ -164,7 +160,6 @@ def bn_backward_cuda(dy, x, y, weight, bias, mean, invstd, mask: int,
     dres = (torch.empty_like(x, memory_format=torch.channels_last)
             if need_dres else None)
     lib = _native.library()
-    bn_backward_cuda.launches += 2 if need_dx else 1
     _native.check(lib.sm3x_bn_bwd(
         dy.data_ptr(), x.data_ptr(), _ptr(y), mean.data_ptr(),
         invstd.data_ptr(), _ptr(weight), _ptr(bias), sums.data_ptr(),
@@ -175,9 +170,6 @@ def bn_backward_cuda(dy, x, y, weight, bias, mean, invstd, mask: int,
     if grads is None:
         return dx, dres, None, None
     return dx, dres, grads[0], grads[1]
-
-
-bn_backward_cuda.launches = 0
 
 
 class BatchNormAct(torch.autograd.Function):

@@ -7,10 +7,9 @@ K5 replaces no TPU kernel (the JAX package has no expert layer); it carries
 V-MoE's dispatch and combine (sm3x_torch.ops.moe) on the card. Rows are
 float32 or bfloat16, contiguous, D * itemsize a multiple of 16 bytes and
 16-byte aligned; the slot map is int32 (`token_slot` (N, k), `slot_assign`
-(S,)), the gates float32 (N, k). Each wrapper takes CUDA tensors only and
-counts its launches in `<wrapper>.launches`. The plain versions and the
-autograd Functions that pick between kernels and plain versions by device
-are in sm3x_torch/ops/moe.py.
+(S,)), the gates float32 (N, k). Each wrapper takes CUDA tensors only. The
+plain versions and the autograd Functions that pick between kernels and
+plain versions by device are in sm3x_torch/ops/moe.py.
 """
 
 from __future__ import annotations
@@ -71,15 +70,11 @@ def moe_dispatch_cuda(x: torch.Tensor, slot_assign: torch.Tensor,
     out = torch.empty((slot_assign.shape[0], x.shape[1]), device=x.device,
                       dtype=x.dtype)
     lib = _native.library()
-    moe_dispatch_cuda.launches += 1
     _native.check(lib.sm3x_moe_dispatch_fwd(
         x.data_ptr(), slot_assign.data_ptr(), out.data_ptr(),
         slot_assign.shape[0], k, pieces, _native.stream_handle(x.device)),
         "sm3x_moe_dispatch_fwd")
     return out
-
-
-moe_dispatch_cuda.launches = 0
 
 
 def moe_combine_cuda(y: torch.Tensor, gates: torch.Tensor,
@@ -92,15 +87,11 @@ def moe_combine_cuda(y: torch.Tensor, gates: torch.Tensor,
     n = token_slot.shape[0]
     out = torch.empty((n, y.shape[1]), device=y.device, dtype=y.dtype)
     lib = _native.library()
-    moe_combine_cuda.launches += 1
     _native.check(lib.sm3x_moe_combine_fwd(
         y.data_ptr(), gates.data_ptr(), token_slot.data_ptr(),
         out.data_ptr(), n, k, pieces, _BF16[y.dtype],
         _native.stream_handle(y.device)), "sm3x_moe_combine_fwd")
     return out
-
-
-moe_combine_cuda.launches = 0
 
 
 def moe_combine_backward_cuda(dout: torch.Tensor, y: torch.Tensor,
@@ -112,16 +103,12 @@ def moe_combine_backward_cuda(dout: torch.Tensor, y: torch.Tensor,
     dy = torch.empty_like(y)
     dgates = torch.zeros_like(gates)   # dropped choices keep 0
     lib = _native.library()
-    moe_combine_backward_cuda.launches += 1
     _native.check(lib.sm3x_moe_combine_bwd(
         dout.data_ptr(), y.data_ptr(), gates.data_ptr(),
         slot_assign.data_ptr(), dy.data_ptr(), dgates.data_ptr(),
         y.shape[0], k, pieces, _BF16[y.dtype],
         _native.stream_handle(y.device)), "sm3x_moe_combine_bwd")
     return dy, dgates
-
-
-moe_combine_backward_cuda.launches = 0
 
 
 def moe_dispatch_backward_cuda(dslots: torch.Tensor,
@@ -135,12 +122,8 @@ def moe_dispatch_backward_cuda(dslots: torch.Tensor,
     dx = torch.empty((n, dslots.shape[1]), device=dslots.device,
                      dtype=dslots.dtype)
     lib = _native.library()
-    moe_dispatch_backward_cuda.launches += 1
     _native.check(lib.sm3x_moe_dispatch_bwd(
         dslots.data_ptr(), token_slot.data_ptr(), dx.data_ptr(), n, k,
         pieces, _BF16[dslots.dtype], _native.stream_handle(dslots.device)),
         "sm3x_moe_dispatch_bwd")
     return dx
-
-
-moe_dispatch_backward_cuda.launches = 0

@@ -124,16 +124,12 @@ def ntxent_forward_cuda(z: torch.Tensor, temperature: float):
     lse = torch.empty(p, n, device=z.device, dtype=torch.float32)
     inv = torch.empty_like(lse)
     lib = _native.library()
-    ntxent_forward_cuda.launches += 1
     _native.check(lib.sm3x_ntxent_fwd(
         z.data_ptr(), loss.data_ptr(), lse.data_ptr(), inv.data_ptr(),
         p, n, d, plan["tile_rows"], plan["column_block"] // 32,
         int(plan["vec"]), float(temperature),
         _native.stream_handle(z.device)), "sm3x_ntxent_fwd")
     return loss, lse, inv
-
-
-ntxent_forward_cuda.launches = 0
 
 
 def ntxent_backward_plain(z, lse, inv, g, temperature: float):
@@ -170,7 +166,6 @@ def ntxent_backward_cuda(z, lse, inv, g, temperature: float):
     plan = ntxent_backward_plan(
         n, d, aligned=z.data_ptr() % 16 == 0 and dz.data_ptr() % 16 == 0)
     lib = _native.library()
-    ntxent_backward_cuda.launches += 1
     _native.check(lib.sm3x_ntxent_bwd(
         z.data_ptr(), lse.data_ptr(), inv.data_ptr(), g.data_ptr(),
         dz.data_ptr(), p, n, d, plan["tile_rows"],
@@ -178,9 +173,6 @@ def ntxent_backward_cuda(z, lse, inv, g, temperature: float):
         int(plan["vec"]), float(temperature),
         _native.stream_handle(z.device)), "sm3x_ntxent_bwd")
     return dz
-
-
-ntxent_backward_cuda.launches = 0
 
 
 class NTXentFunction(torch.autograd.Function):

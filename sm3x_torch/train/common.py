@@ -228,37 +228,6 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
 
 # --- one update as a CUDA graph -------------------------------------------
 
-LAUNCH_TALLIES = ("launches", "variants", "shapes")
-
-
-def launch_tallies() -> dict:
-    """The host's counts of the port's kernel launches
-    (`sm3x_torch.ops.counted_kernels`): {(wrapper, attribute, key):
-    count}, `key` the kernel or shape counted in a dict of counts, None
-    for a plain count."""
-    from sm3x_torch.ops import counted_kernels
-
-    out = {}
-    for fn in counted_kernels():
-        for attr in LAUNCH_TALLIES:
-            v = getattr(fn, attr, None)
-            if isinstance(v, dict):
-                out.update({(fn, attr, k): n for k, n in v.items()})
-            elif v is not None:
-                out[fn, attr, None] = v
-    return out
-
-
-def add_launch_tallies(delta: dict, sign: int = 1) -> None:
-    """Add `delta` (`launch_tallies`' layout) to the wrappers' counts."""
-    for (fn, attr, key), n in delta.items():
-        if key is None:
-            setattr(fn, attr, getattr(fn, attr) + sign * n)
-        else:
-            counts = getattr(fn, attr)
-            counts[key] = counts.get(key, 0) + sign * n
-
-
 class GraphedStep:
     """A train step whose update replays as one CUDA graph.
 
@@ -278,8 +247,7 @@ class GraphedStep:
     first, which makes the optimizer's state and fires one-shot hooks, runs
     outside any capture.
 
-    A call returns copies of the graph's outputs. The kernels' host launch
-    counts that the capture made are added again at each replay. Counters:
+    A call returns copies of the graph's outputs. Counters:
     `trainer.graph_captures`, `trainer.graph_replays` and
     `trainer.graph_eager_steps`; a replay is the span `trainer.replay`
     inside `trainer.step`. The capture is thread-local: another thread's
@@ -291,7 +259,6 @@ class GraphedStep:
         self.graph = None
         self.shapes = None       # of the graph's inputs, or of the last call
         self.static = self.generators = self.packed = self.keys = None
-        self.launches = {}       # the kernels' host counts of one replay
 
     def __call__(self, *args) -> dict:
         *tensors, seed = args
@@ -310,7 +277,6 @@ class GraphedStep:
                 for g, s in zip(self.generators, self.eager.seeds(seed)):
                     g.manual_seed(s)
                 self.graph.replay()
-                add_launch_tallies(self.launches)
                 out = self.packed.clone()
             count("trainer.graph_replays")
         return dict(zip(self.keys, out.unbind()))
@@ -322,16 +288,10 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
-        before = launch_tallies()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self.eager.update(*self.static, self.generators)
             self.packed = torch.stack(list(out.values()))
         self.keys = list(out)
-        # the capture launched nothing: each replay counts its launches
-        self.launches = {k: n - before.get(k, 0)
-                         for k, n in launch_tallies().items()
-                         if n != before.get(k, 0)}
-        add_launch_tallies(self.launches, -1)
         self.graph = graph
         count("trainer.graph_captures")
 

@@ -37,6 +37,7 @@ from sm3x_torch.models.layers import BatchNorm, batch_norm_act, recomputing
 from sm3x_torch.models.resnet import build_resnet
 from sm3x_torch.ops import batchnorm_cuda as K
 from sm3x_torch.utils import profiling
+from sm3x_torch.utils.timing import traced_launches
 
 M, EPS = K.MOMENTUM, K.EPS
 
@@ -495,12 +496,14 @@ def test_k6_matches_float64_and_its_twin(card, rows, c, dtype):
 @pytest.mark.cuda
 def test_k6_repeats_its_bits_and_counts_launches(card):
     x, res, dy, w, b = _on_card(96 * 28 * 28, 512, torch.bfloat16, card, 7)
-    K.bn_forward_cuda.launches = K.bn_backward_cuda.launches = 0
-    a = _k6_step(x, res, dy, w, b, True, card)
-    again = _k6_step(x, res, dy, w, b, True, card)
+    steps = []
+    launched = traced_launches(lambda _: steps.append(
+        _k6_step(x, res, dy, w, b, True, card)), 2)
+    a, again = steps[-2:]
     for k, v in a.items():
         assert torch.equal(v, again[k]), k
-    assert (K.bn_forward_cuda.launches, K.bn_backward_cuda.launches) == (4, 4)
+    assert (launched["bn_forward_cuda"],
+            launched["bn_backward_cuda"]) == (4, 4)
 
 
 @pytest.mark.cuda

@@ -5,15 +5,16 @@ On the CPU: which runs take the graph and which the eager step, each with
 its reason; a reseeded generator draws, through `ssl_augment_batch`, what
 a fresh one draws; the update a graph records is the eager step on the
 generators `seeds` gives; `GraphedStep`'s own logic (when it captures,
-replays or steps eagerly, its counters, the kernels' host launch counts,
-and outputs that a later step leaves alone) around a stand-in for
+replays or steps eagerly, its counters, and outputs that a later step
+leaves alone) around a stand-in for
 `torch.cuda.CUDAGraph` whose replay runs the update again; and a
 checkpoint's optimizer groups keep the trainer's own `fused` and
 `capturable`.
 
 Marked `cuda` and skipped without a card: a small ResNet at 64 px, b8, two
 epochs of three steps, graphed against eager (losses, parameters and AdamW
-state; counters; host launch counts; a one-shot forward hook), checkpoints
+state; counters; each kernel's launches in the device trace of the
+second epoch; a one-shot forward hook), checkpoints
 from either resumed in the other, and the capture under the resident and
 the prefetch feed. On a machine without JAX:
 
@@ -239,23 +240,13 @@ class _StandInCapture:
 
 @pytest.fixture
 def toy_step(monkeypatch):
-    """A GraphedStep over a toy update that draws from two generators and
-    counts two K1 launches a call (a replay runs no Python, so the
-    stand-in's replay counts none), around the stand-in graph; the kernel
-    counts are put back afterwards."""
-    from sm3x_torch.ops import augment_cuda as K1
-
+    """A GraphedStep over a toy update that draws from two generators,
+    around the stand-in graph."""
     monkeypatch.setattr(torch.cuda, "graph", _StandInCapture)
-    monkeypatch.setattr(K1.photometric_cuda, "launches", 0)
-    monkeypatch.setattr(K1.photometric_cuda, "variants",
-                        {"band": 0, "scratch": 0})
     ran = []
 
     def update(x, hw, gens):
         ran.append(_PHASE[0])
-        if _PHASE[0] != "replay":
-            K1.photometric_cuda.launches += 2
-            K1.photometric_cuda.variants["band"] += 2
         return {"loss": x.float().mean() + torch.rand((), generator=gens[0]),
                 "part": hw.float().sum() * torch.rand((), generator=gens[1])}
 
@@ -270,16 +261,15 @@ def toy_step(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph",
                         functools.partial(_StandInGraph, step))
     step.ran = ran
-    return step, eager, K1.photometric_cuda
+    return step, eager
 
 
 def test_graphed_step_captures_at_the_second_call_and_replays_after(
         toy_step, recorder):
     """Call 1 eager; call 2 of the same shapes captures and replays at
     once; call 3 replays: every call one update, each replay's outputs
-    those of the eager step at its seed, the launch counts those of three
-    updates, and the counters 1 / 2 / 1."""
-    step, eager, k1 = toy_step
+    those of the eager step at its seed, and the counters 1 / 2 / 1."""
+    step, eager = toy_step
     xs = [_canvases("cpu", i) for i in range(3)]
     outs = [step(x, hw, 100 + i) for i, (x, hw) in enumerate(xs)]
     assert step.ran == ["run", "capture", "replay", "replay"]
@@ -287,8 +277,6 @@ def test_graphed_step_captures_at_the_second_call_and_replays_after(
         want = eager(x, hw, 100 + i)
         assert list(out) == ["loss", "part"]
         assert all(torch.equal(out[k], want[k]) for k in out)
-    assert k1.launches == 2 * (3 + 3)            # the steps, then `want`
-    assert k1.variants == {"band": 12, "scratch": 0}
     assert _counters(recorder) == {"trainer.graph_captures": 1,
                                    "trainer.graph_replays": 2,
                                    "trainer.graph_eager_steps": 1}
@@ -297,7 +285,7 @@ def test_graphed_step_captures_at_the_second_call_and_replays_after(
 def test_graphed_step_returns_its_own_tensors(toy_step):
     """A step's metrics are copies: the next replay, which rewrites the
     graph's outputs, leaves them as they were."""
-    step, _, _ = toy_step
+    step, _ = toy_step
     x, hw = _canvases("cpu")
     step(x, hw, 1)
     first = step(x, hw, 2)
@@ -314,7 +302,7 @@ def test_graphed_step_steps_eagerly_off_its_shapes_and_under_anomaly(
     """A call of other shapes than the graph's, and a call under anomaly
     mode (the NaN checks), take the eager step, counted; the graph stays
     and replays at its shapes again."""
-    step, eager, _ = toy_step
+    step, eager = toy_step
     x, hw = _canvases("cpu")
     step(x, hw, 1)
     step(x, hw, 2)
@@ -332,7 +320,7 @@ def test_graphed_step_steps_eagerly_off_its_shapes_and_under_anomaly(
 
 def test_graphed_step_waits_for_two_calls_of_one_shape(toy_step):
     """Shapes that change from call to call never capture."""
-    step, _, _ = toy_step
+    step, _ = toy_step
     x, hw = _canvases("cpu")
     for n in (8, 4, 8, 4):
         step(x[:n], hw[:n], n)
@@ -384,20 +372,14 @@ def _data():
     return synthetic_paired_data(CASES, canvas=CANVAS, seed=1)
 
 
-def _launched(before: dict) -> dict:
-    """The host launch counts since `before` (a `launch_tallies()`), by
-    (wrapper, attribute, key), where not 0."""
-    return {(fn.__name__, attr, key): n - before.get((fn, attr, key), 0)
-            for (fn, attr, key), n in common.launch_tallies().items()
-            if n != before.get((fn, attr, key), 0)}
-
-
 def _card_run(tmp_path, graphed: bool, feed: str = "resident"):
     """Two epochs through `train_epoch`; the losses, the parameters, AdamW's
-    state, the counters, the host launch counts and the one-shot hook's
-    calls. The eager run is the same trainer with its eager step (the same
-    fused AdamW)."""
+    state, the counters, each kernel's launches in the device trace of the
+    second epoch (all replays where the step is graphed) and the one-shot
+    hook's calls. The eager run is the same trainer with its eager step
+    (the same fused AdamW)."""
     from sm3x_torch.data.prefetch import wrap_from_config
+    from sm3x_torch.utils.timing import traced_launches
 
     cfg = _cfg("cuda", tmp_path)
     cfg.data.device_feed = feed
@@ -415,13 +397,14 @@ def _card_run(tmp_path, graphed: bool, feed: str = "resident"):
     data = wrap_from_config(_data(), tr.device, cfg.data)
     profiling.take()
     profiling.record(True)
-    before = common.launch_tallies()
     try:
-        losses = [tr.train_epoch(data, e)["step_losses"] for e in range(2)]
-        torch.cuda.synchronize()
+        losses = [tr.train_epoch(data, 0)["step_losses"]]
+        traced = []
+        launched = traced_launches(lambda _: traced.append(
+            tr.train_epoch(data, 1)["step_losses"]))
+        losses.append(traced[-1])
     finally:
         profiling.record(False)
-    launched = _launched(before)
     state = [t.detach().clone() for p in tr.model.parameters()
              for t in (p, tr.optimizer.state[p]["exp_avg"],
                        tr.optimizer.state[p]["exp_avg_sq"])]
@@ -440,7 +423,8 @@ def test_graphed_trainer_matches_the_eager_step_on_the_card(card, tmp_path):
     """Losses, parameters and AdamW's moments of six graphed steps against
     two eager runs: bitwise equal where the eager step repeats bitwise
     (deterministic algorithms), else within four times the eager runs' own
-    gap. Counters 1 / 5 / 1; the host launch counts of the eager run; the
+    gap. Counters 1 / 5 / 1; the eager run's kernel launches in the device
+    trace of the second epoch, every K1 launch the band kernel; the
     one-shot forward hook fires once, at the eager first step."""
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -454,7 +438,8 @@ def test_graphed_trainer_matches_the_eager_step_on_the_card(card, tmp_path):
                                    "trainer.graph_eager_steps": 1}
     assert eager[0]["counters"] == dict.fromkeys(COUNTERS, 0)
     assert graphed["launched"] == eager[0]["launched"]
-    assert graphed["launched"][("photometric_cuda", "launches", None)] == 24
+    assert graphed["launched"]["photometric_cuda"] == 12   # 4 a step
+    assert graphed["launched"]["band"] == 12
     assert graphed["fired"] == eager[0]["fired"] == 1
     flat = [sum(r["losses"], []) for r in (*eager, graphed)]
     assert len(flat[2]) == 6 and all(map(torch.isfinite,

@@ -43,6 +43,7 @@ from sm3x_torch.ops import attention as A3
 from sm3x_torch.ops import attention_cuda as K3
 from sm3x_torch.ops import copy_cuda as K4
 from sm3x_torch.ops import ntxent_cuda as K2
+from sm3x_torch.utils.timing import traced_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +66,14 @@ def card():
 def _close(got, want, rtol, atol):
     torch.testing.assert_close(got.double().cpu(), want.double().cpu(),
                                rtol=rtol, atol=atol)
+
+
+def _traced(fn):
+    """(fn()'s result, each kernel's launches in the device trace of the
+    call, by `sm3x_torch.ops.DEVICE_KERNELS`)."""
+    out = []
+    launched = traced_launches(lambda _: out.append(fn()))
+    return out[-1], launched
 
 
 def _k1_params(batch, card, seed):
@@ -111,14 +120,12 @@ def test_photometric_kernel_by_shape(card, batch, h, w, kernel):
                                          dtype=np.float32)).to(card)
     params = _k1_params(batch, card, seed=w)
     assert K1.photometric_plan(h, w)["kernel"] == kernel
-    before = dict(K1.photometric_cuda.variants)
-    got = K1.photometric_cuda(images, params, MEAN, STD)
-    again = K1.photometric_cuda(images, params, MEAN, STD)
+    (got, again), launched = _traced(lambda: [
+        K1.photometric_cuda(images, params, MEAN, STD) for _ in range(2)])
     want = K1.photometric_plain(images, params, MEAN, STD)
     torch.cuda.synchronize()
     other = "scratch" if kernel == "band" else "band"
-    assert K1.photometric_cuda.variants == {kernel: before[kernel] + 2,
-                                            other: before[other]}
+    assert (launched[kernel], launched[other]) == (2, 0)
     _close(got, want, rtol=1e-4, atol=1e-5)
     assert torch.equal(got, again)
 
@@ -187,15 +194,17 @@ def test_photometric_order_with_two_contrast_rounds(card):
 def test_photometric_counts_launches_and_checks_inputs(card):
     images = torch.rand(2, 8, 8, 3, device=card)
     params = _k1_params(2, card, seed=0)
-    before = K1.photometric_cuda.launches
-    K1.photometric(images, params, MEAN, STD)
-    assert K1.photometric_cuda.launches == before + 1
-    for bad in (images.double(), images[:, :, ::2], images[..., :2]):
+
+    def call_then_refuse():  # one launch, then none for the bad inputs
+        K1.photometric(images, params, MEAN, STD)
+        for bad in (images.double(), images[:, :, ::2], images[..., :2]):
+            with pytest.raises(ValueError):
+                K1.photometric_cuda(bad, params, MEAN, STD)
         with pytest.raises(ValueError):
-            K1.photometric_cuda(bad, params, MEAN, STD)
-    with pytest.raises(ValueError):
-        K1.photometric_cuda(images, params[:1], MEAN, STD)
-    assert K1.photometric_cuda.launches == before + 1
+            K1.photometric_cuda(images, params[:1], MEAN, STD)
+
+    _, launched = _traced(call_then_refuse)
+    assert launched["photometric_cuda"] == 1
 
 
 # the last five are K2b's: D beyond 512 (two tiles of 32-column blocks),
@@ -279,13 +288,17 @@ def test_ntxent_function_takes_a_projection_wider_than_512(card):
     w = torch.from_numpy(rng.random(8, dtype=np.float32))
     zc = torch.from_numpy(z).to(card).requires_grad_(True)
     zp = torch.from_numpy(z).requires_grad_(True)
-    fwd, bwd = K2.ntxent_forward_cuda.launches, K2.ntxent_backward_cuda.launches
-    loss = K2.ntxent_problems_loss(zc, 0.1)
-    (loss * w.to(card)).sum().backward()
+
+    def run():
+        loss = K2.ntxent_problems_loss(zc, 0.1)
+        (loss * w.to(card)).sum().backward()
+        return loss
+
+    loss, launched = _traced(run)
     loss_p = K2.ntxent_forward_plain(zp, 0.1)[0]
     (loss_p * w).sum().backward()
-    assert K2.ntxent_forward_cuda.launches == fwd + 1
-    assert K2.ntxent_backward_cuda.launches == bwd + 1
+    assert launched["ntxent_forward_cuda"] == 1
+    assert launched["ntxent_backward_cuda"] == 1
     _close(loss, loss_p, rtol=1e-5, atol=1e-6)
     _close(zc.grad, zp.grad, rtol=1e-4, atol=1e-6)
 
@@ -309,11 +322,11 @@ def test_ntxent_function_on_card_matches_cpu_autograd(card):
     w = torch.from_numpy(rng.random(4, dtype=np.float32))
     zc = torch.from_numpy(z).to(card).requires_grad_(True)
     zp = torch.from_numpy(z).requires_grad_(True)
-    fwd, bwd = K2.ntxent_forward_cuda.launches, K2.ntxent_backward_cuda.launches
-    (K2.ntxent_problems_loss(zc, 0.1) * w.to(card)).sum().backward()
+    _, launched = _traced(lambda: (K2.ntxent_problems_loss(zc, 0.1)
+                                   * w.to(card)).sum().backward())
     (K2.ntxent_forward_plain(zp, 0.1)[0] * w).sum().backward()
-    assert K2.ntxent_forward_cuda.launches == fwd + 1
-    assert K2.ntxent_backward_cuda.launches == bwd + 1
+    assert launched["ntxent_forward_cuda"] == 1
+    assert launched["ntxent_backward_cuda"] == 1
     _close(zc.grad, zp.grad, rtol=1e-4, atol=1e-6)
 
 
@@ -394,12 +407,9 @@ def test_multicrop_and_trimodal_losses_on_card_match_cpu(card, kind):
         total.backward()
         return total.detach(), parts, [x.grad for x in t]
 
-    before = (K2.ntxent_forward_cuda.launches,
-              K2.ntxent_backward_cuda.launches)
-    total_c, parts_c, grads_c = run(card)
-    assert (K2.ntxent_forward_cuda.launches,
-            K2.ntxent_backward_cuda.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+    (total_c, parts_c, grads_c), launched = _traced(lambda: run(card))
+    assert (launched["ntxent_forward_cuda"],
+            launched["ntxent_backward_cuda"]) == (1, 1)
     total_p, parts_p, grads_p = run("cpu")
     _close(total_c, total_p, rtol=1e-5, atol=1e-6)
     for k in parts_p:
@@ -541,15 +551,18 @@ def test_flash_backward_refuses_bf16_rows_off_16_bytes(card):
                 torch.randn(b, s, h, d + 4, device=card, dtype=dtype)[..., :d])
 
     lse = torch.zeros(b, h, s, device=card)
-    before = [K3.flash_backward_dq_cuda.launches,
-              K3.flash_backward_dkv_cuda.launches]
-    for x in layouts(torch.bfloat16):
-        with pytest.raises(ValueError, match="16-byte"):
-            K3.flash_backward_dq_cuda(x, x, x, x, x, lse, 0.125)
-        with pytest.raises(ValueError, match="16-byte"):
-            K3.flash_backward_dkv_cuda(x, x, x, x, lse, lse, 0.125)
-    assert [K3.flash_backward_dq_cuda.launches,
-            K3.flash_backward_dkv_cuda.launches] == before
+    bad = layouts(torch.bfloat16)
+
+    def refused():
+        for x in bad:
+            with pytest.raises(ValueError, match="16-byte"):
+                K3.flash_backward_dq_cuda(x, x, x, x, x, lse, 0.125)
+            with pytest.raises(ValueError, match="16-byte"):
+                K3.flash_backward_dkv_cuda(x, x, x, x, lse, lse, 0.125)
+
+    _, launched = _traced(refused)
+    assert [launched["flash_backward_dq_cuda"],
+            launched["flash_backward_dkv_cuda"]] == [0, 0]
     q, k = layouts(torch.float32)
     out, lse = K3.flash_forward_cuda(q, k, k, 0.125)
     dq, delta = K3.flash_backward_dq_cuda(q, k, k, out, q, lse, 0.125)
@@ -572,46 +585,51 @@ def test_flash_forward_refuses_bf16_rows_off_16_bytes(card):
     wide = torch.randn(b, s, h, d + 4, device=card,
                        dtype=torch.bfloat16)[..., :d]
     good = torch.randn(b, s, h, d, device=card, dtype=torch.bfloat16)
-    before = K3.flash_forward_cuda.launches
-    for bad in (off, wide):
-        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+
+    def refused():
+        for bad in (off, wide):
+            for args in ((bad, good, good), (good, bad, good),
+                         (good, good, bad)):
+                with pytest.raises(ValueError, match="16-byte"):
+                    K3.flash_forward_cuda(*args, 0.125)
             with pytest.raises(ValueError, match="16-byte"):
-                K3.flash_forward_cuda(*args, 0.125)
-        with pytest.raises(ValueError, match="16-byte"):
-            A3.flash_attention(bad, good, good)
-    assert K3.flash_forward_cuda.launches == before
-    K3.flash_forward_cuda(good, good, good, 0.125)
-    assert K3.flash_forward_cuda.launches == before + 1
+                A3.flash_attention(bad, good, good)
+
+    assert _traced(refused)[1]["flash_forward_cuda"] == 0
+    _, launched = _traced(lambda: K3.flash_forward_cuda(good, good, good,
+                                                        0.125))
+    assert launched["flash_forward_cuda"] == 1
 
 
 def test_flash_backward_runs_fma_for_float32_and_mma_for_bf16(card):
-    """Counted per kernel on the wrappers, directly and through the autograd
-    Function: float32 runs the FMA kernels, bf16 the tensor-core ones, the
-    forward as the backward."""
-    k3b = (K3.flash_forward_cuda, K3.flash_backward_dq_cuda,
-           K3.flash_backward_dkv_cuda)
-    for dtype, kind in ((torch.float32, "fma"), (torch.bfloat16, "mma")):
+    """Counted per kernel in the device trace, directly and through the
+    autograd Function: float32 runs the FMA kernels, bf16 the tensor-core
+    ones, the forward as the backward."""
+    for dtype, kind, other in ((torch.float32, "fma", "mma"),
+                               (torch.bfloat16, "mma", "fma")):
         q, k, v, do = _qkv((2, 65, 3, 64), dtype, card, seed=2)
-        before = [dict(fn.variants) for fn in k3b]
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        A3.flash_attention(*leaves).backward(do)
-        out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
-        _, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
-        K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
-        for fn, was in zip(k3b, before):
-            want = dict(was)
-            want[kind] += 2
-            assert fn.variants == want
+
+        def run():
+            A3.flash_attention(*leaves).backward(do)
+            out, lse = K3.flash_forward_cuda(q, k, v, 0.125)
+            _, delta = K3.flash_backward_dq_cuda(q, k, v, out, do, lse, 0.125)
+            K3.flash_backward_dkv_cuda(q, k, v, do, lse, delta, 0.125)
+
+        _, launched = _traced(run)
+        assert [launched[name] for name in (
+            "flash_forward_cuda", "flash_backward_dq_cuda",
+            "flash_backward_dkv_cuda")] == [2, 2, 2]
+        assert (launched[kind], launched[other]) == (6, 0)
 
 
 def test_flash_function_on_card_matches_cpu_and_counts(card):
     q, k, v, do = _qkv((2, 197, 12, 64), torch.float32, card, seed=3)
-    counters = (K3.flash_forward_cuda, K3.flash_backward_dq_cuda,
-                K3.flash_backward_dkv_cuda)
-    before = [fn.launches for fn in counters]
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    A3.flash_attention(*leaves).backward(do)
-    assert [fn.launches for fn in counters] == [n + 1 for n in before]
+    _, launched = _traced(lambda: A3.flash_attention(*leaves).backward(do))
+    assert [launched[name] for name in (
+        "flash_forward_cuda", "flash_backward_dq_cuda",
+        "flash_backward_dkv_cuda")] == [1, 1, 1]
     cpu = [t.cpu().requires_grad_(True) for t in (q, k, v)]
     out_c = A3.attention_xla(*cpu)
     out_c.backward(do.cpu())
@@ -621,30 +639,30 @@ def test_flash_function_on_card_matches_cpu_and_counts(card):
 
 def test_flash_kernels_check_inputs(card):
     q = torch.randn(2, 10, 3, 64, device=card)
-    before = K3.flash_forward_cuda.launches
-    for bad in (torch.randn(2, 10, 3, 32, device=card),
-                torch.randn(2, 10, 3, 128, device=card), q.double(),
-                q.half(), q.cpu(),
-                torch.randn(2, 10, 3, 128, device=card)[..., ::2]):
-        with pytest.raises(ValueError):
-            K3.flash_forward_cuda(bad, bad, bad, 0.125)
-    with pytest.raises(ValueError):  # shapes that differ
-        K3.flash_forward_cuda(q, q[:, :5], q[:, :5], 0.125)
-    with pytest.raises(ValueError):  # dtypes that differ
-        K3.flash_forward_cuda(q, q.bfloat16(), q, 0.125)
-    with pytest.raises(ValueError):  # a D != 64 input raises on the card
-        A3.flash_attention(*(torch.randn(2, 10, 3, 32, device=card),) * 3)
-    assert K3.flash_forward_cuda.launches == before
+
+    def refused():
+        for bad in (torch.randn(2, 10, 3, 32, device=card),
+                    torch.randn(2, 10, 3, 128, device=card), q.double(),
+                    q.half(), q.cpu(),
+                    torch.randn(2, 10, 3, 128, device=card)[..., ::2]):
+            with pytest.raises(ValueError):
+                K3.flash_forward_cuda(bad, bad, bad, 0.125)
+        with pytest.raises(ValueError):  # shapes that differ
+            K3.flash_forward_cuda(q, q[:, :5], q[:, :5], 0.125)
+        with pytest.raises(ValueError):  # dtypes that differ
+            K3.flash_forward_cuda(q, q.bfloat16(), q, 0.125)
+        with pytest.raises(ValueError):  # a D != 64 input raises on the card
+            A3.flash_attention(*(torch.randn(2, 10, 3, 32, device=card),) * 3)
+
+    assert _traced(refused)[1]["flash_forward_cuda"] == 0
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, 1_000_003, 3 * 2 ** 20 + 2])
 def test_copy_kernel_is_exact(card, n):
     x = torch.randn(n + 1, device=card)
     for src in (x[:n], x[1:]):  # 16-byte aligned, and 4 bytes off
-        before = K4.copy_cuda.launches
-        y = K4.copy(src)
-        torch.cuda.synchronize()
-        assert K4.copy_cuda.launches == before + 1
+        y, launched = _traced(lambda: K4.copy(src))
+        assert launched["copy_cuda"] == 1
         assert y.shape == src.shape and torch.equal(y, src)
 
 
@@ -689,9 +707,9 @@ def test_vit_with_flash_on_card_matches_cpu(card):
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((3, 32, 32, 3)))
     proj = torch.from_numpy(rng.standard_normal((3, 128))) / 100
-    before = K3.flash_backward_dkv_cuda.launches
-    (gpu(x.float().to(card)) * proj.float().to(card)).sum().backward()
-    assert K3.flash_backward_dkv_cuda.launches == before + 2
+    _, launched = _traced(lambda: (gpu(x.float().to(card))
+                                   * proj.float().to(card)).sum().backward())
+    assert launched["flash_backward_dkv_cuda"] == 2
     (cpu(x) * proj).sum().backward()
     for p, q in zip(gpu.parameters(), cpu.parameters()):
         _close(p.grad, q.grad, rtol=2e-4, atol=2e-5)
@@ -716,9 +734,9 @@ def test_photometric_at_the_supervised_presets(card, preset, batch, size):
     assert 0 < float(params[:, K1.P_DO_FLIP].sum()) < batch
     images = torch.rand((batch, size, size, 3), device=card,
                         generator=torch.Generator(device=card).manual_seed(4))
-    before = dict(K1.photometric_cuda.variants)
-    got = K1.photometric_cuda(images, params, MEAN, STD)
-    assert K1.photometric_cuda.variants["band"] == before["band"] + 1
+    got, launched = _traced(lambda: K1.photometric_cuda(images, params, MEAN,
+                                                        STD))
+    assert launched["band"] == 1
     _close(got, K1.photometric_plain(images, params, MEAN, STD),
            rtol=1e-4, atol=1e-5)
     # what is left of the chain, written out: a flip, then the normalise
@@ -739,10 +757,9 @@ def test_photometric_at_the_local_views(card):
                         generator=torch.Generator(device=card).manual_seed(4))
     gen = torch.Generator(device=card).manual_seed(3)
     params = K1.build_params(gen, 576, A.SSL_AUG, card)
-    before = dict(K1.photometric_cuda.variants)
-    got = K1.photometric_cuda(images, params, MEAN, STD)
-    assert K1.photometric_cuda.variants == dict(before,
-                                                band=before["band"] + 1)
+    got, launched = _traced(lambda: K1.photometric_cuda(images, params, MEAN,
+                                                        STD))
+    assert (launched["band"], launched["scratch"]) == (1, 0)
     _close(got, K1.photometric_plain(images, params, MEAN, STD),
            rtol=1e-4, atol=1e-5)
 
@@ -753,9 +770,9 @@ def test_photometric_at_the_local_views(card):
         np.int32)).to(card)
     crops = dict(size_crops=(64, 32), nmb_crops=(2, 3),
                  min_scale_crops=(0.5, 0.14), max_scale_crops=(1.0, 0.5))
-    launches = K1.photometric_cuda.launches
-    views = A.multicrop_augment_batch(9, canv, hw, MEAN, STD, **crops)
-    assert K1.photometric_cuda.launches == launches + 2
+    views, launched = _traced(lambda: A.multicrop_augment_batch(
+        9, canv, hw, MEAN, STD, **crops))
+    assert launched["photometric_cuda"] == 2
     import dataclasses
 
     for idx in range(5):
@@ -790,11 +807,11 @@ def test_supervised_train_step_on_card_matches_cpu(card, finetune):
     gpu_model.to(card)
     data = SyntheticPairedData(8, canvas=96, seed=4)
     aug = dataclasses.replace(A.FINETUNE_AUG, out_size=(64, 64))
-    before = K1.photometric_cuda.launches
-    d, c = augment_pair(11, *(torch.from_numpy(x).to(card) for x in (
-        data.derm, data.derm_hw, data.clinic, data.clinic_hw)), MEAN, STD,
-        aug, False)
-    assert K1.photometric_cuda.launches == before + 2
+    tensors = [torch.from_numpy(x).to(card) for x in (
+        data.derm, data.derm_hw, data.clinic, data.clinic_hw)]
+    (d, c), launched = _traced(lambda: augment_pair(11, *tensors, MEAN, STD,
+                                                    aug, False))
+    assert launched["photometric_cuda"] == 2
     labels = torch.from_numpy(data.labels).long()
     out = {}
     for name, model, dev in (("cpu", cpu_model, "cpu"),

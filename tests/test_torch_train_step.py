@@ -192,17 +192,23 @@ def test_three_steps_match_jax_with_the_graphed_trainers_adamw(reference):
     _three_steps(reference, fused=True)
 
 
-def test_three_steps_match_jax_vit(vit_reference):
+def _launch(*args, **kwargs):
+    """A kernel wrapper's stand-in: the CPU path must not reach one."""
+    raise AssertionError("the CPU path called a kernel's wrapper")
+
+
+def test_three_steps_match_jax_vit(vit_reference, monkeypatch):
     from sm3x_torch.ops import attention_cuda
 
-    before = attention_cuda.flash_forward_cuda.launches
+    for name in ("flash_forward_cuda", "flash_backward_dq_cuda",
+                 "flash_backward_dkv_cuda"):
+        monkeypatch.setattr(attention_cuda, name, _launch)
     # the projector's first BN removes any shift shared by the batch, so
     # ln_final.bias has a zero gradient in exact arithmetic; AdamW scales
     # what rounding leaves by lr / eps, and the reference's float32 moments
     # move half its entries by up to 5e-2 x lr: held at 3 x lr only
     _three_steps(vit_reference, loose=("ln_final.bias",), arch="vit_cut",
                  remat="flash")
-    assert attention_cuda.flash_forward_cuda.launches == before
 
 
 def test_fast_step_then_a_standard_step_match_jax(reference):
@@ -250,7 +256,7 @@ def test_synthetic_source_matches_jax_package():
     assert [int(b.mask.sum()) for b in batches] == [4, 4, 2]
 
 
-def test_trainer_fit_on_synthetic_canvases(tmp_path):
+def test_trainer_fit_on_synthetic_canvases(tmp_path, monkeypatch):
     """SSLTrainer.fit, the entry point of the card's smoke run, on the CPU:
     finite per-step losses, rank-0 ckp_0.pth, and no kernel launched."""
     from sm3x_torch.core.config import SSLConfig
@@ -264,13 +270,12 @@ def test_trainer_fit_on_synthetic_canvases(tmp_path):
     cfg.optim.batch_size, cfg.optim.epochs, cfg.optim.amp = 8, 1, False
     cfg.run.device, cfg.run.world_size = "cpu", 2
     cfg.run.log_path, cfg.run.ckpt_freq = str(tmp_path), 100
-    counters = (augment_cuda.photometric_cuda, ntxent_cuda.ntxent_forward_cuda,
-                ntxent_cuda.ntxent_backward_cuda)
-    before = [fn.launches for fn in counters]
+    monkeypatch.setattr(augment_cuda, "photometric_cuda", _launch)
+    monkeypatch.setattr(ntxent_cuda, "ntxent_forward_cuda", _launch)
+    monkeypatch.setattr(ntxent_cuda, "ntxent_backward_cuda", _launch)
     hist = SSLTrainer(cfg).fit(SyntheticPairedData(16, canvas=48, seed=0))
     losses = hist[0]["step_losses"]
     assert len(losses) == 2 and all(np.isfinite(losses))
-    assert [fn.launches for fn in counters] == before
     assert (tmp_path / "ckp_0.pth").exists()
 
 

@@ -18,7 +18,8 @@ line a feed: the JAX tool's `metric` (ssl_feed_{feed}_images_per_sec),
 `value` (the median over the timed epochs of 4 x batch x steps / seconds)
 and `unit`, and `device`: the card's name and power limit as nvidia-smi
 gives them, or "cpu". Standard error gets one line a feed with the epochs'
-seconds and the kernels' launches.
+seconds and, on a card, each kernel's launches in the device trace of one
+more epoch after the timed ones.
 
     python tools/bench_prefetch_torch.py [n_cases] [batch] [epochs] [arch]
                                         # 160 32 4 resnet50
@@ -42,13 +43,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CACHE_SIZE = 256   # the canvas side, as the JAX tool's
-
-
-def kernel_counts() -> dict:
-    """Every kernel wrapper's launch count, by name."""
-    from sm3x_torch.ops import counted_kernels
-
-    return {fn.__name__: fn.launches for fn in counted_kernels()}
 
 
 def main(argv=None) -> int:
@@ -82,7 +76,8 @@ def main(argv=None) -> int:
     from sm3x_torch.data.prefetch import PrefetchData
     from sm3x_torch.data.synthetic import make_fake_derm7pt
     from sm3x_torch.train.backbone_train import SSLTrainer
-    from sm3x_torch.utils.timing import nvidia_smi_name_and_limit
+    from sm3x_torch.utils.timing import (nvidia_smi_name_and_limit,
+                                         traced_launches)
 
     batch, arch = args.batch, args.arch
     quiet = logging.getLogger("bench_prefetch_torch")  # stdout is the JSON's
@@ -118,7 +113,6 @@ def main(argv=None) -> int:
         }
         name_and_limit = nvidia_smi_name_and_limit() if on_card else "cpu"
         for name, make in variants.items():
-            before = kernel_counts()
             feed = make()
             trainer.train_epoch(feed, 0)  # warm: cuDNN, allocator, upload
             seconds, rates = [], []
@@ -127,10 +121,14 @@ def main(argv=None) -> int:
                 trainer.train_epoch(feed, e)  # ends with a loss value read
                 seconds.append(time.perf_counter() - t0)
                 rates.append(4 * batch * steps / seconds[-1])
-            launches = {k: v - before[k] for k, v in kernel_counts().items()}
+            traced = ""
+            if on_card:  # the profiler stays out of the timed epochs
+                launches = traced_launches(
+                    lambda _: trainer.train_epoch(feed, args.epochs))
+                traced = (f", kernel launches in a traced epoch "
+                          f"{json.dumps(launches)}")
             print(f"[{name}] {args.epochs} epochs of {steps} steps, timed "
-                  f"seconds {seconds}, kernel launches "
-                  f"{json.dumps(launches)}", file=sys.stderr)
+                  f"seconds {seconds}{traced}", file=sys.stderr)
             print(json.dumps({
                 "metric": f"ssl_feed_{name}_images_per_sec",
                 "value": statistics.median(rates),

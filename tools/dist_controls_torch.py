@@ -44,7 +44,7 @@ CONTROLS = {
 }
 
 READING = re.compile(r"step \d+: loss|parameters after|BatchNorm\(\d+\) on|"
-                     r"launches in fit|leg [ABC]|Error")
+                     r"kernel launches a step|leg [ABC]|Error")
 
 
 def summarise(text: str) -> dict:
